@@ -5,29 +5,42 @@ Run from the root of a checkout:
 
     python3 chip_smoke.py
 
-It builds the CUDA kernels of ``kvmatch_tpu_torch/csrc`` with nvcc, then
-runs seven phases, each printing one JSON line tagged with the card's name
-and power limit:
+It builds the CUDA kernels of ``kvmatch_tpu_torch/csrc`` with nvcc (one
+nvcc per source, in parallel), then runs these phases, each printing one
+JSON line tagged with the card's name and power limit and its seconds
+(``phase_s``):
 
-1. env      -- torch/CUDA versions, the card, the kernel build seconds;
-2. kernels  -- K1 (dense probe) on the n=1e8 cached bucket stack with the
-               8 north-star plans, and K2 (window distances, raw and z-norm)
-               at B=16384, L=8192, each against its plain PyTorch version,
-               with both times;
-3. fft      -- the cuFFT f32 correlation error at the region shape
-               (M=8192, L=8192) against f64, as a share of FFT_ERR_C;
-4. exact    -- n=1e6 answer sets against the port's float64 brute-force
-               oracle: cNSM-ED self-queries at L=1024 and 8192, and the
-               RSM-ED README demo;
-5. main     -- cNSM-ED at n=1e8, L=8192, 8 self-queries, eps=4,
-               alpha=1.2, beta=5 (bench.py's north star): device build,
-               one warm batch, 3 timed batches, then each query alone
-               through engine.query (the latency path); launch counts of
-               K1 and K2 over both;
-6. routing  -- the same batch with phase 2 routed as a whole (the
-               engine's policy) against routed per query, in turns;
-7. profile  -- host spans of the engine's phases and a torch.profiler
-               device trace of one batch: kernel time by name, idle share.
+1. env       -- torch/CUDA versions, the card, the kernel build seconds;
+   build     -- n=1e8 series upload and the stats-only index build;
+2. kernels   -- each kernel against its plain PyTorch version, with both
+                times: K1 (dense probe) on the n=1e8 cached bucket stack
+                with the 8 north-star cNSM-ED plans and the 8 cNSM-DTW
+                envelope plans; K2 (window distances, raw and z-norm) at
+                B=16384, L=8192; K3 (dtw_diag), K4 (dtw_rows) and the
+                double-single DP (dtw_ds) on one bucket of B=1024 windows,
+                L=8192, r=409, raw and z-normed;
+3. fft       -- the cuFFT f32 correlation error at the region shape
+                (M=8192, L=8192) against f64, as a share of FFT_ERR_C;
+4. exact     -- n=1e6 answer sets against the port's float64 brute-force
+                oracle: cNSM-ED self-queries at L=1024 and 8192, and the
+                RSM-ED README demo;
+   exact_dtw -- n=1e6 RSM-DTW (L=1024, rho=51) and cNSM-DTW (L=1024,
+                rho=51; L=8192, rho=409) answer sets against the oracle,
+                each with K3 and with the K4 variant;
+5. main      -- cNSM-ED at n=1e8, L=8192, 8 self-queries, eps=4,
+                alpha=1.2, beta=5 (bench.py's north star): one warm batch,
+                3 timed batches, then each query alone through engine.query
+                (the latency path); launch counts of K1 and K2 over both;
+   main_dtw  -- cNSM-DTW at n=1e8, L=8192, rho=409 on the same series,
+                index and the first 4 queries (MAIN_DTW_QUERIES): one warm
+                batch, 2 timed batches with their stage counts; then RSM-DTW (L=1024, rho=51, eps=6)
+                on the same offsets, each query alone through engine.query;
+                launch counts of K1, K3, K4 and DS;
+6. routing   -- the cNSM-ED batch with phase 2 routed as a whole (the
+                engine's policy) against routed per query, in turns;
+7. profile   -- host spans of the cNSM-ED engine's phases and a
+                torch.profiler device trace of one batch: kernel time by
+                name, idle share.
 
 Then the kernel table ({"kernels": [...]}), the nvidia-smi name/power line
 and, last, {"ok": true, "device": {...}}.  A failing phase raises and the
@@ -51,6 +64,19 @@ L_MAIN = 8192
 N_MAIN = 100_000_000
 ALPHA, BETA, EPS = 1.2, 5.0, 4.0
 K2_BATCH = 16384  # verify.bucket_size's cap for rows of width 8192
+RHO_MAIN = 409    # 0.05 L, bench.py:328
+DTW_BATCH = 1024  # one DP bucket of the kernels phase
+L_RSM_DTW, RHO_RSM, EPS_RSM = 1024, 51, 6.0  # bench.py:257-265
+# cNSM-DTW batches of main_dtw take the first 4 of the 8 north-star queries:
+# five of the eight flood (2.8M-9.4M candidates, up to 6.9M DP rows at
+# ~62K rows/s on an H100), and all eight cost 195 s one by one -- over
+# the 2-minute budget of one batch; the first four (one flood) take about
+# 112 s.  n and L are not cut.
+MAIN_DTW_QUERIES = 4
+# exact_dtw: (engine, n, L, rho, eps)
+DTW_EXACT_SHAPES = (("rsm_dtw", 1_000_000, L_RSM_DTW, RHO_RSM, EPS_RSM),
+                    ("cnsm_dtw", 1_000_000, 1024, 51, EPS),
+                    ("cnsm_dtw", 1_000_000, L_MAIN, RHO_MAIN, EPS))
 
 
 def card_line() -> str:
@@ -85,22 +111,24 @@ def self_queries(data, n_queries: int, length: int, seed: int):
     return offs, np.stack([data[o:o + length] for o in offs])
 
 
-def norm_ctxs(queries, eps: float):
+def norm_ctxs(queries, eps: float, **params):
     from kvmatch_tpu_torch.engine.base import QueryStats, _Ctx
     return [_Ctx(query=q, length=q.size, epsilon=eps, eps2=eps * eps,
-                 params={"alpha": ALPHA, "beta": BETA}, stats=QueryStats())
+                 params={"alpha": ALPHA, "beta": BETA, **params},
+                 stats=QueryStats())
             for q in queries]
 
 
 # ------------------------------------------------------------- phase 2 ----
-def check_probe_kernel(eng, queries, device) -> dict:
+def check_probe_kernel(eng, queries, device, **params) -> dict:
     """K1 over the engine's cached bucket stack with the batch's plans,
-    against the plain version: counts and flags must be equal."""
+    against the plain version: counts and flags must be equal.  A cNSM-DTW
+    engine (``rho=``) plans envelope segments (mean_lo < mean_hi)."""
     import torch
     from kvmatch_tpu_torch.ops.probe import FLAG, probe_flags, probe_flags_plain
     from kvmatch_tpu_torch.parallel.query import pack_segments_batch
     L = queries.shape[1]
-    ctxs = norm_ctxs(queries, EPS)
+    ctxs = norm_ctxs(queries, EPS, **params)
     plans = eng._plan_batch(ctxs)
     bstack = eng._fly_bucket_stack(L)
     if bstack is None:
@@ -132,7 +160,9 @@ def check_probe_kernel(eng, queries, device) -> dict:
                 max_abs_err=count_err, flags_differ=flag_diff,
                 ms=timed_ms(lambda: run(probe_flags), 5, device),
                 plain_ms=timed_ms(lambda: run(probe_flags_plain), 1, device),
-                segments=[len(p) for p in plans])
+                segments=[len(p) for p in plans],
+                envelope_segments=sum(s.mean_lo < s.mean_hi
+                                      for p in plans for s in p))
 
 
 def check_window_kernel(data_dev, queries, device, batch: int) -> dict:
@@ -179,6 +209,82 @@ def check_window_kernel(data_dev, queries, device, batch: int) -> dict:
             ms=timed_ms(lambda: window_ed(*args), 20, device),
             plain_ms=timed_ms(lambda: window_ed_plain(*args), 5, device))
     return out
+
+
+def check_dtw_kernels(data_dev, queries, device, batch: int = DTW_BATCH,
+                      r: int = RHO_MAIN) -> dict:
+    """K3 (dtw_diag), K4 (dtw_rows) and the DS kernel on one DP bucket of
+    ``batch`` windows of the series against the north-star queries, raw and
+    z-normed.  K3 and K4: |d - d_plain| <= verify.guard_threshold(d_plain, L,
+    1e-2), and K3 within the same band of K4.  DS: hi + lo within
+    8 eps32 (d64 + 1) of the f64 DP of the same f32 inputs (the plain
+    version run in float64 on the card)."""
+    import numpy as np
+    import torch
+    from kvmatch_tpu_torch import verify
+    from kvmatch_tpu_torch.ops import dtw as td
+    from kvmatch_tpu_torch.ops.ed import _gather
+    Q, L = queries.shape
+    rng = np.random.default_rng(7)
+    offs = torch.as_tensor(rng.integers(0, data_dev.shape[0] - L + 1, batch),
+                           device=device)
+    qids = torch.as_tensor(rng.integers(0, Q, batch).astype(np.int32),
+                           device=device)
+    x = _gather(data_dev, offs, L)
+    z, _, _ = td._znorm_rows(x, L)
+    mu = queries.mean(axis=1, keepdims=True)
+    sd = queries.std(axis=1, keepdims=True)
+    eps32 = float(np.finfo(np.float32).eps)
+    qraw = torch.as_tensor(queries, dtype=torch.float32, device=device)
+    qhat = torch.as_tensor((queries - mu) / sd, dtype=torch.float32,
+                           device=device)
+    out = {}
+    for name, rows, qm in (("raw", x, qraw), ("znorm", z, qhat)):
+        args = (rows, qm, qids, r)
+        t0 = time.perf_counter()
+        plain = td.dtw_banded_plain(*args).double()
+        torch.cuda.synchronize(device)
+        res = dict(plain_ms=(time.perf_counter() - t0) * 1e3)
+        band = verify.guard_threshold(plain, L, 1e-2)
+        got = {}
+        for fn in (td.dtw_diag, td.dtw_rows):
+            got[fn.__name__] = d = fn(*args).double()
+            ratio = float(((d - plain).abs() / band).max())
+            if not ratio <= 1.0:
+                raise AssertionError(f"{fn.__name__} {name}: error "
+                                     f"{ratio} of the guard band")
+            res[fn.__name__] = dict(
+                max_abs_err=float((d - plain).abs().max()),
+                max_err_over_bound=ratio,
+                ms=timed_ms(lambda fn=fn: fn(*args), 3, device))
+        cross = float(((got["dtw_diag"] - got["dtw_rows"]).abs()
+                       / band).max())
+        if not cross <= 1.0:
+            raise AssertionError(f"K3 vs K4 {name}: {cross} of the band")
+        d64 = td.dtw_banded_plain(rows.double(), qm.double(), qids, r)
+        tol = 8.0 * eps32 * (d64 + 1.0)
+        hi, lo = td.dtw_ds(*args)
+        err = (hi.double() + lo.double() - d64).abs()
+        if not bool((err <= tol).all()):
+            raise AssertionError(f"dtw_ds {name}: error {float(err.max())} "
+                                 f"beyond 8 eps32 (d64 + 1)")
+        res.update(k3_vs_k4_over_bound=cross, dtw_ds=dict(
+            max_abs_err=float(err.max()),
+            max_err_over_bound=float((err / tol).max()),
+            ms=timed_ms(lambda: td.dtw_ds(*args), 3, device)),
+            d2_median=float(plain.median()))
+        out[name] = res
+        if name == "raw":
+            # The DS plain version: L rows of log-step pair scans, about 2M
+            # small launches; timed once, on the raw rows.
+            t0 = time.perf_counter()
+            hi, lo = td.dtw_banded_ds_plain(*args)
+            torch.cuda.synchronize(device)
+            err = (hi.double() + lo.double() - d64).abs()
+            res["dtw_ds"].update(
+                plain_ms=(time.perf_counter() - t0) * 1e3,
+                plain_max_err_over_bound=float((err / tol).max()))
+    return dict(batch=batch, L=L, r=r, **out)
 
 
 # ------------------------------------------------------------- phase 3 ----
@@ -266,6 +372,60 @@ def exact_small(device, n: int = 1_000_000, seed: int = 20260816,
     return out
 
 
+def exact_dtw(device, shapes=DTW_EXACT_SHAPES, seed: int = 20260816,
+              n_queries: int = 4) -> dict:
+    """DTW answer sets EQUAL the port's float64 oracle (on the card), each
+    shape run twice through ``query_batch``: with K3 (``dtw_diag``) and
+    with the K4 variant (``dtw_rows``) as the f32 DP."""
+    from kvmatch_tpu_torch import (IndexConfig, NormQueryEngineDtw,
+                                   QueryConfig, QueryEngineDtw,
+                                   generate_series, oracle)
+    from kvmatch_tpu_torch.index.device_build import build_index_device_stats
+    from kvmatch_tpu_torch.ops import dtw as td
+    from kvmatch_tpu_torch.state import series_to_device
+    icfg = IndexConfig()
+    qcfg = QueryConfig(dense_probe_min_count=0)
+    series = {}
+    out = []
+    for name, n, L, rho, eps in shapes:
+        if n not in series:
+            data, dev = series_to_device(generate_series(n, seed=seed),
+                                         device)
+            series[n] = (data, dev, build_index_device_stats(
+                data, icfg, data_dev=dev))
+        data, dev, index = series[n]
+        offs, qs = self_queries(data, n_queries, L, seed=1)
+        norm = name == "cnsm_dtw"
+        kw = dict(rho=rho, alpha=ALPHA, beta=BETA) if norm else dict(rho=rho)
+        t0 = time.perf_counter()
+        want = [oracle.cnsm_dtw(data, q, eps, rho, ALPHA, BETA, device=device)
+                if norm else oracle.rsm_dtw(data, q, eps, rho, device=device)
+                for q in qs]
+        row = dict(engine=name, n=n, L=L, rho=rho, eps=eps,
+                   oracle_s=time.perf_counter() - t0,
+                   answers=[int(w[0].size) for w in want])
+        eng = (NormQueryEngineDtw if norm else QueryEngineDtw)(
+            data, index=index, icfg=icfg, qcfg=qcfg, device_data=dev)
+        for variant in ("diag", "rows"):
+            td.DTW_STATE["variant"] = variant
+            try:
+                t0 = time.perf_counter()
+                res = eng.query_batch(qs, eps, **kw)
+                row[f"{variant}_s"] = time.perf_counter() - t0
+            finally:
+                td.DTW_STATE["variant"] = "diag"
+            for o, r, (w, _) in zip(offs, res, want):
+                if set(r.offsets.tolist()) != set(w.tolist()):
+                    raise AssertionError(
+                        f"{name} n={n} L={L} offset {o} ({variant}): answer "
+                        f"set differs from the oracle")
+                if int(o) not in r.offsets.tolist():
+                    raise AssertionError(f"{name} self-query {o} not found")
+            row[f"{variant}_stages"] = dict(eng.stage_counts)
+        out.append(row)
+    return dict(shapes=out, equal=True)
+
+
 # ------------------------------------------------------------- phase 5 ----
 def main_path(eng, offs, queries, reps: int = 3):
     """The serving batch: one warm run, then ``reps`` timed runs.  Returns
@@ -308,6 +468,53 @@ def single_queries(eng, queries, batch_res) -> dict:
             raise AssertionError("engine.query and query_batch answer sets "
                                  "differ")
     return dict(latency_ms_median=statistics.median(lat), latency_ms=lat)
+
+
+def main_dtw(eng, offs, queries, reps: int = 2) -> dict:
+    """cNSM-DTW serving batches: one warm batch, then ``reps`` timed ones
+    through ``query_batch``, with each batch's stage counts."""
+    import torch
+    kw = dict(rho=RHO_MAIN, alpha=ALPHA, beta=BETA)
+    t0 = time.perf_counter()
+    eng.query_batch(queries, EPS, **kw)
+    warm_s = time.perf_counter() - t0
+    qps, stages = [], []
+    for _ in range(reps):
+        t0 = time.perf_counter()
+        res = eng.query_batch(queries, EPS, **kw)
+        torch.cuda.synchronize(eng.device)
+        qps.append(len(queries) / (time.perf_counter() - t0))
+        stages.append(dict(eng.stage_counts))
+    return dict(
+        qps_median=statistics.median(qps), qps_reps=qps, warm_s=warm_s,
+        p1_ms_per_query=statistics.fmean(r.stats.t_phase1_ms for r in res),
+        p2_ms_per_query=statistics.fmean(r.stats.t_phase2_ms for r in res),
+        stages_per_batch=stages,
+        host_rechecks=sum(r.stats.n_host_rechecked for r in res),
+        answers=[int(r.offsets.size) for r in res],
+        self_found=sum(int(o) in r.offsets.tolist()
+                       for o, r in zip(offs, res)),
+        n_queries=len(queries))
+
+
+def rsm_dtw_singles(eng, data, offs, L: int = L_RSM_DTW, rho: int = RHO_RSM,
+                    eps: float = EPS_RSM) -> dict:
+    """RSM-DTW: each query alone through ``engine.query`` (the first one
+    once more before, as a warm-up)."""
+    import torch
+    queries = [data[o:o + L] for o in offs]
+    eng.query(queries[0], eps, rho=rho)
+    lat, found, stages = [], 0, []
+    for o, q in zip(offs, queries):
+        t0 = time.perf_counter()
+        r = eng.query(q, eps, rho=rho)
+        torch.cuda.synchronize(eng.device)
+        lat.append((time.perf_counter() - t0) * 1e3)
+        found += int(o) in r.offsets.tolist()
+        stages.append(dict(eng.stage_counts))
+    return dict(L=L, rho=rho, eps=eps, latency_ms_median=statistics.median(lat),
+                latency_ms=lat, self_found=found, n_queries=len(offs),
+                stages=stages)
 
 
 # ------------------------------------------------------------- phase 6 ----
@@ -449,9 +656,11 @@ def main() -> int:
               file=sys.stderr)
         return 2
     sys.path.insert(0, str(REPO))
-    from kvmatch_tpu_torch import (IndexConfig, NormQueryEngine, QueryConfig,
-                                   generate_series, kernels)
+    from kvmatch_tpu_torch import (IndexConfig, NormQueryEngine,
+                                   NormQueryEngineDtw, QueryConfig,
+                                   QueryEngineDtw, generate_series, kernels)
     from kvmatch_tpu_torch.index.device_build import build_index_device_stats
+    from kvmatch_tpu_torch.ops.dtw import dtw_diag, dtw_ds, dtw_rows
     from kvmatch_tpu_torch.ops.ed import window_ed
     from kvmatch_tpu_torch.ops.probe import probe_flags
     from kvmatch_tpu_torch.state import series_to_device
@@ -492,54 +701,125 @@ def main() -> int:
               build_mpts_per_s=builds[1]["mpts_per_second"],
               device_s=builds[1]["device_seconds"]))
 
-    k1 = check_probe_kernel(eng8, q8, device)
-    k2 = check_window_kernel(dev8, q8, device, K2_BATCH)
-    emit(dict(phase="kernels", card=card, k1=k1, k2=k2))
-    emit(dict(phase="fft", card=card, **fft_error(dev8, q8, device)))
-    emit(dict(phase="exact", card=card, **exact_small(device)))
+    def phase(name, fn, **tags):
+        t0 = time.perf_counter()
+        res = fn()
+        line = dict(phase=name, card=card, **tags)
+        line.update(res)
+        line["phase_s"] = time.perf_counter() - t0
+        emit(line)
+        return res
+
+    # The cNSM-DTW engine shares the resident series and the stats-only
+    # index (one index family serves all four engines, bench.py:325-326).
+    eng8d = NormQueryEngineDtw(data8, index=index8, icfg=icfg,
+                               qcfg=QueryConfig(dense_probe_min_count=0),
+                               device_data=dev8)
+    kern = phase("kernels", lambda: dict(
+        k1=check_probe_kernel(eng8, q8, device),
+        k1_dtw_plans=check_probe_kernel(eng8d, q8, device, rho=RHO_MAIN),
+        k2=check_window_kernel(dev8, q8, device, K2_BATCH),
+        dtw=check_dtw_kernels(dev8, q8, device)))
+    k1, k1d, k2, kd = (kern[k] for k in ("k1", "k1_dtw_plans", "k2", "dtw"))
+    phase("fft", lambda: fft_error(dev8, q8, device))
+    phase("exact", lambda: exact_small(device))
+    dtw_rows.launches = 0
+    phase("exact_dtw", lambda: exact_dtw(device))
+    rows_launches = dtw_rows.launches
 
     torch.cuda.reset_peak_memory_stats(device)
     probe_flags.launches = 0
     window_ed.launches = 0
-    main, batch_res = main_path(eng8, offs8, q8)
-    main.update(single_queries(eng8, q8, batch_res))
+
+    def ed_main():
+        main, batch_res = main_path(eng8, offs8, q8)
+        main.update(single_queries(eng8, q8, batch_res))
+        return main
+    main = phase("main", ed_main, n=N_MAIN, L=L_MAIN, eps=EPS, alpha=ALPHA,
+                 beta=BETA)
     launches = dict(probe_flags=probe_flags.launches,
                     window_ed=window_ed.launches)
-    main.update(peak_device_bytes=torch.cuda.max_memory_allocated(device),
-                launches=launches)
-    emit(dict(phase="main", card=card, n=N_MAIN, L=L_MAIN, eps=EPS,
-              alpha=ALPHA, beta=BETA, **main))
+    emit(dict(phase="main_launches", card=card, launches=launches,
+              peak_device_bytes=torch.cuda.max_memory_allocated(device)))
     if main["self_found"] != main["n_queries"]:
         raise AssertionError(f"self-queries found {main['self_found']}/"
                              f"{main['n_queries']}")
-    for name, count in launches.items():
+
+    torch.cuda.reset_peak_memory_stats(device)
+    for fn in (probe_flags, dtw_diag, dtw_rows, dtw_ds):
+        fn.launches = 0
+    reng8 = QueryEngineDtw(data8, index=index8, icfg=icfg,
+                           qcfg=QueryConfig(dense_probe_min_count=0),
+                           device_data=dev8)
+    mdtw = phase("main_dtw", lambda: dict(
+        cnsm=main_dtw(eng8d, offs8[:MAIN_DTW_QUERIES],
+                      q8[:MAIN_DTW_QUERIES]),
+        rsm=rsm_dtw_singles(reng8, data8, offs8)),
+        n=N_MAIN, L=L_MAIN, rho=RHO_MAIN, eps=EPS, alpha=ALPHA, beta=BETA)
+    dtw_launches = dict(probe_flags=probe_flags.launches,
+                        dtw_diag=dtw_diag.launches, dtw_rows=dtw_rows.launches,
+                        dtw_ds=dtw_ds.launches)
+    emit(dict(phase="main_dtw_launches", card=card, launches=dtw_launches,
+              peak_device_bytes=torch.cuda.max_memory_allocated(device)))
+    for part in ("cnsm", "rsm"):
+        r = mdtw[part]
+        if r["self_found"] != r["n_queries"]:
+            raise AssertionError(f"{part}-DTW self-queries found "
+                                 f"{r['self_found']}/{r['n_queries']}")
+    need = dict(probe_flags=launches["probe_flags"],
+                window_ed=launches["window_ed"],
+                dtw_diag=dtw_launches["dtw_diag"],
+                dtw_ds=dtw_launches["dtw_ds"], dtw_rows=rows_launches)
+    for name, count in need.items():
         if count < 1:
-            raise AssertionError(f"kernel {name} was not launched on the "
-                                 f"main path")
-    emit(dict(phase="routing", card=card, n=N_MAIN, L=L_MAIN,
-              **routing_ab(eng8, offs8, q8)))
-    emit(dict(phase="profile", card=card, n=N_MAIN, L=L_MAIN,
-              **profile_batch(eng8, q8)))
+            raise AssertionError(f"kernel {name} was not launched on its "
+                                 f"path")
+    phase("routing", lambda: routing_ab(eng8, offs8, q8), n=N_MAIN, L=L_MAIN)
+    phase("profile", lambda: profile_batch(eng8, q8), n=N_MAIN, L=L_MAIN)
     loaded = sorted(m for m in sys.modules if m.split(".")[0] == "jax")
     if loaded:
         raise AssertionError(f"the port loaded jax: {loaded[:5]}")
+
+    def dp_entry(name, replaces, key, launches_, launched_on):
+        return dict(
+            name=name, route="cuda", source="kvmatch_tpu_torch/csrc/dtw.cu",
+            replaces=replaces, launches=launches_, launched_on=launched_on,
+            max_abs_err=max(kd[v][key]["max_abs_err"] for v in
+                            ("raw", "znorm")),
+            max_err_over_bound=max(kd[v][key]["max_err_over_bound"]
+                                   for v in ("raw", "znorm")),
+            ms=kd["znorm"][key]["ms"])
 
     emit({"kernels": [
         dict(name="probe_flags", route="cuda",
              source="kvmatch_tpu_torch/csrc/probe.cu",
              replaces="kvmatch_tpu/ops/probe_pallas.py:63",
-             launches=launches["probe_flags"], max_abs_err=k1["max_abs_err"],
-             tolerance="counts and flags equal",
-             ms=k1["ms"], plain_ms=k1["plain_ms"]),
+             launches=launches["probe_flags"], launched_on="main",
+             max_abs_err=max(k1["max_abs_err"], k1d["max_abs_err"]),
+             tolerance="counts and flags equal (ED and DTW plans)",
+             ms=k1["ms"], plain_ms=k1["plain_ms"],
+             dtw_plans_ms=k1d["ms"], dtw_plans_plain_ms=k1d["plain_ms"]),
         dict(name="window_ed", route="cuda",
              source="kvmatch_tpu_torch/csrc/window_ed.cu",
              replaces="kvmatch_tpu/ops/pallas_ed.py:60",
-             launches=launches["window_ed"],
+             launches=launches["window_ed"], launched_on="main",
              max_abs_err=max(v["max_abs_err"] for v in k2.values()),
              max_err_over_bound=max(v["max_err_over_bound"]
                                     for v in k2.values()),
              tolerance="|d2 - d2_plain| <= 1e-5 L + 1e-5 d2",
              ms=k2["znorm"]["ms"], plain_ms=k2["znorm"]["plain_ms"]),
+        dict(dp_entry("dtw_diag", "kvmatch_tpu/ops/dtw_pallas.py:176",
+                      "dtw_diag", dtw_launches["dtw_diag"], "main_dtw"),
+             tolerance="|d - d_plain| <= guard_threshold(d_plain, L, 1e-2)",
+             plain_ms=kd["znorm"]["plain_ms"]),
+        dict(dp_entry("dtw_rows", "kvmatch_tpu/ops/dtw_pallas.py:52",
+                      "dtw_rows", rows_launches, "exact_dtw"),
+             tolerance="|d - d_plain| <= guard_threshold(d_plain, L, 1e-2)",
+             plain_ms=kd["znorm"]["plain_ms"]),
+        dict(dp_entry("dtw_ds", "kvmatch_tpu/ops/dtw.py:190", "dtw_ds",
+                      dtw_launches["dtw_ds"], "main_dtw"),
+             tolerance="|hi + lo - d64| <= 8 eps32 (d64 + 1)",
+             plain_ms=kd["raw"]["dtw_ds"]["plain_ms"]),
     ]})
     print(card, flush=True)
     emit({"ok": True, "device": {"platform": "gpu", "kind": kind,

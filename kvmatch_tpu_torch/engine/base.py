@@ -8,6 +8,9 @@ overridden here with tensors on an explicit device:
 
 * ``__init__``: f64 host shadow + f32 device tensor of the series; an index
   built with the host backend when none is given.
+* ``data_envelope_dev``: the series' Sakoe-Chiba envelope for the DTW
+  cascade, cached per band radius (``_run_chunked`` drives that cascade's
+  stages over unpadded chunks).
 * ``_fly_padded_dev``, ``_fly_cons_stats``, ``_fly_bucket_stack``: the
   per-series caches of the dense probe, gated on the device's free memory.
 * ``_dense_probe_retry``, ``_device_dense_phase1_flags``: phase 1 always
@@ -42,6 +45,7 @@ from kvmatch_tpu.index.structure import Index
 
 from .. import backend
 from ..ops.probe import FLAG
+from ..ops.sliding import sliding_min_max
 from ..parallel.query import (FLY_FILL, dense_probe_flags, fly_pad_for,
                               make_bucket_stack, make_cons_stats,
                               pack_segments_batch)
@@ -100,6 +104,35 @@ class BaseEngine(_HostEngine):
     def _cache_fits(self, nbytes: int) -> bool:
         return nbytes <= self.CACHE_MEM_FRACTION * \
             backend.device_mem_bytes(self.device)
+
+    def data_envelope_dev(self, rho: int):
+        """Global Sakoe-Chiba envelope (lo, hi) of the series on the
+        device, cached per band radius; the data-side LB_Keogh of the DTW
+        cascade gathers its windows (ops/dtw.lb_stage_multi)."""
+        cache = self.__dict__.setdefault("_env_dev_cache", {})
+        if rho not in cache:
+            cache[rho] = sliding_min_max(self.data_dev, rho)
+        return cache[rho]
+
+    def _run_chunked(self, kernel, m: int, *arrays: np.ndarray,
+                     width: int):
+        """``kernel(*device slices)`` over chunks of the parallel host
+        arrays (int64 offsets to int64, int32 qids to int32, floats to f32
+        on the device); returns its outputs on the host, concatenated.
+        Chunks hold ``verify.bucket_size`` rows for rows of ``width`` (the
+        launch working-set cap); unlike ``verify.run_bucketed`` nothing is
+        padded, as eager PyTorch keeps no shape-keyed compile cache."""
+        step = vf.bucket_size(m, lo=1, width=width)
+        dt = {np.dtype(np.int64): torch.int64, np.dtype(np.int32): torch.int32}
+        outs = []
+        for s in range(0, m, step):
+            res = kernel(*(self._dev(a[s:s + step],
+                                     dt.get(a.dtype, torch.float32))
+                           for a in arrays))
+            res = res if isinstance(res, tuple) else (res,)
+            outs.append([_np(t) for t in res])
+        cat = tuple(np.concatenate(parts) for parts in zip(*outs))
+        return cat if len(cat) > 1 else cat[0]
 
     # --------------------------------------------------------- phase 1
     def _fly_padded_dev(self, length: int) -> torch.Tensor:

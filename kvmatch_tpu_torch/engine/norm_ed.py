@@ -272,9 +272,13 @@ class NormQueryEngine(BaseEngine):
         return self._c1, self._c2
 
     def _paa_z_prefilter(self, offsets: np.ndarray, ctx: _Ctx,
-                         thresh: float, blocks: int = 16,
+                         thresh: float, blocks: int = 16, env=None,
                          prefix=None) -> np.ndarray:
-        """PAA lower bound in z-space from prefix sums (no window gather)."""
+        """PAA lower bound in z-space from prefix sums (no window gather).
+        With ``env=(lo_blk, hi_blk)`` (block means of the z-query's
+        Sakoe-Chiba envelope) the per-block distance is the envelope form,
+        which lower-bounds banded z-DTW
+        (kvmatch_tpu/engine/norm_ed.py:354-406)."""
         L = ctx.length
         c = L // blocks
         if offsets.size == 0 or c < 4:
@@ -301,7 +305,11 @@ class NormQueryEngine(BaseEngine):
             o = off_c[:, None] + cols[None, :]
             blk = (c1[o + c] - c1[o]) / c
             zb = (blk - mean[:, None]) / std[:, None]
-            d = zb - zq[None, :]
+            if env is not None:
+                d = np.maximum(np.maximum(zb - env[1][None, :],
+                                          env[0][None, :] - zb), 0.0)
+            else:
+                d = zb - zq[None, :]
             lb[s: s + CHUNK] = c * np.einsum("ij,ij->i", d, d)
         # f64 prefix-sum rounding guard (relative; the bound is exact math)
         return offsets[lb <= thresh * (1.0 + 1e-9) + 1e-9]

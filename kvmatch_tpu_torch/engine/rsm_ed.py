@@ -136,8 +136,11 @@ class QueryEngine(BaseEngine):
         return self._verify_multi([(left, right)], [ctx])[0]
 
     def _paa_prefilter(self, offsets: np.ndarray, ctx: _Ctx, thresh: float,
-                       blocks: int = 16, prefix=None) -> np.ndarray:
-        """Raw-space PAA lower bound from prefix sums (no window gather)."""
+                       blocks: int = 16, env=None, prefix=None) -> np.ndarray:
+        """Raw-space PAA lower bound from prefix sums (no window gather).
+        With ``env=(lo_blk, hi_blk)`` (block means of the Sakoe-Chiba
+        envelope) the per-block distance is the envelope form, which
+        lower-bounds banded DTW (kvmatch_tpu/engine/rsm_ed.py:147-189)."""
         L = ctx.length
         c = L // blocks
         if offsets.size == 0 or c < 4:
@@ -149,16 +152,22 @@ class QueryEngine(BaseEngine):
             if not hasattr(self, "_c1_paa"):
                 self._c1_paa = np.concatenate(([0.0], np.cumsum(self.data)))
             c1 = self._c1_paa
-        qb = ctx.params.get("_q_blk")
-        if qb is None or qb.size != nblk:
-            qb = ctx.query[: nblk * c].reshape(nblk, c).mean(axis=1)
-            ctx.params["_q_blk"] = qb
+        if env is None:
+            qb = ctx.params.get("_q_blk")
+            if qb is None or qb.size != nblk:
+                qb = ctx.query[: nblk * c].reshape(nblk, c).mean(axis=1)
+                ctx.params["_q_blk"] = qb
         CHUNK = 1 << 20
         cols = np.arange(nblk) * c
         lb = np.empty(offsets.size)
         for s in range(0, offsets.size, CHUNK):
             o = offsets[s: s + CHUNK, None] + cols[None, :]
-            d = (c1[o + c] - c1[o]) / c - qb[None, :]
+            blk = (c1[o + c] - c1[o]) / c
+            if env is not None:
+                d = np.maximum(np.maximum(blk - env[1][None, :],
+                                          env[0][None, :] - blk), 0.0)
+            else:
+                d = blk - qb[None, :]
             lb[s: s + CHUNK] = c * np.einsum("ij,ij->i", d, d)
         return offsets[lb <= thresh * (1.0 + 1e-9) + 1e-9]
 

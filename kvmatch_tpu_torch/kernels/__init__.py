@@ -1,7 +1,8 @@
 """Build and bind the hand-written CUDA kernels (``kvmatch_tpu_torch/csrc``).
 
-The sources are compiled at first use with ``nvcc`` for ``sm_90a`` into one
-shared library with a plain C interface, loaded with ``ctypes`` (no PyTorch
+The sources are compiled at first use with ``nvcc`` for ``sm_90a``, one
+``nvcc`` per source, all started together, then linked into one shared
+library with a plain C interface, loaded with ``ctypes`` (no PyTorch
 headers, so a build takes seconds).  The library lands in ``build/kernels/``
 at the repository root, named by a hash of the sources, so an edited source
 rebuilds and an unchanged one is reused (the same caching rule as
@@ -23,9 +24,12 @@ from pathlib import Path
 
 _CSRC = Path(__file__).resolve().parent.parent / "csrc"
 _BUILD = Path(__file__).resolve().parents[2] / "build" / "kernels"
-SOURCES = ("probe.cu", "window_ed.cu")
+SOURCES = ("probe.cu", "window_ed.cu", "dtw.cu")
+# --fmad=false: K1 repeats its plain version's f32 operations exactly, and
+# the double-single DP's TwoSum is error-free only without contraction.
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-              "--fmad=false", "-shared", "-Xcompiler", "-fPIC")
+              "--fmad=false", "-Xcompiler", "-fPIC")
+_BUILD_TIMEOUT_S = 600
 
 
 class _State:
@@ -48,19 +52,44 @@ def library_path() -> Path:
     return _BUILD / f"libkvmatch_kernels_{h.hexdigest()[:12]}.so"
 
 
+def _run_all(cmds) -> None:
+    """Run the commands in parallel; raise with the first failure's stderr."""
+    procs = [subprocess.Popen(c, stdout=subprocess.PIPE, stderr=subprocess.PIPE,
+                              text=True) for c in cmds]
+    errors = []
+    try:
+        for cmd, p in zip(cmds, procs):
+            _out, err = p.communicate(timeout=_BUILD_TIMEOUT_S)
+            if p.returncode != 0:
+                errors.append(f"{' '.join(cmd)}\n({p.returncode}):\n{err}")
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+    if errors:
+        raise RuntimeError("nvcc failed: " + "\n".join(errors))
+
+
 def build() -> Path:
     """Compile the kernels unless this source hash is already built."""
     so = library_path()
     if so.exists():
         return so
     _BUILD.mkdir(parents=True, exist_ok=True)
+    tag = f"{so.stem}.{os.getpid()}"
+    objs = [_BUILD / f"{tag}.{Path(s).stem}.o" for s in SOURCES]
     tmp = so.with_suffix(f".{os.getpid()}.tmp")
-    cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(tmp),
-           *(str(_CSRC / s) for s in SOURCES)]
-    res = subprocess.run(cmd, capture_output=True, text=True, timeout=600)
-    if res.returncode != 0:
-        raise RuntimeError(f"nvcc failed ({res.returncode}):\n{res.stderr}")
-    os.replace(tmp, so)
+    nvcc = _nvcc()
+    try:
+        _run_all([[nvcc, *NVCC_FLAGS, "-c", "-o", str(o), str(_CSRC / s)]
+                  for s, o in zip(SOURCES, objs)])
+        _run_all([[nvcc, "-shared", "-o", str(tmp), *map(str, objs)]])
+        os.replace(tmp, so)
+    finally:
+        for f in (*objs, tmp):
+            if f.exists():
+                f.unlink()
     return so
 
 
@@ -86,6 +115,14 @@ def lib() -> ctypes.CDLL:
             P, P, I, I,                 # offsets (int64), qids (int32), B, znorm
             P, P, P,                    # d2, mean, std
             P]                          # stream
+        for name, n_out in (("kvm_dtw_diag", 1), ("kvm_dtw_rows", 1),
+                            ("kvm_dtw_ds", 2)):
+            fn = getattr(cdll, name)
+            fn.restype = I
+            fn.argtypes = [P, P, P,     # rows (B, L), queries (Q, L), qids
+                           I, I, I, I,  # B, L, Q, r (<= L - 1)
+                           *[P] * n_out,  # outputs (B,) f32
+                           P]           # stream
         _State.lib = cdll
     return _State.lib
 

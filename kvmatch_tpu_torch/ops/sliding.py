@@ -111,3 +111,20 @@ def sliding_window_stats_fwd(x: torch.Tensor, L: int
     lo = _forward_extreme(x, L, torch.minimum)
     hi = _forward_extreme(x, L, torch.maximum)
     return s1, s2, lo, hi
+
+
+def sliding_min_max(data: torch.Tensor, radius: int
+                    ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Edge-clamped Lemire envelope of the series: lo[i] = min(data[i-r :
+    i+r+1]), hi[i] = max(...), the window cut at both ends (the XLA
+    ``reduce_window`` of kvmatch_tpu/ops/sliding.py:147-157).  Min and max
+    are exact, so the result is bit-identical to JAX's; max pooling pads
+    with -inf, which never wins, and the minimum is the pooled maximum of
+    the negated series."""
+    if radius <= 0:
+        return data.clone(), data.clone()
+    k = 2 * radius + 1
+    x = data[None, None, :]
+    hi = torch.nn.functional.max_pool1d(x, k, stride=1, padding=radius)
+    lo = torch.nn.functional.max_pool1d(-x, k, stride=1, padding=radius)
+    return (-lo)[0, 0], hi[0, 0]

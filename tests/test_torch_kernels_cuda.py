@@ -166,3 +166,77 @@ def test_engines_on_the_card_equal_oracle(dev):
         want, _ = oracle.rsm_ed(data, q, 2 * eps)
         assert set(res.offsets.tolist()) == set(want.tolist())
     assert probe_flags.launches > k1 and ted.window_ed.launches > k2
+
+
+# ------------------------------------------------------------ DTW kernels
+# K3 (dtw_diag) and K4 (dtw_rows) differ from their plain version only in
+# f32 summation order: |d - d_plain| <= verify.guard_threshold(d_plain, L,
+# 1e-2), the band the engines rely on.  The DS kernel's hi + lo is within
+# 8 eps32 (d64 + 1) of the f64 DP on the same f32 inputs
+# (tests/test_dtw_guard.py:62).
+
+def _dtw_case(B, L, Q, seed, common_mode=False):
+    rng = np.random.default_rng(seed)
+    a = np.cumsum(rng.normal(0, 0.3, (B, L)), axis=1).astype(np.float32)
+    qm = np.cumsum(rng.normal(0, 0.3, (Q, L)), axis=1).astype(np.float32)
+    qids = rng.integers(0, Q, B).astype(np.int32)
+    if common_mode:  # tests/test_pallas_kernels.py:85-90
+        a[0] += 100.0
+        qm[qids[0]] += 100.0
+    a[1] = qm[qids[1]] + rng.normal(0, 1e-3, L).astype(np.float32)
+    return a, qm, qids
+
+
+def _f64_dp(a, qm, qids, r):
+    from kvmatch_tpu_torch.ops.dtw import _dtw_banded_batch_f64_np
+    out = np.empty(a.shape[0])
+    for q in np.unique(qids):
+        rows = np.flatnonzero(qids == q)
+        out[rows] = _dtw_banded_batch_f64_np(a[rows].astype(np.float64),
+                                             qm[q].astype(np.float64),
+                                             min(r, a.shape[1] - 1))
+    return out
+
+
+@pytest.mark.parametrize("B,L,r,common", [
+    (37, 301, 0, False), (37, 301, 7, True), (5, 1001, 409, True),
+    (9, 129, 200, False), (3, 2000, 1100, False)])
+def test_dtw_kernels_equal_plain(dev, B, L, r, common):
+    from kvmatch_tpu import verify as vf
+    from kvmatch_tpu_torch.ops import dtw as tdtw
+    a, qm, qids = _dtw_case(B, L, 4, seed=L + r, common_mode=common)
+    args = tuple(torch.as_tensor(x, device=dev) for x in (a, qm, qids))
+    want = tdtw.dtw_banded_plain(*args, r).cpu().numpy().astype(np.float64)
+    band = np.array([vf.guard_threshold(w, L, 1e-2) for w in want])
+    outs = {}
+    for fn in (tdtw.dtw_diag, tdtw.dtw_rows):
+        before = fn.launches
+        got = fn(*args, r)
+        torch.cuda.synchronize(dev)
+        assert fn.launches == before + 1
+        outs[fn.__name__] = got.cpu().numpy().astype(np.float64)
+        assert np.all(np.abs(outs[fn.__name__] - want) <= band), fn.__name__
+    assert np.all(np.abs(outs["dtw_diag"] - outs["dtw_rows"]) <= band)
+    before = tdtw.dtw_ds.launches
+    hi, lo = tdtw.dtw_ds(*args, r)
+    torch.cuda.synchronize(dev)
+    assert tdtw.dtw_ds.launches == before + 1
+    d64 = _f64_dp(a, qm, qids, r)
+    eps32 = float(np.finfo(np.float32).eps)
+    got = tdtw.ds_value(hi.cpu().numpy(), lo.cpu().numpy())
+    assert np.all(np.abs(got - d64) <= 8.0 * eps32 * (d64 + 1.0))
+    if r == 0:  # r = 0 is the squared Euclidean distance
+        ed = ((a.astype(np.float64) - qm[qids].astype(np.float64)) ** 2).sum(1)
+        np.testing.assert_allclose(got, ed, rtol=1e-6)
+
+
+def test_dtw_kernels_reject_bad_input(dev):
+    from kvmatch_tpu_torch.ops import dtw as tdtw
+    a = torch.zeros((4, 100), device=dev)
+    qm = torch.zeros((2, 100), device=dev)
+    for fn in (tdtw.dtw_diag, tdtw.dtw_rows, tdtw.dtw_ds):
+        with pytest.raises(ValueError, match="int32 qids"):
+            fn(a, qm, torch.zeros(4, dtype=torch.int64, device=dev), 5)
+        with pytest.raises(ValueError, match=r"\(Q, L\)"):
+            fn(a, qm[:, :50].contiguous(),
+               torch.zeros(4, dtype=torch.int32, device=dev), 5)

@@ -51,3 +51,29 @@ def test_chunks_cover_every_window(data, monkeypatch):
     assert want[0].size > 1
     _equal(oracle.nsm_ed(x, q, 6.0, alpha=1.5, beta=10.0), want)
     _equal(oracle.rsm_ed(x, q, 8.0), ref.rsm_ed(x, q, 8.0))
+
+
+@pytest.mark.parametrize("offset,length,eps,rho", [
+    (100, 64, 3.0, 3), (500, 128, 4.0, 6), (1000, 50, 2.0, 0),
+    (200, 40, 6.0, 39), (1500, 45, 3.0, 100)])
+def test_dtw_oracles_equal_reference(data, offset, length, eps, rho):
+    """rsm_dtw and cnsm_dtw (anti-diagonal f64 DP on the device) equal the
+    reference's (native f64 DP), on 3,000 points of the series."""
+    x = data[:3000]
+    q = x[offset:offset + length]
+    got = oracle.rsm_dtw(x, q, eps, rho)
+    _equal(got, ref.rsm_dtw(x, q, eps, rho))
+    assert offset in got[0].tolist()
+    got = oracle.cnsm_dtw(x, q, eps, rho, 1.5, 10.0)
+    _equal(got, ref.cnsm_dtw(x, q, eps, rho, 1.5, 10.0))
+    assert offset in got[0].tolist()
+
+
+def test_dtw_chunks_cover_every_window(data, monkeypatch):
+    """Chunk boundaries change no DTW answer (7 windows per chunk)."""
+    x, q = data[:2000], data[500:564]
+    monkeypatch.setattr(oracle, "_dtw_chunk_rows", lambda device, L, n: 7)
+    want = ref.cnsm_dtw(x, q, 6.0, 5, 1.5, 10.0)
+    assert want[0].size > 1
+    _equal(oracle.cnsm_dtw(x, q, 6.0, 5, 1.5, 10.0), want)
+    _equal(oracle.rsm_dtw(x, q, 8.0, 5), ref.rsm_dtw(x, q, 8.0, 5))

@@ -22,7 +22,7 @@ from kvmatch_tpu.engine.base import QueryStats, _Ctx
 from kvmatch_tpu.index.build import build_index_tpu
 from kvmatch_tpu.ops.sliding import build_buckets as jax_build_buckets
 from kvmatch_tpu.parallel import query as jq
-from kvmatch_tpu.plan import QuerySegment
+from kvmatch_tpu.plan import QuerySegment, envelope
 from kvmatch_tpu_torch.ops.probe import FLAG, probe_flags
 from kvmatch_tpu_torch.parallel import query as tq
 
@@ -31,25 +31,31 @@ torch.set_num_threads(2)
 TILE = 8192
 
 
-def _mk_segments(data, offs, L, icfg, widths):
+def _mk_segments(data, offs, L, icfg, widths, rho=None):
+    """Hand-made plans; with ``rho`` the segments are envelope segments, as
+    the DTW engines' ``_plan_inputs`` make them: mean_lo and mean_hi are the
+    means of the query's Sakoe-Chiba envelope (mean_lo < mean_hi)."""
     seg_lists = []
     for o in offs:
         q = data[o:o + L]
+        lo, hi = (q, q) if rho is None else envelope(q, rho)
         segs, pos = [], 0
         for w in widths:
             if (pos + 1) * icfg.unit + w > L:
                 break
-            mean = q[pos * icfg.unit: pos * icfg.unit + w].mean()
-            segs.append(QuerySegment(order=pos + 1, w=w, mean_lo=mean,
-                                     mean_hi=mean, count=1))
+            span = slice(pos * icfg.unit, pos * icfg.unit + w)
+            segs.append(QuerySegment(order=pos + 1, w=w,
+                                     mean_lo=lo[span].mean(),
+                                     mean_hi=hi[span].mean(), count=1))
             pos += w // icfg.unit
         seg_lists.append(segs)
     return seg_lists
 
 
-def _probe_fixture(norm):
+def _probe_fixture(norm, rho=None):
     """The fixture of tests/test_probe_pallas.py: two tiles of positions,
-    the window end inside the block, hand-made segment plans."""
+    the window end inside the block, hand-made segment plans (envelope
+    segments with ``rho``)."""
     icfg = IndexConfig()
     rng = np.random.default_rng(0)
     L, Q = 512, 2
@@ -58,7 +64,8 @@ def _probe_fixture(norm):
     n = blk - 3000
     data = np.cumsum(rng.normal(0, 0.1, blk + halo + 400))
     offs = rng.integers(0, n - L, Q)
-    seg_lists = _mk_segments(data, offs, L, icfg, [100, 50, 25, 200, 25])
+    seg_lists = _mk_segments(data, offs, L, icfg, [100, 50, 25, 200, 25],
+                             rho)
     eps2 = np.asarray([1.0, 25.0], np.float32)
     if norm:
         cons = np.asarray([[1.2, 5.0, data[o:o + L].mean(), data[o:o + L].std()]
@@ -81,9 +88,16 @@ def _port_probe(icfg, L, Q, blk, m, seg_lists, eps2, cons, bwin, norm):
     return counts.numpy(), flags.numpy()
 
 
-@pytest.mark.parametrize("norm", [False, True])
-def test_plain_probe_matches_xla_probe(norm):
-    icfg, data, L, Q, blk, m, seg_lists, eps2, cons, bwin = _probe_fixture(norm)
+@pytest.mark.parametrize("norm,rho", [(False, None), (True, None),
+                                      (False, 25), (True, 25)])
+def test_plain_probe_matches_xla_probe(norm, rho):
+    """Counts and flags equal the XLA probe's, on point segments and (rho)
+    on the DTW engines' envelope segments, where both z-bounds of the
+    where-form are live."""
+    icfg, data, L, Q, blk, m, seg_lists, eps2, cons, bwin = _probe_fixture(
+        norm, rho)
+    if rho is not None:
+        assert all(s.mean_lo < s.mean_hi for segs in seg_lists for s in segs)
     segs = jq.pack_segments_batch(seg_lists, tuple(icfg.scales))
     slack = np.float32(icfg.probe_guard)
     bw = jnp.asarray(bwin)

@@ -47,3 +47,15 @@ def test_sliding_window_stats_bit_identical(length):
     got = tsl.sliding_window_stats_fwd(torch.from_numpy(data), length)
     for g, w in zip(got, want):
         np.testing.assert_array_equal(g.numpy(), np.asarray(w))
+
+
+@pytest.mark.parametrize("radius", [0, 1, 7, 51, 409])
+def test_sliding_min_max_bit_identical(radius):
+    """The DTW cascade's series envelope equals the JAX reduce_window
+    envelope bit for bit (min and max are exact), edges included."""
+    data = _series(20_000, 5)
+    want = jsl.sliding_min_max(jnp.asarray(data), radius)
+    got = tsl.sliding_min_max(torch.from_numpy(data), radius)
+    for g, w in zip(got, want):
+        assert g.shape == (data.size,)
+        np.testing.assert_array_equal(g.numpy(), np.asarray(w))
