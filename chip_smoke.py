@@ -18,7 +18,11 @@ JSON line tagged with the card's name and power limit and its seconds
                 envelope plans; K2 (window distances, raw and z-norm) at
                 B=16384, L=8192; K3 (dtw_diag), K4 (dtw_rows) and the
                 double-single DP (dtw_ds) on one bucket of B=1024 windows,
-                L=8192, r=409, raw and z-normed;
+                L=8192, r=409, raw and z-normed, and K3 on a 16,384-row
+                chunk; K3 bit for bit against dtw_diag_plain at L=1024,
+                r=51, 409 and 1100 and on 8 rows at L=8192, r=409; each
+                kernel's bound (bytes or f32 operations at the card's
+                published peaks);
 3. fft       -- the cuFFT f32 correlation error at the region shape
                 (M=8192, L=8192) against f64, as a share of FFT_ERR_C;
 4. exact     -- n=1e6 answer sets against the port's float64 brute-force
@@ -32,8 +36,10 @@ JSON line tagged with the card's name and power limit and its seconds
                 3 timed batches, then each query alone through engine.query
                 (the latency path); launch counts of K1 and K2 over both;
    main_dtw  -- cNSM-DTW at n=1e8, L=8192, rho=409 on the same series,
-                index and the first 4 queries (MAIN_DTW_QUERIES): one warm
-                batch, 2 timed batches with their stage counts; then RSM-DTW (L=1024, rho=51, eps=6)
+                index and the 8 queries (MAIN_DTW_QUERIES): one warm batch,
+                2 timed batches with their stage counts and kernel
+                launches, one more with host spans of the cascade; then
+                RSM-DTW (L=1024, rho=51, eps=6)
                 on the same offsets, each query alone through engine.query;
                 launch counts of K1, K3, K4 and DS;
 6. routing   -- the cNSM-ED batch with phase 2 routed as a whole (the
@@ -45,8 +51,8 @@ JSON line tagged with the card's name and power limit and its seconds
 Then the kernel table ({"kernels": [...]}), the nvidia-smi name/power line
 and, last, {"ok": true, "device": {...}}.  A failing phase raises and the
 script exits non-zero without the last line; so does a run that loaded jax
-(the port and the jax-free host modules it shares must not), a machine
-without a CUDA device, or a directory without the repository.
+or a module of the JAX package kvmatch_tpu (the port stands alone), a
+machine without a CUDA device, or a directory without the repository.
 """
 
 from __future__ import annotations
@@ -67,12 +73,31 @@ K2_BATCH = 16384  # verify.bucket_size's cap for rows of width 8192
 RHO_MAIN = 409    # 0.05 L, bench.py:328
 DTW_BATCH = 1024  # one DP bucket of the kernels phase
 L_RSM_DTW, RHO_RSM, EPS_RSM = 1024, 51, 6.0  # bench.py:257-265
-# cNSM-DTW batches of main_dtw take the first 4 of the 8 north-star queries:
-# five of the eight flood (2.8M-9.4M candidates, up to 6.9M DP rows at
-# ~62K rows/s on an H100), and all eight cost 195 s one by one -- over
-# the 2-minute budget of one batch; the first four (one flood) take about
-# 112 s.  n and L are not cut.
-MAIN_DTW_QUERIES = 4
+# cNSM-DTW batches of main_dtw send all 8 north-star queries (five of them
+# flood: 2.8M-9.4M candidates).  n and L are not cut.
+MAIN_DTW_QUERIES = 8
+# K3 bit for bit against its twin, as (L, r, rows): one warp per row at
+# r = 51 and r = 409 (the main path's instantiation, C = 26), several warps
+# at r = 1100 (clamped to L - 1), and a few rows at the main path's shape.
+K3_BITWISE_CASES = ((1024, 51, 256), (1024, 409, 256), (1024, 1100, 256),
+                    (L_MAIN, RHO_MAIN, 8))
+
+# The least time the card could take for a kernel's work (bound_ms): the
+# larger of its bytes (each input read once, each output written once) over
+# the memory rate and its f32 operations over the f32 rate outside the
+# tensor cores -- the published peaks of one H100 SXM at 700 W.
+HBM_BYTES_PER_S = 3.35e12
+F32_OPS_PER_S = 67e12
+# f32 operations per unit of work, counted in the kernels' sources:
+# K1 (cNSM plans, csrc/probe.cu's segment loop less its per-segment
+# constants): per (position, query, plan segment) 1 convert, 4 for the key
+# bounds, 2 + 4 for the z-bounds, 4 for delta, 3 for the bound sum, 4 for
+# the Ex tracks, 3 + 2 for the Ex2 track.
+K1_OPS = 27
+K2_OPS = {"raw": 3, "znorm": 9}  # per window element: sub, mul, add; z-norm
+# adds the mean sum (1), the centred square sum (3) and the z-difference (2).
+DP_OPS = 5   # K3, K4 per band cell: sub, mul, add, two mins (cap not counted)
+DS_OPS = 20  # DS per band cell: d (2), two pair minima (2 x 4), TwoSum (10)
 # exact_dtw: (engine, n, L, rho, eps)
 DTW_EXACT_SHAPES = (("rsm_dtw", 1_000_000, L_RSM_DTW, RHO_RSM, EPS_RSM),
                     ("cnsm_dtw", 1_000_000, 1024, 51, EPS),
@@ -88,6 +113,21 @@ def card_line() -> str:
 
 def emit(obj: dict) -> None:
     print(json.dumps(obj), flush=True)
+
+
+def bound(nbytes: float, ops: float) -> dict:
+    """bound_ms and what sets it, from the work's bytes and f32 ops."""
+    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+    t_ops = ops / F32_OPS_PER_S * 1e3
+    return dict(bound_ms=max(t_bytes, t_ops),
+                bound_by="bytes" if t_bytes >= t_ops else "operations",
+                bound_bytes=nbytes, bound_ops=ops)
+
+
+def band_cells(L: int, r: int) -> int:
+    """Cells of an L x L Sakoe-Chiba band of radius r."""
+    r = min(r, L - 1)
+    return L * (2 * r + 1) - r * (r + 1)
 
 
 def timed_ms(fn, reps: int, device) -> float:
@@ -151,6 +191,9 @@ def check_probe_kernel(eng, queries, device, **params) -> dict:
         return counts, flags
 
     got, want = run(probe_flags), run(probe_flags_plain)
+    n_segs = sum(len(p) for p in plans)
+    work = bound(bstack.shape[0] * npos * 4 + Q * (npos // FLAG + 4),
+                 K1_OPS * n_segs * npos)
     count_err = int((got[0].long() - want[0].long()).abs().max())
     flag_diff = int((got[1] != want[1]).sum())
     if count_err or flag_diff:
@@ -162,7 +205,7 @@ def check_probe_kernel(eng, queries, device, **params) -> dict:
                 plain_ms=timed_ms(lambda: run(probe_flags_plain), 1, device),
                 segments=[len(p) for p in plans],
                 envelope_segments=sum(s.mean_lo < s.mean_hi
-                                      for p in plans for s in p))
+                                      for p in plans for s in p), **work)
 
 
 def check_window_kernel(data_dev, queries, device, batch: int) -> dict:
@@ -183,6 +226,12 @@ def check_window_kernel(data_dev, queries, device, batch: int) -> dict:
     qhat = torch.as_tensor((queries - mu) / sd, dtype=torch.float32,
                            device=device)
     scale = _gather(data_dev, offs, L).abs().amax(dim=1)
+    # The library yardstick of the raw form: torch.cdist of each pre-gathered
+    # window against its query row (the gather is excluded from its time).
+    xw = _gather(data_dev, offs, L)[:, None, :]
+    qw = qraw[qids.long()][:, None, :]
+    library_ms = timed_ms(lambda: torch.cdist(xw, qw), 20, device)
+    del xw, qw
     out = {}
     for name, qm, znorm in (("raw", qraw, False), ("znorm", qhat, True)):
         args = (data_dev, qm, offs, qids, L, znorm)
@@ -193,8 +242,8 @@ def check_window_kernel(data_dev, queries, device, batch: int) -> dict:
         if not torch.equal(torch.isfinite(g[0]), finite):
             raise AssertionError(f"K2 {name}: infinite rows differ")
         err = (g[0] - w[0]).abs()[finite]
-        bound = 1e-5 * L + 1e-5 * w[0].abs()[finite]
-        if bool((err > bound).any()):
+        tol = 1e-5 * L + 1e-5 * w[0].abs()[finite]
+        if bool((err > tol).any()):
             raise AssertionError(f"K2 {name}: d2 error {float(err.max())} "
                                  f"beyond 1e-5 L + 1e-5 d2")
         stat_err = max([float(((a - b).abs() / scale).max())
@@ -204,21 +253,63 @@ def check_window_kernel(data_dev, queries, device, batch: int) -> dict:
                                  f"max|x| beyond 1e-5")
         out[name] = dict(
             max_abs_err=float(err.max()),
-            max_err_over_bound=float((err / bound).max()),
+            max_err_over_bound=float((err / tol).max()),
             stat_err_rel=stat_err,
             ms=timed_ms(lambda: window_ed(*args), 20, device),
-            plain_ms=timed_ms(lambda: window_ed_plain(*args), 5, device))
+            plain_ms=timed_ms(lambda: window_ed_plain(*args), 5, device),
+            library_ms=library_ms if name == "raw" else None,
+            **bound(batch * (4 * L + 12) + Q * L * 4
+                    + batch * 4 * (3 if znorm else 1),
+                    K2_OPS[name] * batch * L))
+    return out
+
+
+def check_k3_bitwise(data_dev, queries, device,
+                     cases=K3_BITWISE_CASES) -> dict:
+    """K3 against dtw_diag_plain, its anti-diagonal plain version, bit for
+    bit, on z-normed windows of the series against the z-normed first L
+    points of the north-star queries, for each (L, r, rows) of ``cases``."""
+    import numpy as np
+    import torch
+    from kvmatch_tpu_torch.ops import dtw as td
+    from kvmatch_tpu_torch.ops.ed import _gather
+    Q = queries.shape[0]
+    rng = np.random.default_rng(8)
+    out = {}
+    for L, r, batch in cases:
+        offs = torch.as_tensor(rng.integers(0, data_dev.shape[0] - L + 1,
+                                            batch), device=device)
+        qids = torch.as_tensor(rng.integers(0, Q, batch).astype(np.int32),
+                               device=device)
+        z, _, _ = td._znorm_rows(_gather(data_dev, offs, L), L)
+        qs = queries[:, :L]
+        qhat = torch.as_tensor((qs - qs.mean(1, keepdims=True))
+                               / qs.std(1, keepdims=True),
+                               dtype=torch.float32, device=device)
+        got = td.dtw_diag(z, qhat, qids, r)
+        t0 = time.perf_counter()
+        want = td.dtw_diag_plain(z, qhat, qids, r)
+        torch.cuda.synchronize(device)
+        plain_ms = (time.perf_counter() - t0) * 1e3
+        if not torch.equal(got, want):
+            raise AssertionError(
+                f"K3 L={L} r={r}: {int((got != want).sum())} of {batch} rows "
+                f"differ from dtw_diag_plain")
+        out[f"L{L}_r{r}"] = dict(rows=batch, bit_equal=True, finite=bool(
+            torch.isfinite(got).all()), diag_plain_ms=plain_ms,
+            ms=timed_ms(lambda: td.dtw_diag(z, qhat, qids, r), 3, device))
     return out
 
 
 def check_dtw_kernels(data_dev, queries, device, batch: int = DTW_BATCH,
-                      r: int = RHO_MAIN) -> dict:
+                      r: int = RHO_MAIN, chunk: int = 16384) -> dict:
     """K3 (dtw_diag), K4 (dtw_rows) and the DS kernel on one DP bucket of
     ``batch`` windows of the series against the north-star queries, raw and
     z-normed.  K3 and K4: |d - d_plain| <= verify.guard_threshold(d_plain, L,
     1e-2), and K3 within the same band of K4.  DS: hi + lo within
     8 eps32 (d64 + 1) of the f64 DP of the same f32 inputs (the plain
-    version run in float64 on the card)."""
+    version run in float64 on the card).  K3 is also timed on ``chunk``
+    z-normed rows, the engine's largest launch at this L."""
     import numpy as np
     import torch
     from kvmatch_tpu_torch import verify
@@ -284,7 +375,21 @@ def check_dtw_kernels(data_dev, queries, device, batch: int = DTW_BATCH,
             res["dtw_ds"].update(
                 plain_ms=(time.perf_counter() - t0) * 1e3,
                 plain_max_err_over_bound=float((err / tol).max()))
-    return dict(batch=batch, L=L, r=r, **out)
+    cells = batch * band_cells(L, r)
+    io = batch * L * 4 + Q * L * 4 + batch * 8
+    offs = torch.as_tensor(rng.integers(0, data_dev.shape[0] - L + 1, chunk),
+                           device=device)
+    qids = torch.as_tensor(rng.integers(0, Q, chunk).astype(np.int32),
+                           device=device)
+    z, _, _ = td._znorm_rows(_gather(data_dev, offs, L), L)
+    chunk_ms = timed_ms(lambda: td.dtw_diag(z, qhat, qids, r), 3, device)
+    return dict(batch=batch, L=L, r=r, cells=cells,
+                dp_bound=bound(io, DP_OPS * cells),
+                ds_bound=bound(io + batch * 4, DS_OPS * cells),
+                k3_chunk=dict(rows=chunk, ms=chunk_ms,
+                              **bound(io * chunk / batch,
+                                      DP_OPS * cells * chunk / batch)),
+                **out)
 
 
 # ------------------------------------------------------------- phase 3 ----
@@ -470,26 +575,92 @@ def single_queries(eng, queries, batch_res) -> dict:
     return dict(latency_ms_median=statistics.median(lat), latency_ms=lat)
 
 
+# Host spans of the cNSM-DTW cascade (engine/norm_dtw.py): the host
+# prefilters are engine methods, the device stages module functions.
+DTW_SPANS = (("engine", "_plan_batch"), ("engine", "_dense_probe_retry"),
+             ("engine", "_constraint_prefilter"), ("engine", "_paa_z_prefilter"),
+             ("module", "lb_stage_znorm_multi"),
+             ("module", "dtw_stage_znorm_multi"),
+             ("module", "dtw_stage_znorm_ds_multi"),
+             ("engine", "_confirm_dtw"))
+
+
+def spanned(pairs, device, fn):
+    """Run ``fn()`` with each ``(owner, name)`` of ``pairs`` (an engine's
+    method or a module's function) timed between two ``synchronize()``
+    calls; spans are inclusive, so a nested span is also inside its
+    parent's.  Returns (fn's result, {name: [ms, calls]})."""
+    import torch
+    spans = {name: [0.0, 0] for _, name in pairs}
+    saved = []
+    for owner, name in pairs:
+        orig = getattr(owner, name)
+
+        def timed(*a, _fn=orig, _span=spans[name], **kw):
+            torch.cuda.synchronize(device)
+            t0 = time.perf_counter()
+            res = _fn(*a, **kw)
+            torch.cuda.synchronize(device)
+            _span[0] += (time.perf_counter() - t0) * 1e3
+            _span[1] += 1
+            return res
+        saved.append((owner, name, orig, name in vars(owner)))
+        setattr(owner, name, timed)
+    try:
+        return fn(), spans
+    finally:
+        for owner, name, orig, own in reversed(saved):
+            if own:
+                setattr(owner, name, orig)
+            else:
+                delattr(owner, name)
+
+
 def main_dtw(eng, offs, queries, reps: int = 2) -> dict:
     """cNSM-DTW serving batches: one warm batch, then ``reps`` timed ones
-    through ``query_batch``, with each batch's stage counts."""
+    through ``query_batch``, each with its stage counts and kernel launches,
+    then one more batch with the host spans of DTW_SPANS, timed apart (its
+    synchronize() calls slow it) and held to the same answer sets."""
     import torch
+    from kvmatch_tpu_torch.engine import norm_dtw
+    from kvmatch_tpu_torch.ops.dtw import dtw_diag, dtw_ds, dtw_rows
+    from kvmatch_tpu_torch.ops.ed import window_ed
+    from kvmatch_tpu_torch.ops.probe import probe_flags
+    kernels = (probe_flags, window_ed, dtw_diag, dtw_rows, dtw_ds)
     kw = dict(rho=RHO_MAIN, alpha=ALPHA, beta=BETA)
     t0 = time.perf_counter()
     eng.query_batch(queries, EPS, **kw)
     warm_s = time.perf_counter() - t0
-    qps, stages = [], []
+    qps, stages, batch_s, launches = [], [], [], []
     for _ in range(reps):
+        before = [k.launches for k in kernels]
         t0 = time.perf_counter()
         res = eng.query_batch(queries, EPS, **kw)
         torch.cuda.synchronize(eng.device)
-        qps.append(len(queries) / (time.perf_counter() - t0))
+        batch_s.append(time.perf_counter() - t0)
+        qps.append(len(queries) / batch_s[-1])
         stages.append(dict(eng.stage_counts))
+        launches.append({k.__name__: k.launches - b
+                         for k, b in zip(kernels, before)})
+    pairs = [(eng if where == "engine" else norm_dtw, name)
+             for where, name in DTW_SPANS]
+    t0 = time.perf_counter()
+    sres, spans = spanned(pairs, eng.device,
+                          lambda: eng.query_batch(queries, EPS, **kw))
+    spanned_s = time.perf_counter() - t0
+    if any(set(a.offsets.tolist()) != set(b.offsets.tolist())
+           for a, b in zip(sres, res)):
+        raise AssertionError("the spanned cNSM-DTW batch found other answer "
+                             "sets")
     return dict(
-        qps_median=statistics.median(qps), qps_reps=qps, warm_s=warm_s,
+        qps_median=statistics.median(qps), qps_reps=qps, batch_s=batch_s,
+        warm_s=warm_s,
         p1_ms_per_query=statistics.fmean(r.stats.t_phase1_ms for r in res),
         p2_ms_per_query=statistics.fmean(r.stats.t_phase2_ms for r in res),
-        stages_per_batch=stages,
+        stages_per_batch=stages, launches_per_batch=launches[-1],
+        launches_per_rep=launches, spanned_batch_s=spanned_s,
+        span_ms={k: v[0] for k, v in spans.items()},
+        span_calls={k: v[1] for k, v in spans.items()},
         host_rechecks=sum(r.stats.n_host_rechecked for r in res),
         answers=[int(r.offsets.size) for r in res],
         self_found=sum(int(o) in r.offsets.tolist()
@@ -575,10 +746,9 @@ SPANS = ("_plan_batch", "_device_dense_phase1_flags", "_flags_to_intervals",
 def profile_batch(eng, queries) -> dict:
     """Where the time goes in one serving batch.
 
-    Host spans: each engine method of SPANS, timed between two
-    ``synchronize()`` calls; spans are inclusive, so a nested span is also
-    inside its parent's.  Device trace: ``torch.profiler`` over one more,
-    unspanned batch; the idle share is 1 - |union of the device-event
+    Host spans: each engine method of SPANS, timed by ``spanned`` on one
+    batch after three unspanned ones.  Device trace: ``torch.profiler``
+    over one more, unspanned batch; the idle share is 1 - |union of the device-event
     intervals inside the batch| / the batch's wall time, both on the
     profiler's clock (``device_sum_ms`` sums the same events, overlaps
     counted twice).  Kernel time by name sums event durations."""
@@ -592,22 +762,9 @@ def profile_batch(eng, queries) -> dict:
         torch.cuda.synchronize(device)
 
     unspanned_ms = timed_ms(batch, 3, device)
-    spans = {name: [0.0, 0] for name in SPANS}
-    for name in SPANS:
-        def timed(*a, _fn=getattr(eng, name), _span=spans[name], **kw):
-            torch.cuda.synchronize(device)
-            t0 = time.perf_counter()
-            res = _fn(*a, **kw)
-            torch.cuda.synchronize(device)
-            _span[0] += (time.perf_counter() - t0) * 1e3
-            _span[1] += 1
-            return res
-        setattr(eng, name, timed)
     t0 = time.perf_counter()
-    batch()
+    _, spans = spanned([(eng, name) for name in SPANS], device, batch)
     spanned_ms = (time.perf_counter() - t0) * 1e3
-    for name in SPANS:
-        delattr(eng, name)
 
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
@@ -719,7 +876,8 @@ def main() -> int:
         k1=check_probe_kernel(eng8, q8, device),
         k1_dtw_plans=check_probe_kernel(eng8d, q8, device, rho=RHO_MAIN),
         k2=check_window_kernel(dev8, q8, device, K2_BATCH),
-        dtw=check_dtw_kernels(dev8, q8, device)))
+        dtw=check_dtw_kernels(dev8, q8, device),
+        k3_bitwise=check_k3_bitwise(dev8, q8, device)))
     k1, k1d, k2, kd = (kern[k] for k in ("k1", "k1_dtw_plans", "k2", "dtw"))
     phase("fft", lambda: fft_error(dev8, q8, device))
     phase("exact", lambda: exact_small(device))
@@ -776,48 +934,71 @@ def main() -> int:
                                  f"path")
     phase("routing", lambda: routing_ab(eng8, offs8, q8), n=N_MAIN, L=L_MAIN)
     phase("profile", lambda: profile_batch(eng8, q8), n=N_MAIN, L=L_MAIN)
-    loaded = sorted(m for m in sys.modules if m.split(".")[0] == "jax")
+    loaded = sorted(m for m in sys.modules
+                    if m.split(".")[0] in ("jax", "kvmatch_tpu"))
     if loaded:
-        raise AssertionError(f"the port loaded jax: {loaded[:5]}")
+        raise AssertionError(f"the port loaded jax or the JAX package: "
+                             f"{loaded[:5]}")
+    per_batch = mdtw["cnsm"]["launches_per_batch"]
 
-    def dp_entry(name, replaces, key, launches_, launched_on):
-        return dict(
+    def with_bound(entry, work, per_batch_launches):
+        return dict(entry, bound_ms=work["bound_ms"],
+                    bound_by=work["bound_by"],
+                    share_of_bound=work["bound_ms"] / entry["ms"],
+                    launches_per_main_dtw_batch=per_batch_launches)
+
+    def dp_entry(name, replaces, key, launches_, launched_on, work):
+        return with_bound(dict(
             name=name, route="cuda", source="kvmatch_tpu_torch/csrc/dtw.cu",
             replaces=replaces, launches=launches_, launched_on=launched_on,
             max_abs_err=max(kd[v][key]["max_abs_err"] for v in
                             ("raw", "znorm")),
             max_err_over_bound=max(kd[v][key]["max_err_over_bound"]
                                    for v in ("raw", "znorm")),
-            ms=kd["znorm"][key]["ms"])
+            ms=kd["znorm"][key]["ms"], library_ms=None), work,
+            per_batch[name])
 
     emit({"kernels": [
-        dict(name="probe_flags", route="cuda",
-             source="kvmatch_tpu_torch/csrc/probe.cu",
-             replaces="kvmatch_tpu/ops/probe_pallas.py:63",
-             launches=launches["probe_flags"], launched_on="main",
-             max_abs_err=max(k1["max_abs_err"], k1d["max_abs_err"]),
-             tolerance="counts and flags equal (ED and DTW plans)",
-             ms=k1["ms"], plain_ms=k1["plain_ms"],
-             dtw_plans_ms=k1d["ms"], dtw_plans_plain_ms=k1d["plain_ms"]),
-        dict(name="window_ed", route="cuda",
-             source="kvmatch_tpu_torch/csrc/window_ed.cu",
-             replaces="kvmatch_tpu/ops/pallas_ed.py:60",
-             launches=launches["window_ed"], launched_on="main",
-             max_abs_err=max(v["max_abs_err"] for v in k2.values()),
-             max_err_over_bound=max(v["max_err_over_bound"]
-                                    for v in k2.values()),
-             tolerance="|d2 - d2_plain| <= 1e-5 L + 1e-5 d2",
-             ms=k2["znorm"]["ms"], plain_ms=k2["znorm"]["plain_ms"]),
+        with_bound(dict(
+            name="probe_flags", route="cuda",
+            source="kvmatch_tpu_torch/csrc/probe.cu",
+            replaces="kvmatch_tpu/ops/probe_pallas.py:63",
+            launches=launches["probe_flags"], launched_on="main",
+            max_abs_err=max(k1["max_abs_err"], k1d["max_abs_err"]),
+            tolerance="counts and flags equal (ED and DTW plans)",
+            ms=k1["ms"], plain_ms=k1["plain_ms"], library_ms=None,
+            dtw_plans_ms=k1d["ms"], dtw_plans_plain_ms=k1d["plain_ms"],
+            dtw_plans_bound_ms=k1d["bound_ms"]), k1,
+            per_batch["probe_flags"]),
+        with_bound(dict(
+            name="window_ed", route="cuda",
+            source="kvmatch_tpu_torch/csrc/window_ed.cu",
+            replaces="kvmatch_tpu/ops/pallas_ed.py:60",
+            launches=launches["window_ed"], launched_on="main",
+            max_abs_err=max(v["max_abs_err"] for v in k2.values()),
+            max_err_over_bound=max(v["max_err_over_bound"]
+                                   for v in k2.values()),
+            tolerance="|d2 - d2_plain| <= 1e-5 L + 1e-5 d2",
+            ms=k2["znorm"]["ms"], plain_ms=k2["znorm"]["plain_ms"],
+            raw_ms=k2["raw"]["ms"], library_ms=k2["raw"]["library_ms"],
+            library="torch.cdist of the pre-gathered raw windows, gather "
+                    "excluded (compare with raw_ms)"), k2["znorm"],
+            per_batch["window_ed"]),
         dict(dp_entry("dtw_diag", "kvmatch_tpu/ops/dtw_pallas.py:176",
-                      "dtw_diag", dtw_launches["dtw_diag"], "main_dtw"),
-             tolerance="|d - d_plain| <= guard_threshold(d_plain, L, 1e-2)",
-             plain_ms=kd["znorm"]["plain_ms"]),
+                      "dtw_diag", dtw_launches["dtw_diag"], "main_dtw",
+                      kd["dp_bound"]),
+             tolerance="|d - d_plain| <= guard_threshold(d_plain, L, 1e-2); "
+                       "bit-equal to dtw_diag_plain (K3_BITWISE_CASES)",
+             plain_ms=kd["znorm"]["plain_ms"],
+             chunk_rows=kd["k3_chunk"]["rows"], chunk_ms=kd["k3_chunk"]["ms"],
+             chunk_bound_ms=kd["k3_chunk"]["bound_ms"]),
         dict(dp_entry("dtw_rows", "kvmatch_tpu/ops/dtw_pallas.py:52",
-                      "dtw_rows", rows_launches, "exact_dtw"),
+                      "dtw_rows", rows_launches, "exact_dtw",
+                      kd["dp_bound"]),
              tolerance="|d - d_plain| <= guard_threshold(d_plain, L, 1e-2)",
              plain_ms=kd["znorm"]["plain_ms"]),
         dict(dp_entry("dtw_ds", "kvmatch_tpu/ops/dtw.py:190", "dtw_ds",
-                      dtw_launches["dtw_ds"], "main_dtw"),
+                      dtw_launches["dtw_ds"], "main_dtw", kd["ds_bound"]),
              tolerance="|hi + lo - d64| <= 8 eps32 (d64 + 1)",
              plain_ms=kd["raw"]["dtw_ds"]["plain_ms"]),
     ]})

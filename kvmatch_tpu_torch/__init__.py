@@ -6,7 +6,7 @@ Public surface:
                                    QueryEngineDtw, NormQueryEngineDtw,
                                    IndexConfig, QueryConfig, generate_series)
     from kvmatch_tpu_torch import oracle   # float64 brute force, on a device
-    from kvmatch_tpu_torch import verify   # phase-2 guard bands (shared)
+    from kvmatch_tpu_torch import verify   # phase-2 guard bands
 
 The port runs the four engines' serving path: the stats-only index build
 (index/device_build.py), the dense phase-1 flag probe (kernel K1,
@@ -14,13 +14,19 @@ csrc/probe.cu) with the alpha/beta constraint AND, and phase 2 on the
 device with the exact f64 confirmation on the host.  The ED engines verify
 with FFT region near-sets and kernel K2 (csrc/window_ed.cu); the DTW engines
 (RSM-DTW, cNSM-DTW) with the LB cascade, the f32 banded DP (kernel K3, or
-its row-form twin K4) and the double-single DP (csrc/dtw.cu).  Host code
-without jax (config, plan, verify, the index structure and host index
-build, the native interval kernels, the data generators) is shared with
-``kvmatch_tpu`` by import, and config, verify and the generators are
-re-exported here, so a caller names only this package.  Importing this
-package loads neither jax nor a CUDA kernel; kernels build at their first
-launch.
+its row-form twin K4) and the double-single DP (csrc/dtw.cu).
+
+The port stands alone: it imports nothing of ``kvmatch_tpu``.  It keeps its
+own copies of the host modules it needs, under the same relative paths
+(config, plan, verify, utils/{intervals, rounding, sparse_prefix}, the
+native host runtime, index/{structure, build}, data/generators and the host
+skeleton of engine/base), each held equal to its JAX original by
+tests/test_torch_host_parity.py.
+
+Every entry point runs on the current CUDA device unless the caller passes
+``device="cpu"`` (or tensors on the CPU); without a card it raises.
+Importing this package loads neither jax nor a CUDA kernel; kernels build
+at their first launch.
 """
 
 __all__ = ["QueryEngine", "NormQueryEngine", "QueryEngineDtw",
@@ -42,13 +48,13 @@ def __getattr__(name):
     if name == "NormQueryEngineDtw":
         from .engine.norm_dtw import NormQueryEngineDtw
         return NormQueryEngineDtw
-    if name in ("IndexConfig", "QueryConfig"):
-        from kvmatch_tpu import config
-        return getattr(config, name)
-    if name == "verify":
-        from kvmatch_tpu import verify
-        return verify
+    if name == "IndexConfig":
+        from .config import IndexConfig
+        return IndexConfig
+    if name == "QueryConfig":
+        from .config import QueryConfig
+        return QueryConfig
     if name == "generate_series":
-        from kvmatch_tpu.data.generators import generate_series
+        from .data.generators import generate_series
         return generate_series
     raise AttributeError(name)

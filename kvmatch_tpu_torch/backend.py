@@ -2,8 +2,10 @@
 
 Four jobs, all explicit (nothing is picked behind the caller's back):
 
-* ``resolve_device``: turn a device argument into a ``torch.device``; asking
-  for ``cuda`` on a machine without a card raises instead of falling back.
+* ``resolve_device``: turn a device argument into a ``torch.device``.  The
+  default (``None``) is the current CUDA device; the CPU is used only when
+  the caller asks for it (``device="cpu"``).  Asking for the card on a
+  machine without one raises instead of falling back.
 * ``configure_numerics``: turn TF32 off for matmul and cuDNN.  The f32 guard
   bands of phase 2 (kvmatch_tpu/verify.py:guard_threshold,
   kvmatch_tpu/ops/regions.py:ERR_C/FFT_ERR_C) assume true f32 arithmetic.
@@ -29,13 +31,16 @@ def configure_numerics() -> None:
 
 
 def resolve_device(device=None) -> torch.device:
-    """``None`` means the CPU; ``"cuda"``/``"cuda:k"``/``torch.device`` are
-    taken as given and must exist."""
-    dev = torch.device("cpu" if device is None else device)
+    """``None`` means the current CUDA device; ``"cpu"``, ``"cuda"``,
+    ``"cuda:k"`` and ``torch.device`` are taken as given, and a CUDA device
+    must exist."""
+    dev = torch.device("cuda" if device is None else device)
     if dev.type == "cuda":
         if not torch.cuda.is_available():
-            raise RuntimeError(f"device {dev} requested but torch.cuda is not "
-                               f"available on this machine")
+            raise RuntimeError(
+                f"device {dev} requested but torch.cuda is not available on "
+                f"this machine (the port runs on the card unless the caller "
+                f"passes device='cpu')")
         if dev.index is None:
             dev = torch.device("cuda", torch.cuda.current_device())
     elif dev.type != "cpu":

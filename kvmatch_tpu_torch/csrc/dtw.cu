@@ -11,12 +11,8 @@
 //   It walks the 2L-1 anti-diagonals s = i + j with
 //       D_s[k] = d(i, j) + min(D_{s-1}[k-1], D_{s-1}[k+1], D_{s-2}[k]).
 //   Only lanes with s + r - k even hold a cell on diagonal s, and they read
-//   only lanes of the same class, so a thread per active lane suffices
-//   (r + 1 threads; lanes loop per thread above 1024).  The two carries
-//   ping-pong in shared memory: step s reads D_{s-1} and overwrites D_{s-2}
-//   lane by lane, each thread only its own lanes, so one __syncthreads() per
-//   step is the whole synchronisation.  Lanes of the other class are never
-//   written and keep BIG.
+//   only lanes of the same class.  One warp per row, the band in registers
+//   (see the K3 section for its bound and design).
 // * dtw_rows  (K4) replaces kvmatch_tpu/ops/dtw_pallas.py:_dtw_kernel: the
 //   row prefix-scan form D[k] = C[k] + min_{j<=k}(M[j] - C[j-1]) with
 //   M[k] = min(P[k], P[k+1]), C = cumsum(d), one block per row and two
@@ -27,7 +23,7 @@
 //   error-free only without multiply-add contraction: the library is built
 //   with --fmad=false and without fast math.
 //
-// What bounds them on an H100: the serial chain of 2L-1 steps (K3, DS) or
+// What bounds K4 and DS on an H100: the serial chain of 2L-1 steps (DS) or
 // L rows (K4) per candidate row, each a few shared-memory loads, one f32 add
 // and a barrier -- latency, not device memory (each row reads 2 L floats
 // once).  The a and q rows are staged in shared memory (2 x 32 KB at
@@ -79,47 +75,198 @@ __device__ __forceinline__ void stage_rows(const float* a, const float* qm,
 }
 
 // ------------------------------------------------------------------- K3
-__global__ void __launch_bounds__(KVM_DTW_THREADS)
+// One warp walks the anti-diagonals of a row with the band in registers.
+//
+// What bounds it: f32 operations.  A row of the main path (L = 8192,
+// r = 409) has L (2r + 1) - r (r + 1) = 6.54M band cells of 5 f32
+// operations (sub, mul, add, two mins; the BIG cap not counted), so 1024
+// rows are 3.35e10 operations: about 0.50 ms at 67 TFLOP/s.  The rows
+// themselves are 33.5 MB, 0.01 ms of device memory.
+//
+// What the first design (one block per row, one thread per active lane,
+// carries in shared memory) lost: each of the 16,383 anti-diagonal steps
+// ended in a block-wide __syncthreads() after a chain of dependent
+// shared-memory loads (about 600 cycles a step), and the 2 L floats of a
+// staged row per block left room for 3 rows per SM.
+//
+// This design:
+// * One warp per row (KVM_K3_WARPS rows per block), or, for bands wider
+//   than a warp holds, G warps of one block per row; no barrier inside
+//   the walk of a one-warp row.
+// * The W = 2r + 1 band lanes are split into contiguous chunks of C lanes,
+//   one per thread (C a template parameter, C = 2 mod 4, so every chunk
+//   starts on an even lane and the stride C/2 between threads' reads is
+//   odd: no shared-memory bank conflict).  A thread keeps both parity
+//   classes of its chunk in D[C]: on diagonal s it rewrites its lanes of
+//   parity (s + r) & 1, which hold D_{s-2}, from its other-parity lanes,
+//   which hold D_{s-1}.  The one value across a chunk edge that a step
+//   needs comes from one __shfl_up_sync or __shfl_down_sync (between
+//   warps of a wide row: shared memory and one __syncthreads() a step).
+// * The diagonals are walked in pairs (s, s + 1).  A lane's a-index and
+//   q-index advance by one every pair, so a thread reads C/2 + 1 values of
+//   a and of q per pair into registers and uses each twice.  They come
+//   from a per-warp ring in shared memory (R floats each for a and q,
+//   R = pow2 >= 16 C + 40, its first 16 entries mirrored past its end so a
+//   pair's slots are read at immediate offsets from one base) that is
+//   refilled with one coalesced load of 32 values every 32 pairs,
+//   prefetched into registers 32 pairs ahead.
+// * Cells outside the matrix read +inf sentinels from the ring (indices
+//   outside [0, L)), so d = inf or NaN and min(d + m, BIG) = BIG without a
+//   branch.  Lanes past the band's end (k >= W, in the last chunk) read
+//   +inf from a masked a or q slot and stay BIG.
+// The f32 operations of each cell are those of the first design and of
+// dtw_diag_plain, so the outputs are equal bit for bit.
+#define KVM_K3_WARPS 4
+#define KVM_K3_MAX_WARPS_PER_ROW 32
+
+template <int C>
+struct K3Ring {
+  static constexpr int need = 16 * C + 40;
+  static constexpr int R = need <= 128 ? 128 : need <= 256 ? 256
+                         : need <= 512 ? 512 : 1024;
+  // Entries [0, 16) are mirrored at [R, R + 16), so a thread's (at most 16)
+  // slots of a pair are contiguous from one base: reads take immediate
+  // offsets, with no wrap-around mask per slot.
+  static constexpr int STRIDE = R + 16;
+};
+
+__device__ __forceinline__ void k3_put(float* ring, int idx, int mask,
+                                       int r_len, float v) {
+  const int k = idx & mask;
+  ring[k] = v;
+  if (k < 16) ring[k + r_len] = v;
+}
+
+__device__ __forceinline__ float k3_load(const float* row, int idx, int L) {
+  return (idx >= 0 && idx < L) ? __ldg(row + idx) : INFINITY;
+}
+
+// C lanes per thread, E = r & 1 (the parity of every chunk's first active
+// lane on even diagonals).  WIDE == false: one warp per row, KVM_K3_WARPS
+// rows per block (G == 1); WIDE: one row per block of G warps.
+template <int C, int E, bool WIDE>
+__global__ void __launch_bounds__(WIDE ? KVM_K3_MAX_WARPS_PER_ROW * 32
+                                       : KVM_K3_WARPS * 32)
 dtw_diag_kernel(const float* __restrict__ a, const float* __restrict__ qm,
-                const int* __restrict__ qids, int L, int Q, int r, int stage,
-                float* __restrict__ out) {
+                const int* __restrict__ qids, int B, int L, int Q, int r,
+                int G, float* __restrict__ out) {
+  constexpr int R = K3Ring<C>::R;
+  constexpr int M = R - 1;
+  constexpr int RS = K3Ring<C>::STRIDE;
+  constexpr int H = C / 2;
   extern __shared__ float smem[];
-  const int W = 2 * r + 1;
-  const int qid = qids[blockIdx.x];
+  const int lane = threadIdx.x & 31;
+  const int warp = threadIdx.x >> 5;
+  const int row = WIDE ? blockIdx.x : blockIdx.x * KVM_K3_WARPS + warp;
+  const int g = WIDE ? warp : 0;  // the warp's place in its row
+  float* ringA = smem + warp * 2 * RS;
+  float* ringQ = ringA + RS;
+  // WIDE only: [2 diagonals][last lanes, first lanes][G]
+  float* edge = smem + (WIDE ? G : KVM_K3_WARPS) * 2 * RS;
+  if (row >= B) return;  // not WIDE only: a WIDE grid has no spare block
+  const int qid = qids[row];
   if (qid < 0 || qid >= Q) {
-    if (threadIdx.x == 0) out[blockIdx.x] = NAN;
-    return;
+    if (lane == 0 && g == 0) out[row] = NAN;
+    return;  // uniform over the row's warps
   }
-  // Carries with a BIG sentinel lane on each side: buf[k + 1] is lane k.
-  float* buf0 = smem;
-  float* buf1 = smem + (W + 2);
-  const float* arow;
-  const float* qrow;
-  stage_rows(a, qm, qid, L, stage, smem + 2 * (W + 2), arow, qrow);
-  for (int t = threadIdx.x; t < W + 2; t += blockDim.x) {
-    buf0[t] = (t == r + 1) ? 0.0f : KVM_BIG;  // D_{-2}: only (0, 0)'s seed
-    buf1[t] = KVM_BIG;                         // D_{-1}
-  }
-  __syncthreads();
-  const int S = 2 * L - 1;
-  for (int s = 0; s < S; ++s) {
-    float* cur = (s & 1) ? buf1 : buf0;         // D_{s-2}, becomes D_s
-    const float* prev = (s & 1) ? buf0 : buf1;  // D_{s-1}
-    const int p = (s + r) & 1;
-    for (int k = 2 * threadIdx.x + p; k < W; k += 2 * blockDim.x) {
-      const int i = (s + r - k) >> 1;
-      const int j = s - i;
-      float v = KVM_BIG;
-      if (i >= 0 && i < L && j >= 0 && j < L) {
-        const float df = arow[i] - qrow[j];
-        const float m = fminf(fminf(prev[k], prev[k + 2]), cur[k + 1]);
-        v = fminf(df * df + m, KVM_BIG);
-      }
-      cur[k + 1] = v;
+  const float* arow = a + (long long)row * L;
+  const float* qrow = qm + (long long)qid * L;
+  const int W = 2 * r + 1;
+  const int k0 = (g * 32 + lane) * C;  // first lane of this thread's chunk
+  const int kw = g * 32 * C;           // first lane of this warp
+  // Masked slot bound: lanes k0 + u >= W must read +inf (see the note).
+  const int wl = (W - k0 + 1) >> 1;
+  // Ring windows on pair 0; on pair p each is shifted by p.
+  //   a: [lo_a, hi_a], thread's a-index base T = p + (r - E) / 2 - k0 / 2
+  //   q: [lo_q, hi_q], thread's q-index base J = 2 p - T
+  const int hi_a = (r + E) / 2 - kw / 2;
+  const int lo_a = (r - E) / 2 - (kw + 32 * C) / 2 + 1;
+  const int lo_q = (E - r) / 2 + kw / 2;
+  const int hi_q = lo_q + 16 * C;
+  for (int i = lo_a + lane; i <= hi_a + 32; i += 32)
+    k3_put(ringA, i, M, R, k3_load(arow, i, L));
+  for (int j = lo_q + lane; j <= hi_q + 32; j += 32)
+    k3_put(ringQ, j, M, R, k3_load(qrow, j, L));
+  int fa = hi_a + 33, fq = hi_q + 33;  // next ring index to fill
+  float pa = k3_load(arow, fa + lane, L);
+  float pq = k3_load(qrow, fq + lane, L);
+  __syncwarp();
+
+  float D[C];
+#pragma unroll
+  for (int u = 0; u < C; ++u) D[u] = (k0 + u == r) ? 0.0f : KVM_BIG;
+  const int T0 = (r - E) / 2 - k0 / 2;
+  for (int p = 0; p < L; ++p) {
+    if (p > 0 && (p & 31) == 0) {
+      __syncwarp();
+      k3_put(ringA, fa + lane, M, R, pa);
+      k3_put(ringQ, fq + lane, M, R, pq);
+      __syncwarp();
+      fa += 32;
+      fq += 32;
+      pa = k3_load(arow, fa + lane, L);
+      pq = k3_load(qrow, fq + lane, L);
     }
-    __syncthreads();
+    const int T = p + T0;
+    const int J = 2 * p - T;
+    // a-slot v holds a[T + E - v], q-slot w holds q[J + w].
+    const float* a_base = ringA + ((T - H + 1) & M);
+    const float* q_base = ringQ + (J & M);
+    float av[H + E], qv[H + 1 - E];
+#pragma unroll
+    for (int v = 0; v < H + E; ++v) {
+      const float x = a_base[H + E - 1 - v];
+      av[v] = (E == 1 && v >= wl) ? INFINITY : x;
+    }
+#pragma unroll
+    for (int w = 0; w < H + 1 - E; ++w) {
+      const float x = q_base[w];
+      qv[w] = (E == 0 && w >= wl) ? INFINITY : x;
+    }
+    // Two diagonals: the first rewrites lanes u = E + 2m, the second
+    // lanes u = 1 - E + 2m.  A first-lane update (u = 0) needs the left
+    // chunk's last lane, a last-lane update (u = C - 1) the right chunk's
+    // first lane.
+#pragma unroll
+    for (int half = 0; half < 2; ++half) {
+      const int par = E ^ half;  // lanes of this diagonal: u = par + 2m
+      const float mine = par == 0 ? D[C - 1] : D[0];
+      float nb = par == 0 ? __shfl_up_sync(0xffffffffu, mine, 1)
+                          : __shfl_down_sync(0xffffffffu, mine, 1);
+      if (WIDE) {
+        // Chunk edges between warps go through shared memory.
+        float* eb = edge + half * 2 * G;  // [0]: warps' last lanes, [1]: first
+        if (lane == 31) eb[g] = D[C - 1];
+        if (lane == 0) eb[G + g] = D[0];
+        __syncthreads();
+        if (par == 0 && lane == 0) nb = g > 0 ? eb[g - 1] : KVM_BIG;
+        if (par == 1 && lane == 31) nb = g + 1 < G ? eb[G + g + 1] : KVM_BIG;
+      } else {
+        if (par == 0 && lane == 0) nb = KVM_BIG;
+        if (par == 1 && lane == 31) nb = KVM_BIG;
+      }
+#pragma unroll
+      for (int m = 0; m < H; ++m) {
+        const int u = par + 2 * m;
+        const float lft = u == 0 ? nb : D[u > 0 ? u - 1 : 0];
+        const float rgt = u == C - 1 ? nb : D[u < C - 1 ? u + 1 : 0];
+        // first diagonal: a-slot m + E, q-slot m; second: a-slot m,
+        // q-slot m + 1 - E
+        const float df = half == 0 ? av[m + E] - qv[m]
+                                   : av[m] - qv[m + 1 - E];
+        const float mn = fminf(fminf(lft, rgt), D[u]);
+        D[u] = fminf(df * df + mn, KVM_BIG);
+      }
+    }
   }
-  if (threadIdx.x == 0) out[blockIdx.x] = (((S - 1) & 1) ? buf1 : buf0)[r + 1];
+  const int kk = r - k0;
+  if (kk >= 0 && kk < C) {
+    float res = KVM_BIG;
+#pragma unroll
+    for (int u = 0; u < C; ++u)
+      if (u == kk) res = D[u];
+    out[row] = res;
+  }
 }
 
 // ------------------------------------------------------------------- DS
@@ -305,19 +452,73 @@ static bool bad_args(int B, int L, int Q, int r) {
   return B <= 0 || L <= 0 || Q <= 0 || r < 0 || r >= L;
 }
 
+// K3's shape for a band of W lanes: C lanes per thread (C = 2 mod 4) and
+// G warps per row.  A warp holds up to 32 x 30 lanes; a wider band takes
+// G = ceil(W / (32 x 26)) warps of 26 lanes a thread (rings of 512
+// floats), up to KVM_K3_MAX_WARPS_PER_ROW: r <= 13311 (ops/dtw.py:K3_MAX_R).
+static int k3_shape(int r, int* C, int* G) {
+  const int W = 2 * r + 1;
+  *G = W <= 32 * 30 ? 1 : (W + 32 * 26 - 1) / (32 * 26);
+  if (*G > KVM_K3_MAX_WARPS_PER_ROW) return (int)cudaErrorInvalidValue;
+  if (*G > 1) {
+    *C = 26;
+    return 0;
+  }
+  *C = 2;
+  while (32 * *C < W) *C += 4;
+  return 0;
+}
+
+template <int C, int E, bool WIDE>
+static int launch_diag(const float* a, const float* qm, const int* qids,
+                       int B, int L, int Q, int r, int G, float* out,
+                       cudaStream_t stream) {
+  auto kernel = dtw_diag_kernel<C, E, WIDE>;
+  const int warps = WIDE ? G : KVM_K3_WARPS;
+  const size_t bytes = sizeof(float) *
+      ((size_t)warps * 2 * K3Ring<C>::STRIDE + (WIDE ? 4 * (size_t)G : 0));
+  if (bytes > 48 * 1024) {
+    const cudaError_t err = cudaFuncSetAttribute(
+        kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)bytes);
+    if (err != cudaSuccess) return (int)err;
+  }
+  const int blocks = WIDE ? B : (B + KVM_K3_WARPS - 1) / KVM_K3_WARPS;
+  kernel<<<blocks, warps * 32, bytes, stream>>>(a, qm, qids, B, L, Q, r, G,
+                                                out);
+  return (int)cudaGetLastError();
+}
+
+template <int E>
+static int dispatch_diag(int C, int G, const float* a, const float* qm,
+                         const int* qids, int B, int L, int Q, int r,
+                         float* out, cudaStream_t s) {
+  if (G > 1) return launch_diag<26, E, true>(a, qm, qids, B, L, Q, r, G, out, s);
+  switch (C) {
+    case 2: return launch_diag<2, E, false>(a, qm, qids, B, L, Q, r, 1, out, s);
+    case 6: return launch_diag<6, E, false>(a, qm, qids, B, L, Q, r, 1, out, s);
+    case 10: return launch_diag<10, E, false>(a, qm, qids, B, L, Q, r, 1, out, s);
+    case 14: return launch_diag<14, E, false>(a, qm, qids, B, L, Q, r, 1, out, s);
+    case 18: return launch_diag<18, E, false>(a, qm, qids, B, L, Q, r, 1, out, s);
+    case 22: return launch_diag<22, E, false>(a, qm, qids, B, L, Q, r, 1, out, s);
+    case 26: return launch_diag<26, E, false>(a, qm, qids, B, L, Q, r, 1, out, s);
+    case 30: return launch_diag<30, E, false>(a, qm, qids, B, L, Q, r, 1, out, s);
+  }
+  return (int)cudaErrorInvalidValue;
+}
+
 extern "C" int kvm_dtw_diag(const void* a, const void* qm, const void* qids,
                             int B, int L, int Q, int r, void* out,
                             void* stream) {
   if (bad_args(B, L, Q, r)) return (int)cudaErrorInvalidValue;
-  int stage = 0;
-  size_t bytes = 0;
-  const int err = configure(dtw_diag_kernel, 2LL * (2 * r + 3), L, &stage,
-                            &bytes);
+  int C = 0, G = 0;
+  const int err = k3_shape(r, &C, &G);
   if (err) return err;
-  dtw_diag_kernel<<<B, threads_for(r + 1), bytes, (cudaStream_t)stream>>>(
-      (const float*)a, (const float*)qm, (const int*)qids, L, Q, r, stage,
-      (float*)out);
-  return (int)cudaGetLastError();
+  const float* fa = (const float*)a;
+  const float* fq = (const float*)qm;
+  const int* fi = (const int*)qids;
+  cudaStream_t s = (cudaStream_t)stream;
+  return (r & 1) ? dispatch_diag<1>(C, G, fa, fq, fi, B, L, Q, r, (float*)out, s)
+                 : dispatch_diag<0>(C, G, fa, fq, fi, B, L, Q, r, (float*)out, s);
 }
 
 extern "C" int kvm_dtw_ds(const void* a, const void* qm, const void* qids,

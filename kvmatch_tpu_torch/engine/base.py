@@ -1,57 +1,66 @@
-"""Engine base of the PyTorch port.
+"""Engine base of the PyTorch port: the two-phase query skeleton over the
+KV-index.
 
-``BaseEngine`` subclasses the JAX package's host engine skeleton
-(kvmatch_tpu/engine/base.py), which imports jax only inside its device
-methods: host phase 1, planning, ``_flags_to_intervals`` and the chunked
-exact confirms are reused as they are.  Every method that reaches jax is
-overridden here with tensors on an explicit device:
+The host skeleton of kvmatch_tpu/engine/base.py, carried over (the
+reference's four engine classes, QueryEngine.java:162-380 and siblings): the
+query driver, planning, host phase 1 over the index intervals,
+``_flags_to_intervals`` and the chunked exact confirms.  The device half
+runs on tensors of an explicit device, the current CUDA device unless the
+caller passes ``device="cpu"``:
 
 * ``__init__``: f64 host shadow + f32 device tensor of the series; an index
-  built with the host backend when none is given.
+  built on the host when none is given.
 * ``data_envelope_dev``: the series' Sakoe-Chiba envelope for the DTW
   cascade, cached per band radius (``_run_chunked`` drives that cascade's
   stages over unpadded chunks).
 * ``_fly_padded_dev``, ``_fly_cons_stats``, ``_fly_bucket_stack``: the
   per-series caches of the dense probe, gated on the device's free memory.
-* ``_dense_probe_retry``, ``_device_dense_phase1_flags``: phase 1 always
-  takes the flag route (K1 + the constraint AND) at granularity 128, on any
-  device; the JAX package's run-emission ladder is a TPU workaround and is
-  not ported.
-* ``_region_plan``: the same decision, on the port's region helpers.
+* ``_dense_probe_retry``, ``_device_dense_phase1_flags``: dense phase 1
+  always takes the flag route (K1 + the constraint AND) at granularity 128;
+  the JAX package's run-emission ladder is a TPU workaround and is not
+  ported.
 * ``_verify_routed``: device phase 2, the batch routed to the region route
-  or the gather route (kernel K2) by its joint plan.
+  or the gather route (kernel K2) by its joint ``_region_plan``.
 * ``query_batch_device``: batched querying with the device probe for every
   query, with phase timings.
 
-Streamed and host-only modes (``device_data='stream'|'host'``) are not
-ported yet.
+Subclasses provide the hooks ``_plan_inputs`` and ``_cost_batch_multi``
+(planning), ``_scan``, ``_combine``, ``_intersect_native`` and ``_scan_join``
+(host phase 1) and ``_verify_multi`` (phase 2).  Streamed and host-only modes (``device_data='stream'|
+'host'``) are not ported yet (ROADMAP queue-1 item 11).
 """
 
 from __future__ import annotations
 
+import dataclasses
+import logging
 import time
-from typing import List
+from typing import Dict, List, Optional, Tuple
 
 import numpy as np
 import torch
 
-from kvmatch_tpu import verify as vf
-from kvmatch_tpu.config import (DEFAULT_INDEX_CONFIG, DEFAULT_QUERY_CONFIG,
-                                IndexConfig, QueryConfig)
-from kvmatch_tpu.engine.base import BaseEngine as _HostEngine
-from kvmatch_tpu.engine.base import QueryResult, QueryStats, _Ctx
-from kvmatch_tpu.index.build import build_index_tpu
-from kvmatch_tpu.index.structure import Index
-
-from .. import backend
+from .. import backend, native
+from .. import verify as vf
+from ..config import (DEFAULT_INDEX_CONFIG, DEFAULT_QUERY_CONFIG, IndexConfig,
+                      QueryConfig)
+from ..index.build import build_index_host
+from ..index.structure import Index, IndexScale
 from ..ops.probe import FLAG
+from ..ops.regions import coalesce_intervals, pack_regions
 from ..ops.sliding import sliding_min_max
 from ..parallel.query import (FLY_FILL, dense_probe_flags, fly_pad_for,
                               make_bucket_stack, make_cons_stats,
                               pack_segments_batch)
+from ..plan import (QuerySegment, determine_query_plan,
+                    determine_query_plans_batched)
 from ..state import series_to_device
+from ..utils import intervals as iv
+from ..utils.sparse_prefix import sparse_prefixes
 
 __all__ = ["BaseEngine", "QueryResult", "QueryStats", "_Ctx"]
+
+logger = logging.getLogger("kvmatch_tpu_torch")
 
 NEAR_K = 16384  # near-set capacity of one region launch
 _EMPTY = (np.empty(0, np.int64), np.empty(0))
@@ -61,9 +70,63 @@ def _np(t: torch.Tensor) -> np.ndarray:
     return t.cpu().numpy()
 
 
-class BaseEngine(_HostEngine):
+@dataclasses.dataclass
+class QueryStats:
+    """Per-query observability counters — the six StatisticInfo slots of the
+    reference (QueryEngine.java:136-140, 365-371) plus extras."""
+    t_total_ms: float = 0.0
+    t_phase1_ms: float = 0.0
+    t_phase2_ms: float = 0.0
+    n_candidates: int = 0
+    n_disjoint: int = 0
+    n_answers: int = 0
+    n_scans: int = 0
+    n_joins: int = 0           # segments served by the fused join kernels
+    n_segments_used: int = 0
+    n_device_checked: int = 0
+    n_host_rechecked: int = 0
+    # Candidates verified ENTIRELY on host (exact f64, no device launch) by the
+    # tiny-load fast path (QueryConfig.host_verify_max_points).
+    n_host_checked: int = 0
+    early_terminated: bool = False
+
+
+@dataclasses.dataclass
+class QueryResult:
+    offsets: np.ndarray    # 0-based answer offsets, sorted by distance
+    distances: np.ndarray  # exact float64 distances
+    stats: QueryStats
+
+    @property
+    def found(self) -> bool:
+        return self.offsets.size > 0
+
+    def best(self) -> Optional[Tuple[int, float]]:
+        if not self.found:
+            return None
+        return int(self.offsets[0]), float(self.distances[0])
+
+
+@dataclasses.dataclass
+class _Ctx:
+    """Per-query context threaded through the hooks."""
+    query: np.ndarray
+    length: int
+    epsilon: float
+    eps2: float
+    params: dict
+    stats: QueryStats
+    last_min_eps: float = 0.0
+    processed_units: int = 0
+    # Current candidate span (min left, max right) in the frame of the NEXT
+    # segment to scan; lets _gather_rows use the position-sorted index view.
+    span: tuple = None
+
+
+class BaseEngine:
     """Series (f64 on host + f32 on ``device``) and the index."""
 
+    use_dtw_cost_model = False
     FLAG_BLOCK = FLAG
     #: Share of free device memory one cached probe stack may take.
     CACHE_MEM_FRACTION = 0.2
@@ -78,7 +141,6 @@ class BaseEngine(_HostEngine):
         if device_data is not None:
             device = device_data.device
         self.device = backend.resolve_device(device)
-        self.host_only = False  # read by the inherited host phase 1
         if device_data is None:
             self.data, device_data = series_to_device(data, self.device)
         else:
@@ -93,7 +155,7 @@ class BaseEngine(_HostEngine):
         self.icfg = icfg
         self.qcfg = qcfg
         self.index = index if index is not None else \
-            build_index_tpu(self.data, icfg, backend="host")
+            build_index_host(self.data, icfg)
 
     # ------------------------------------------------------------ helpers
     def _dev(self, a, dtype) -> torch.Tensor:
@@ -134,7 +196,449 @@ class BaseEngine(_HostEngine):
         cat = tuple(np.concatenate(parts) for parts in zip(*outs))
         return cat if len(cat) > 1 else cat[0]
 
-    # --------------------------------------------------------- phase 1
+    def _row_bounds(self, sc: IndexScale, rows: np.ndarray
+                    ) -> Tuple[np.ndarray, np.ndarray]:
+        """Per-row mean range [key_i - slack, next_key + slack]; the slack widens the
+        reference's [key, toUpper(key)] (QueryEngine.java:578-591) to absorb f32
+        build-side bucket flips — sound: it can only weaken lower bounds."""
+        slack = self.icfg.probe_guard
+        keys = sc.keys
+        lo = keys[rows] - slack
+        hi = np.where(rows + 1 < keys.size,
+                      keys[np.minimum(rows + 1, keys.size - 1)],
+                      sc.mean_upper_bound) + slack
+        return lo, hi
+
+    # Scans below this interval count are served per-row (C k-way merge over
+    # just the probed rows); a scale's GLOBAL position-sorted view — whose
+    # build costs O(T log R) over ALL intervals (~10 s/scale at n=1e9) — is
+    # materialized only when a single scan is huge (POS_VIEW_MIN) or when the
+    # cumulative per-row-merge work on that scale has exceeded ~2x its
+    # interval count (the build then amortizes across the workload).
+    POS_VIEW_MIN = 1 << 22
+
+    def _use_pos_view(self, sc: IndexScale, row_total: int) -> bool:
+        if sc.has_pos_sorted or row_total > self.POS_VIEW_MIN:
+            return True
+        sc.gather_work += row_total
+        return sc.gather_work > 2 * sc.num_intervals
+
+    def _gather_rows(self, sc: IndexScale, rows: np.ndarray, ctx: "_Ctx" = None
+                     ) -> Tuple[np.ndarray, np.ndarray, np.ndarray]:
+        """Flatten the interval lists of the probed rows.  Returns
+        (row_of_interval, left, right) with row_of_interval indexing into ``rows``.
+
+        When the running candidate span (ctx.span) is narrower than the rows'
+        total interval count, switch to the position-sorted view and materialize
+        only intervals overlapping the span — intervals are <= maximum_diff wide,
+        so the span selection is two binary searches on the left edges."""
+        if rows.size == 0:
+            e = np.empty(0, np.int64)
+            return e, e, e
+        i0, i1 = int(rows[0]), int(rows[-1]) + 1
+        row_total = int(sc.row_ptr[i1] - sc.row_ptr[i0])
+        if sc.has_pos_sorted:
+            p_left, p_right, p_row = sc.pos_sorted()
+            if ctx is not None and ctx.span is not None:
+                lo, hi = ctx.span
+                a = np.searchsorted(p_left, lo - self.icfg.maximum_diff, side="left")
+                b = np.searchsorted(p_left, hi, side="right")
+                if (b - a) < row_total:
+                    sl_row = p_row[a:b]
+                    keep = (sl_row >= i0) & (sl_row < i1) & (p_right[a:b] >= lo)
+                    return (sl_row[keep] - i0, p_left[a:b][keep], p_right[a:b][keep])
+            # A scale's intervals are mutually DISJOINT (every position has
+            # exactly one bucket), so the position-sorted view filtered to the
+            # probed rows is already sorted AND disjoint.  Use the linear
+            # filter when the selected fraction is large.
+            if row_total * 16 > p_row.size:
+                keep = (p_row >= i0) & (p_row < i1)
+                return p_row[keep] - i0, p_left[keep], p_right[keep]
+        # Rows are internally position-sorted and mutually disjoint, so the
+        # left-sorted union is a k-way merge — O(T log R) in C, no argsort.
+        mr = native.merge_rows(sc.row_ptr[rows], sc.row_ptr[rows + 1],
+                               sc.left, sc.right)
+        if mr is not None:
+            return mr
+        # Probed rows are contiguous (probe_rows returns a key range), so their
+        # CSR interval block is one contiguous slice — no index arithmetic.
+        counts = sc.row_ptr[rows + 1] - sc.row_ptr[rows]
+        rep_rows = np.repeat(np.arange(rows.size), counts)
+        sl = slice(int(sc.row_ptr[i0]), int(sc.row_ptr[i1]))
+        left = sc.left[sl]
+        # Invariant: every scan returns intervals sorted by left (and disjoint,
+        # since a scale's intervals partition the positions).  The pos-sorted
+        # paths above are sorted for free; this small-selection fallback sorts.
+        order = np.argsort(left, kind="stable")
+        return rep_rows[order], left[order], sc.right[sl][order]
+
+    def _scan_fill(self, sc: IndexScale, rows: np.ndarray, ctx: "_Ctx",
+                   row_payloads: Dict[str, np.ndarray]) -> Dict[str, np.ndarray]:
+        """Emit the probed rows' intervals with per-row payload columns attached.
+
+        Uses the fused native walk over the position-sorted view when available
+        (native/interval_kernels.c scan_fill); otherwise expands payloads through
+        the NumPy gather path.  Output is sorted by left and disjoint."""
+        cols = tuple(row_payloads)
+        if rows.size == 0:
+            return iv.empty_set(cols)
+        i0, i1 = int(rows[0]), int(rows[-1]) + 1
+        row_total = int(sc.row_ptr[i1] - sc.row_ptr[i0])
+        if self._use_pos_view(sc, row_total):
+            p_left, p_right, p_row = sc.pos_sorted()
+            a, b, min_right = 0, int(p_row.size), 0
+            span_ok = False
+            if ctx is not None and ctx.span is not None:
+                lo, hi = ctx.span
+                a2 = int(np.searchsorted(p_left, lo - self.icfg.maximum_diff, side="left"))
+                b2 = int(np.searchsorted(p_left, hi, side="right"))
+                if (b2 - a2) < row_total:
+                    a, b, min_right = a2, b2, int(lo)
+                    span_ok = True
+            if span_ok or row_total * 16 > p_row.size:
+                res = native.scan_fill(p_left, p_right, p_row, a, b, i0, i1,
+                                       min_right, row_payloads)
+                if res is not None:
+                    return res
+        rep_rows, left, right = self._gather_rows(sc, rows, ctx)
+        out = {"left": left, "right": right}
+        for name, colv in row_payloads.items():
+            out[name] = colv[rep_rows]
+        return out
+
+    CONFIRM_CHUNK = 32768  # caps host (chunk, L) f64 gathers at ~2 GB for L=8192
+
+    @classmethod
+    def _chunked_confirm(cls, near: np.ndarray, piece_fn):
+        """Run an exact host confirmation over ``near`` in bounded chunks so a
+        candidate flood (possible at n=1e9 with a loose epsilon) cannot
+        materialize a (near, L) float64 matrix of tens of GB.  ``piece_fn``
+        maps a chunk of offsets to (kept_offsets, distances)."""
+        if near.size <= cls.CONFIRM_CHUNK:
+            return piece_fn(near)
+        offs, dists = [], []
+        for s in range(0, near.size, cls.CONFIRM_CHUNK):
+            o, d = piece_fn(near[s: s + cls.CONFIRM_CHUNK])
+            offs.append(o)
+            dists.append(d)
+        return np.concatenate(offs), np.concatenate(dists)
+
+    def _cost_normalizer(self) -> float:
+        """Total interval count of the w=100 index (or the closest enabled scale) —
+        the denominator of the DP's log-selectivity (QueryEngine.java:409)."""
+        scales = sorted(self.index)
+        ref_w = 100 if 100 in self.index else scales[len(scales) // 2]
+        sc = self.index[ref_w]
+        return float(sc.cum_intervals[-1]) if sc.num_rows else 1.0
+
+    # ------------------------------------------------------------------ plans
+    def _plan(self, ctx: _Ctx) -> List[QuerySegment]:
+        lo, hi, fn = self._plan_inputs(ctx)
+        return determine_query_plan(ctx.length, lo, hi, fn,
+                                    self.icfg, self.qcfg)
+
+    def _plan_batch(self, ctxs) -> list:
+        """Plan a same-length query batch with the stacked DP (identical
+        output to per-query _plan; the 30x5 transition ops amortize)."""
+        parts = [self._plan_inputs(c) for c in ctxs]
+        lo = np.stack([pt[0] for pt in parts])
+        hi = np.stack([pt[1] for pt in parts])
+        return determine_query_plans_batched(
+            ctxs[0].length, lo, hi, [pt[2] for pt in parts],
+            self.icfg, self.qcfg,
+            cost_batch_multi=self._cost_batch_multi(ctxs))
+
+    # Use the join when the candidate set is this many times smaller than the
+    # segment's planned interval count (the join is O(|CS| log P) vs the
+    # scan's O(P) view walk).
+    JOIN_CS_RATIO = 16
+
+    def _track_min_eps(self, cs: Dict[str, np.ndarray], ctx: _Ctx) -> None:
+        if "eps" in cs and cs["eps"].size:
+            ctx.last_min_eps = float(cs["eps"].min())
+
+    def _candidate_intervals(self, cs: Dict[str, np.ndarray], last_segment: int,
+                             length: int) -> Tuple[np.ndarray, np.ndarray]:
+        """Translate the final CS to query-offset frame, clipped to valid starts."""
+        if cs["left"].size == 0:
+            e = np.empty(0, np.int64)
+            return e, e
+        base = (last_segment - 1) * self.icfg.unit
+        left = np.maximum(cs["left"] - base, 0)
+        right = np.minimum(cs["right"] - base, self.n - length)
+        keep = left <= right
+        return left[keep], right[keep]
+
+    def _data_center(self) -> float:
+        if not hasattr(self, "_center"):
+            self._center = float(self.data.mean())
+        return self._center
+
+    REGION_M = 512
+    # Gather-vs-region choice by DEVICE TRAFFIC: a region row reads M+L-1
+    # points and serves up to M offsets (one FFT ~ the cost of 2-3 candidate
+    # gathers — the fudge factor); the gather path reads L points per offset.
+    # Intervals are gap-coalesced first (gap <= M), so dense-but-fragmented
+    # candidate sets (millions of short intervals a few positions apart at
+    # n=1e9) pack into shared regions instead of one region per interval.
+    # The norm engines use a larger fudge: their scattered path prunes with an
+    # exact host constraint prefilter before gathering.
+    REGION_MIN_OFFSETS = 2048
+    REGION_TRAFFIC_FUDGE = 2.0
+
+    def _region_m(self, L: int, avg_run: float) -> int:
+        """Region width.  The FFT length is next_pow2(M + L - 1), so for DENSE
+        candidate runs M = next_pow2(L) costs the SAME transform as M = 512
+        while serving up to 16x more offsets per region row (the N-point FFT
+        is ~fully utilized: M + L - 1 = 2*next_pow2(L) - 1).  Short scattered
+        runs keep the small M: an isolated hit then reads M + L - 1 points
+        instead of ~2L."""
+        base = self.REGION_M
+        if avg_run >= 2 * base:
+            return max(base, 1 << int(np.ceil(np.log2(max(L, 2)))))
+        return base
+
+    #: Above this series length the cumsum-based host prefilters (PAA,
+    #: constraint) are skipped on the host verify route: the cached f64
+    #: prefix sums cost 16 bytes/point (two 80 GB arrays at n=1e10) while the
+    #: route only ever sees tiny candidate sets the exact kernel handles
+    #: directly.
+    PREFILTER_CUMSUM_MAX_N = 1 << 31
+
+    def _host_verify_ok(self, cand_ivs, L: int) -> bool:
+        """True when the batch's whole phase-2 load is small enough that the
+        exact f64 host kernel undercuts even ONE device launch (the fixed
+        dispatch floor) — see QueryConfig.host_verify_max_points.  Sound in
+        both directions: the host kernel IS the exact confirmation step the
+        device route ends with anyway."""
+        cap = self.qcfg.host_verify_max_points
+        if cap <= 0:
+            return False
+        total = sum(int(np.sum(r - l + 1)) for l, r in cand_ivs if l.size)
+        return total * L <= cap
+
+    #: Staged-point budget for the host prefilter tier's run-local prefix
+    #: sums (utils/sparse_prefix.py): 2.5e8 f64 points = 2 GB per array.
+    HOST_PREFILTER_MAX_STAGED = 250_000_000
+
+    def _host_prefilter_prefix(self, cand_ivs, L: int, want_sq: bool):
+        """Run-local prefix views ``(c1, c2)`` for the host-only prefilter
+        tier, or None when the load is outside the tier (too many offsets,
+        or too much coverage to stage within the budget).  The tier lets a
+        host-only engine answer mid-size candidate loads at any n — the
+        full-series cumsums the regular prefilters use are unaffordable at
+        n=1e10 (80 GB/array) — by staging only the candidate runs.  See
+        QueryConfig.host_prefilter_max_offsets."""
+        lim = self.qcfg.host_prefilter_max_offsets
+        if lim <= 0:
+            return None
+        total = sum(int(np.sum(r - l + 1)) for l, r in cand_ivs if l.size)
+        if total == 0 or total > lim:
+            return None
+        alll = np.concatenate([l for l, r in cand_ivs if l.size])
+        allr = np.concatenate([r for l, r in cand_ivs if l.size])
+        c1, c2, _staged = sparse_prefixes(
+            self.data, alll, allr, L, want_sq=want_sq,
+            max_staged=self.HOST_PREFILTER_MAX_STAGED)
+        if c1 is None:
+            return None
+        return c1, c2
+
+    def _verify_intervals(self, left: np.ndarray, right: np.ndarray, ctx: _Ctx
+                          ) -> Tuple[np.ndarray, np.ndarray]:
+        """Phase 2 of one query: a batch of one through ``_verify_multi``."""
+        return self._verify_multi([(left, right)], [ctx])[0]
+
+    # --------------------------------------------------------- phase 2
+    def _region_plan(self, cand_ivs, L: int):
+        """Gather vs region decision of the JAX package's ``_region_plan``,
+        on the port's region helpers; (starts, valid_from, valid_to, qids,
+        M) or None for the gather path."""
+        n_offsets = sum(int(np.sum(r - l + 1)) for l, r in cand_ivs if l.size)
+        if n_offsets < self.REGION_MIN_OFFSETS:
+            return None
+        merged = [coalesce_intervals(l, r, self.REGION_M) if l.size else (l, r)
+                  for l, r in cand_ivs]
+        n_runs = sum(l.size for l, _ in merged)
+        run_len = sum(int(np.sum(r - l + 1)) for l, r in merged if l.size)
+        if n_runs == 0:
+            return None
+        M = self._region_m(L, run_len / n_runs)
+        if M > self.REGION_M:
+            merged = [coalesce_intervals(l, r, M) if l.size else (l, r)
+                      for l, r in merged]
+        n_regions = sum(int(np.sum((r - l + 1 + M - 1) // M))
+                        for l, r in merged if l.size)
+        if (n_regions == 0
+                or n_regions * (M + L - 1) * self.REGION_TRAFFIC_FUDGE
+                    > n_offsets * L):
+            return None
+        starts, vfrom, vto, qids = [], [], [], []
+        for qi, (l, r) in enumerate(merged):
+            if l.size == 0:
+                continue
+            s, a, b = pack_regions(l, r, self.n, L, M)
+            starts.append(s)
+            vfrom.append(a)
+            vto.append(b)
+            qids.append(np.full(s.size, qi, np.int32))
+        return (np.concatenate(starts), np.concatenate(vfrom),
+                np.concatenate(vto), np.concatenate(qids), M)
+
+    def _guarded_threshs(self, ctxs) -> np.ndarray:
+        """Per-query eps^2 plus the f32 guard band of the device distances."""
+        L = ctxs[0].length
+        return np.array([c.eps2 + vf.guard_threshold(c.eps2, L,
+                                                     self.qcfg.verify_guard)
+                         for c in ctxs])
+
+    def _verify_routed(self, cand_ivs, ctxs):
+        """Device phase 2, routed as the JAX package routes a batch: its
+        joint ``_region_plan`` sends every query to the region route
+        (``_verify_regions``, FFT near-sets) when the candidates are
+        clustered enough, else to the gather route (``_verify_gather``,
+        kernel K2).  Both routes end in the exact f64 confirm."""
+        L = ctxs[0].length
+        for (l, r), ctx in zip(cand_ivs, ctxs):
+            ctx.stats.n_device_checked = int(np.sum(r - l + 1)) if l.size else 0
+        region = self._region_plan(cand_ivs, L)
+        if region is None:
+            return self._verify_gather(cand_ivs, ctxs)
+        return self._verify_regions(cand_ivs, ctxs, region)
+
+    # ------------------------------------------------------------------ phase 1
+    def _phase1(self, segments: List[QuerySegment], ctx: _Ctx
+                ) -> Tuple[Dict[str, np.ndarray], int]:
+        unit = self.icfg.unit
+        qcfg = self.qcfg
+        t0 = time.perf_counter()
+        cs: Optional[Dict[str, np.ndarray]] = None
+        last_segment = segments[-1].order
+        last_estimate = float("inf")
+        cost_a = qcfg.phase2_cost_a_dtw if self.use_dtw_cost_model else qcfg.phase2_cost_a
+        cost_b = qcfg.phase2_cost_b_dtw if self.use_dtw_cost_model else qcfg.phase2_cost_b
+        est2_now = float("inf")  # phase-2 estimate of the CURRENT cs
+        for i, seg in enumerate(segments):
+            # Marginal-scan termination (see QueryConfig): the NEXT scan's
+            # predicted cost already exceeds verifying the current cs exactly.
+            if (qcfg.enable_early_termination and i >= 1
+                    and seg.count * qcfg.phase1_scan_cost_ms_per_interval
+                        > est2_now):
+                last_segment = seg.order  # cs is framed at this segment
+                ctx.stats.early_terminated = True
+                break
+            delta = 0 if i == len(segments) - 1 else \
+                (segments[i + 1].order - seg.order) * unit
+            ctx.processed_units += seg.w // unit
+            fused = None  # (n_disjoint, n_offsets, min_eps) from the C step
+
+            if i == 0:
+                positions = self._scan(seg, ctx)
+                ctx.stats.n_scans += 1
+                # Only the first segment's set becomes the running CS and needs
+                # sort+merge; later raw scans intersect against it unsorted.
+                positions = iv.merge_intervals(positions)
+                base = (seg.order - 1) * unit
+                lo, hi = base, self.n - ctx.length + base  # valid window starts, 0-based
+                left = np.maximum(positions["left"], lo)
+                right = np.minimum(positions["right"], hi)
+                keep = left <= right
+                nxt = {k: v[keep] for k, v in positions.items()}
+                nxt["left"], nxt["right"] = left[keep], right[keep]
+            else:
+                nxt = None
+                # Join only when its O(|CS| log T) beats the per-row merge AND
+                # the scale's position-sorted view is warranted (building it
+                # costs O(T log R) once — POS_VIEW_MIN gates that, as in
+                # _scan_fill/_gather_rows).
+                if (cs["left"].size * self.JOIN_CS_RATIO < seg.count
+                        and (self.index[seg.w].has_pos_sorted
+                             or seg.count > self.POS_VIEW_MIN)):
+                    nxt = self._scan_join(seg, cs, ctx)
+                if nxt is not None:
+                    ctx.stats.n_scans += 1
+                    ctx.stats.n_joins += 1
+                else:
+                    positions = self._scan(seg, ctx)
+                    ctx.stats.n_scans += 1
+                    nat = self._intersect_native(cs, positions, ctx, delta)
+                    if nat is not None:
+                        # The C kernel emitted the shifted, sorted-disjoint
+                        # set AND its bookkeeping in one pass: no extra
+                        # shift/merge/count/min-eps array passes.
+                        nxt, n_off_c, emin_c = nat
+                        fused = (nxt["left"].size, n_off_c, emin_c)
+                    else:
+                        pieces, ia, ib = iv.intersect_with_sorted(cs, positions)
+                        nxt = self._combine(pieces, cs, positions, ia, ib, ctx)
+
+            if fused is not None:
+                if np.isfinite(fused[2]) and nxt["left"].size:
+                    ctx.last_min_eps = fused[2]
+                cs = nxt  # already in the next segment's frame
+            else:
+                self._track_min_eps(nxt, ctx)
+                # NOTE: on the join path nxt's payload columns are ping-pong
+                # scratch views (native._PING), and shift/merge_intervals may
+                # return them UNCOPIED — cs can alias the pools until the next
+                # native call flips the generation.  Sound only under the
+                # shared-ping invariant documented at native._PING.
+                cs = iv.merge_intervals(iv.shift(nxt, delta))
+            ctx.stats.n_segments_used = i + 1
+            if cs["left"].size:
+                ctx.span = (int(cs["left"][0]), int(cs["right"][-1]))
+
+            if cs["left"].size == 0:
+                ctx.stats.t_phase1_ms = (time.perf_counter() - t0) * 1e3
+                return cs, (segments[i + 1].order if i + 1 < len(segments) else seg.order)
+
+            n_disjoint, n_offsets = fused[:2] if fused is not None \
+                else iv.count_stats(cs)
+            if logger.isEnabledFor(logging.DEBUG):
+                logger.debug("segment %d (order=%d w=%d): %d disjoint ranges, "
+                             "%d offsets", i + 1, seg.order, seg.w,
+                             n_disjoint, n_offsets)
+            if qcfg.enable_early_termination:
+                t1_ms = (time.perf_counter() - t0) * 1e3
+                est2 = (cost_a * n_disjoint +
+                        cost_b * n_offsets / 1e5 * ctx.length +
+                        qcfg.phase2_cost_intercept)
+                if (qcfg.phase2_cost_region is not None
+                        and not self.use_dtw_cost_model):
+                    # Clustered candidates take the region route (see
+                    # QueryConfig.phase2_cost_region): flat per-offset rate,
+                    # ~L-independent.
+                    est2 = min(est2, qcfg.phase2_cost_region * n_offsets
+                               + qcfg.phase2_cost_intercept)
+                est2_now = est2
+                estimate = t1_ms + est2
+                if logger.isEnabledFor(logging.DEBUG):
+                    logger.debug("estimate after segment %d: t1=%.1fms "
+                                 "est2=%.1fms", i + 1, t1_ms, est2)
+                if (i >= qcfg.min_segments_before_termination
+                        and estimate > last_estimate):
+                    last_segment = (segments[i + 1].order if i + 1 < len(segments)
+                                    else seg.order)
+                    ctx.stats.early_terminated = True
+                    break
+                last_estimate = estimate
+        else:
+            last_segment = segments[-1].order
+
+        ctx.stats.t_phase1_ms = (time.perf_counter() - t0) * 1e3
+        return cs, last_segment
+
+    # ------------------------------------------------ dense-on-device phase 1
+    DENSE_PROBE_GROUP = 32  # dense queries probed per device pass
+
+    def _dense_route(self, segments) -> bool:
+        """True when phase 1 should run as the device dense probe: even the
+        most selective plan segment is dense enough that host interval
+        algebra would churn through 1e8-interval intermediates."""
+        cutoff = self.qcfg.dense_probe_min_count
+        return (cutoff is not None and bool(segments)
+                and min(s.count for s in segments) > cutoff)
+
     def _fly_padded_dev(self, length: int) -> torch.Tensor:
         """Cached series copy right-padded with FLY_FILL for the probe."""
         pad = fly_pad_for(length, max(self.icfg.scales))
@@ -203,63 +707,125 @@ class BaseEngine(_HostEngine):
             out[qi] = self._flags_to_intervals(flags[qi], m, fgran)
         return out
 
-    # --------------------------------------------------------- phase 2
-    def _region_plan(self, cand_ivs, L: int):
-        """Gather vs region decision of the JAX package's ``_region_plan``,
-        on the port's region helpers; (starts, valid_from, valid_to, qids,
-        M) or None for the gather path."""
-        from ..ops.regions import coalesce_intervals, pack_regions
-        n_offsets = sum(int(np.sum(r - l + 1)) for l, r in cand_ivs if l.size)
-        if n_offsets < self.REGION_MIN_OFFSETS:
-            return None
-        merged = [coalesce_intervals(l, r, self.REGION_M) if l.size else (l, r)
-                  for l, r in cand_ivs]
-        n_runs = sum(l.size for l, _ in merged)
-        run_len = sum(int(np.sum(r - l + 1)) for l, r in merged if l.size)
-        if n_runs == 0:
-            return None
-        M = self._region_m(L, run_len / n_runs)
-        if M > self.REGION_M:
-            merged = [coalesce_intervals(l, r, M) if l.size else (l, r)
-                      for l, r in merged]
-        n_regions = sum(int(np.sum((r - l + 1 + M - 1) // M))
-                        for l, r in merged if l.size)
-        if (n_regions == 0
-                or n_regions * (M + L - 1) * self.REGION_TRAFFIC_FUDGE
-                    > n_offsets * L):
-            return None
-        starts, vfrom, vto, qids = [], [], [], []
-        for qi, (l, r) in enumerate(merged):
-            if l.size == 0:
-                continue
-            s, a, b = pack_regions(l, r, self.n, L, M)
-            starts.append(s)
-            vfrom.append(a)
-            vto.append(b)
-            qids.append(np.full(s.size, qi, np.int32))
-        return (np.concatenate(starts), np.concatenate(vfrom),
-                np.concatenate(vto), np.concatenate(qids), M)
+    def _flags_to_intervals(self, flags_row: np.ndarray, m: int,
+                            fgran: int | None = None):
+        """Expand one query's flag bitmap into disjoint candidate intervals
+        (adjacent flagged blocks coalesce; right edges clip to the last valid
+        window start m-1)."""
+        F = fgran if fgran is not None else self.FLAG_BLOCK
+        idx = np.flatnonzero(flags_row)
+        if idx.size == 0:
+            e = np.empty(0, np.int64)
+            return e, e
+        breaks = np.flatnonzero(np.diff(idx) > 1)
+        left = idx[np.concatenate(([0], breaks + 1))].astype(np.int64) * F
+        right = np.minimum(
+            (idx[np.concatenate((breaks, [idx.size - 1]))].astype(np.int64)
+             + 1) * F - 1, m - 1)
+        return left, right
 
-    def _guarded_threshs(self, ctxs) -> np.ndarray:
-        """Per-query eps^2 plus the f32 guard band of the device distances."""
-        L = ctxs[0].length
-        return np.array([c.eps2 + vf.guard_threshold(c.eps2, L,
-                                                     self.qcfg.verify_guard)
-                         for c in ctxs])
+    def _phase1_routed(self, segments, ctx: _Ctx):
+        """Host phase 1, or the device dense probe for dense plans.  Returns
+        (c_left, c_right) candidate intervals in the global (query-start)
+        frame."""
+        if self._dense_route(segments):
+            t0 = time.perf_counter()
+            c_l, c_r = self._dense_probe_retry([ctx], [segments])[0]
+            ctx.stats.t_phase1_ms = (time.perf_counter() - t0) * 1e3
+            ctx.stats.n_scans = len(segments)
+            ctx.stats.n_segments_used = len(segments)
+            return c_l, c_r
+        cs, last_segment = self._phase1(segments, ctx)
+        return self._candidate_intervals(cs, last_segment, ctx.length)
 
-    def _verify_routed(self, cand_ivs, ctxs):
-        """Device phase 2, routed as the JAX package routes a batch: its
-        joint ``_region_plan`` sends every query to the region route
-        (``_verify_regions``, FFT near-sets) when the candidates are
-        clustered enough, else to the gather route (``_verify_gather``,
-        kernel K2).  Both routes end in the exact f64 confirm."""
-        L = ctxs[0].length
-        for (l, r), ctx in zip(cand_ivs, ctxs):
-            ctx.stats.n_device_checked = int(np.sum(r - l + 1)) if l.size else 0
-        region = self._region_plan(cand_ivs, L)
-        if region is None:
-            return self._verify_gather(cand_ivs, ctxs)
-        return self._verify_regions(cand_ivs, ctxs, region)
+    # ------------------------------------------------------------------ driver
+    def query(self, query: np.ndarray, epsilon: float, **params) -> QueryResult:
+        query = np.asarray(query, np.float64)
+        if query.size < self.icfg.unit:
+            raise ValueError(
+                f"query length {query.size} is below the smallest index scale "
+                f"({self.icfg.unit}); KV-match requires L >= {self.icfg.unit} "
+                f"(QueryEngine.java:121-123)")
+        if epsilon < 0:
+            raise ValueError("epsilon must be >= 0")
+        stats = QueryStats()
+        ctx = _Ctx(query=query, length=query.size, epsilon=float(epsilon),
+                   eps2=float(epsilon) ** 2, params=params, stats=stats)
+        t0 = time.perf_counter()
+
+        segments = self._plan(ctx)
+        c_l, c_r = self._phase1_routed(segments, ctx)
+
+        t2 = time.perf_counter()
+        stats.n_candidates = int(np.sum(c_r - c_l + 1)) if c_l.size else 0
+        stats.n_disjoint = int(c_l.size)
+        if c_l.size:
+            ans_off, ans_dist = self._verify_intervals(c_l, c_r, ctx)
+        else:
+            ans_off, ans_dist = np.empty(0, np.int64), np.empty(0)
+        stats.t_phase2_ms = (time.perf_counter() - t2) * 1e3
+
+        order = np.argsort(ans_dist, kind="stable")
+        ans_off, ans_dist = ans_off[order], ans_dist[order]
+        stats.n_answers = int(ans_off.size)
+        stats.t_total_ms = (time.perf_counter() - t0) * 1e3
+        return QueryResult(offsets=ans_off, distances=ans_dist, stats=stats)
+
+    # ------------------------------------------------------------ batched driver
+    def query_batch(self, queries: np.ndarray, epsilon, **params) -> List[QueryResult]:
+        """Throughput path: run phases 0/1 per query on the host, then verify ALL
+        queries' candidates in shared device launches (one padded batch stream
+        instead of one launch per query).  ``queries`` is (Q, L); ``epsilon`` may
+        be a scalar or per-query array.  Returns one QueryResult per query."""
+        queries = np.atleast_2d(np.asarray(queries, np.float64))
+        nq = queries.shape[0]
+        eps = np.broadcast_to(np.asarray(epsilon, np.float64), (nq,))
+        ctxs: List[_Ctx] = []
+        cand_ivs: List[Tuple[np.ndarray, np.ndarray]] = []
+        t0 = time.perf_counter()
+        for qi in range(nq):
+            ctxs.append(_Ctx(query=queries[qi], length=queries.shape[1],
+                             epsilon=float(eps[qi]), eps2=float(eps[qi]) ** 2,
+                             params=dict(params), stats=QueryStats()))
+        seg_lists = self._plan_batch(ctxs)
+        # Dense plans run the device probe, DENSE_PROBE_GROUP queries a pass;
+        # the rest take host phase 1.
+        dense_q = [qi for qi in range(nq) if self._dense_route(seg_lists[qi])]
+        dense_res: dict = {}
+        for g in range(0, len(dense_q), self.DENSE_PROBE_GROUP):
+            grp = dense_q[g: g + self.DENSE_PROBE_GROUP]
+            t0d = time.perf_counter()
+            grp_res = self._dense_probe_retry([ctxs[qi] for qi in grp],
+                                              [seg_lists[qi] for qi in grp])
+            dt = (time.perf_counter() - t0d) * 1e3 / len(grp)
+            for j, qi in enumerate(grp):
+                ctxs[qi].stats.t_phase1_ms = dt
+                ctxs[qi].stats.n_scans = len(seg_lists[qi])
+                ctxs[qi].stats.n_segments_used = len(seg_lists[qi])
+                dense_res[qi] = grp_res[j]
+        for qi in range(nq):
+            ctx = ctxs[qi]
+            if qi in dense_res:
+                c_l, c_r = dense_res[qi]
+            else:
+                cs, last_segment = self._phase1(seg_lists[qi], ctx)
+                c_l, c_r = self._candidate_intervals(cs, last_segment, ctx.length)
+            ctx.stats.n_candidates = int(np.sum(c_r - c_l + 1)) if c_l.size else 0
+            ctx.stats.n_disjoint = int(c_l.size)
+            cand_ivs.append((c_l, c_r))
+        t_verify = time.perf_counter()
+        per_query = self._verify_multi(cand_ivs, ctxs)
+        t_end = time.perf_counter()
+        results = []
+        for qi, (ans_off, ans_dist) in enumerate(per_query):
+            order = np.argsort(ans_dist, kind="stable")
+            stats = ctxs[qi].stats
+            stats.n_answers = int(ans_off.size)
+            stats.t_phase2_ms = (t_end - t_verify) * 1e3 / nq
+            stats.t_total_ms = (t_end - t0) * 1e3 / nq
+            results.append(QueryResult(offsets=ans_off[order],
+                                       distances=ans_dist[order], stats=stats))
+        return results
 
     # ------------------------------------------------ device-probe batch
     def query_batch_device(self, queries: np.ndarray, epsilon,
@@ -301,3 +867,11 @@ class BaseEngine(_HostEngine):
             results.append(QueryResult(offsets=ans_off[order],
                                        distances=ans_dist[order], stats=stats))
         return results
+
+    def query_at(self, offset: int, length: int, epsilon: float, **params) -> QueryResult:
+        """Self-query convenience: extract Q = data[offset : offset+length] first
+        (the reference's query(statistics, offset, length, ...) overload,
+        QueryEngine.java:155-160).  ``offset`` is 0-based."""
+        if not (0 <= offset and offset + length <= self.n):
+            raise ValueError("query window out of range")
+        return self.query(self.data[offset: offset + length], epsilon, **params)

@@ -19,16 +19,14 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-from kvmatch_tpu import verify as vf
-from kvmatch_tpu.plan import envelope, unit_sums
-from kvmatch_tpu.utils import intervals as iv
-
+from .. import verify as vf
 from ..ops.dtw import (ds_value, dtw_banded_batch_f64, dtw_stage_znorm_ds_multi,
                        dtw_stage_znorm_multi, lb_stage_znorm_multi)
+from ..plan import envelope, unit_sums
+from ..utils import intervals as iv
 from .base import _EMPTY, _Ctx
 from .norm_ed import NormQueryEngine
-from .rsm_dtw import (QueryEngineDtw, assemble, candidate_count, lb_dp_near,
-                      paa_env_blocks)
+from .rsm_dtw import assemble, candidate_count, lb_dp_near, paa_env_blocks
 
 
 class NormQueryEngineDtw(NormQueryEngine):
@@ -160,5 +158,3 @@ class NormQueryEngineDtw(NormQueryEngine):
             return p[keep], np.sqrt(d2h[keep])
 
         return self._chunked_confirm(near, piece)
-
-    _verify = QueryEngineDtw._verify

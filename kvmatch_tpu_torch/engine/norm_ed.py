@@ -4,8 +4,8 @@ Z-normalized Euclidean distance under the constraints
 |mu_T - mu_Q| <= beta and 1/alpha <= sigma_T/sigma_Q <= alpha.  The host
 methods (plan inputs and costs, probe rows, scan/combine, the std filter, the
 constraint and PAA prefilters, the exact f64 confirms) are carried over from
-the JAX package's module, which imports jax at the top and so cannot be
-imported here; ``_verify_multi`` runs phase 2 on the port's tensors: the FFT
+the JAX package's module; ``_verify_multi`` runs phase 2 on the port's
+tensors: the FFT
 region near-set for clustered candidates and kernel K2 (ops/ed.py) for
 scattered ones, then the exact f64 confirmation on the host.
 """
@@ -19,15 +19,14 @@ from typing import Dict
 import numpy as np
 import torch
 
-from kvmatch_tpu import native
-from kvmatch_tpu import verify as vf
-from kvmatch_tpu.plan import QuerySegment, unit_sums
-from kvmatch_tpu.utils import intervals as iv
-from kvmatch_tpu.utils import rounding
-
+from .. import native
+from .. import verify as vf
 from ..ops.ed import znorm_ed_distances_multi
 from ..ops.regions import (region_znorm_distances_multi,
                            region_znorm_near_multi)
+from ..plan import QuerySegment, unit_sums
+from ..utils import intervals as iv
+from ..utils import rounding
 from .base import _EMPTY, NEAR_K, BaseEngine, _Ctx, _np
 
 
@@ -128,7 +127,7 @@ class NormQueryEngine(BaseEngine):
             raise ValueError(
                 "NormQueryEngine requires alpha= and beta= (cNSM constraints); "
                 "for unconstrained NSM use "
-                "kvmatch_tpu.baselines.UcrScanner.scan_nsm_ed")
+                "the JAX package's baselines.UcrScanner.scan_nsm_ed")
         q = ctx.query
         mu_q = float(q.mean())
         sd_q = float(np.sqrt(max(np.mean(q * q) - mu_q * mu_q, 0.0)))
@@ -334,9 +333,6 @@ class NormQueryEngine(BaseEngine):
                (std <= alpha * sd_q * (1 + 1e-9) + g) & \
                (std >= sd_q / alpha * (1 - 1e-9) - g) & (std > 0)
         return offsets[keep]
-
-    def _verify_intervals(self, left, right, ctx):
-        return self._verify_multi([(left, right)], [ctx])[0]
 
     def _verify_multi(self, cand_ivs, ctxs):
         """Multi-query z-norm verification: the exact f64 host kernel for a

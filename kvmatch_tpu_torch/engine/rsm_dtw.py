@@ -18,17 +18,15 @@ ported (``BaseEngine.__init__`` raises on them).
 
 from __future__ import annotations
 
-from typing import Tuple
 
 import numpy as np
 import torch
 
-from kvmatch_tpu import verify as vf
-from kvmatch_tpu.plan import QuerySegment, envelope, unit_sums
-from kvmatch_tpu.utils import intervals as iv
-
+from .. import verify as vf
 from ..ops.dtw import (ds_value, dtw_banded_batch_f64, dtw_stage_ds_multi,
                        dtw_stage_multi, lb_stage_multi)
+from ..plan import QuerySegment, envelope, unit_sums
+from ..utils import intervals as iv
 from .base import _EMPTY, _Ctx
 from .rsm_ed import QueryEngine
 
@@ -183,13 +181,3 @@ class QueryEngineDtw(QueryEngine):
         bor_m = ~acc_m & (d2ds <= eps2s + g)
         return assemble(self, ctxs, n_off, n_qid, d2ds, acc_m, bor_m,
                         self._confirm_dtw)
-
-    def _verify(self, offsets: np.ndarray, ctx: _Ctx
-                ) -> Tuple[np.ndarray, np.ndarray]:
-        """Single query = a batch of one through the fused stages."""
-        if offsets.size == 0:
-            return _EMPTY
-        runs = np.flatnonzero(np.diff(offsets) > 1)
-        left = offsets[np.concatenate(([0], runs + 1))]
-        right = offsets[np.concatenate((runs, [offsets.size - 1]))]
-        return self._verify_multi([(left, right)], [ctx])[0]

@@ -2,8 +2,8 @@
 
 Raw-subsequence matching under Euclidean distance.  The host methods (plan
 inputs and costs, probe rows, scan/combine, the PAA prefilter, the exact f64
-confirm) are carried over from the JAX package's module, which imports jax
-at the top and so cannot be imported here; ``_verify_multi`` runs phase 2 on
+confirm) are carried over from the JAX package's module; ``_verify_multi``
+runs phase 2 on
 the port's tensors: the FFT region near-set for clustered candidates and
 kernel K2 (ops/ed.py) for scattered ones, then the exact f64 confirmation on
 the host.
@@ -17,14 +17,13 @@ from typing import Dict
 import numpy as np
 import torch
 
-from kvmatch_tpu import native
-from kvmatch_tpu import verify as vf
-from kvmatch_tpu.plan import QuerySegment, unit_sums
-from kvmatch_tpu.utils import intervals as iv
-from kvmatch_tpu.utils import rounding
-
+from .. import native
+from .. import verify as vf
 from ..ops.ed import ed_distances_multi
 from ..ops.regions import region_ed_distances_multi, region_ed_near_multi
+from ..plan import QuerySegment, unit_sums
+from ..utils import intervals as iv
+from ..utils import rounding
 from .base import _EMPTY, NEAR_K, BaseEngine, _Ctx, _np
 
 
@@ -131,9 +130,6 @@ class QueryEngine(BaseEngine):
             return p[keep], np.sqrt(d2h[keep])
 
         return self._chunked_confirm(near, piece)
-
-    def _verify_intervals(self, left, right, ctx):
-        return self._verify_multi([(left, right)], [ctx])[0]
 
     def _paa_prefilter(self, offsets: np.ndarray, ctx: _Ctx, thresh: float,
                        blocks: int = 16, env=None, prefix=None) -> np.ndarray:

@@ -18,11 +18,11 @@ from typing import Optional
 import numpy as np
 import torch
 
-from kvmatch_tpu.config import DEFAULT_INDEX_CONFIG, IndexConfig
-from kvmatch_tpu.index.structure import Index, IndexScale
-from kvmatch_tpu.utils import rounding
-
+from .. import backend
+from ..config import DEFAULT_INDEX_CONFIG, IndexConfig
 from ..ops.sliding import bucketize_means, sliding_sums
+from ..utils import rounding
+from .structure import Index, IndexScale
 
 #: Histogram capacity (distinct mean buckets), as in the JAX build.
 NB = 1 << 20
@@ -75,9 +75,9 @@ def build_index_device_stats(data, cfg: IndexConfig = DEFAULT_INDEX_CONFIG,
                              stats: Optional[dict] = None,
                              data_dev: Optional[torch.Tensor] = None,
                              device=None) -> Index:
-    """Planner statistics of every scale, built on ``data_dev``'s device (or
-    on ``device`` after one upload of ``data``).  ``stats`` receives the
-    build seconds and Mpts/s."""
+    """Planner statistics of every scale, built on ``data_dev``'s device, or
+    on ``device`` (the current CUDA device unless ``device="cpu"``) after one
+    upload of ``data``.  ``stats`` receives the build seconds and Mpts/s."""
     data = np.asarray(data)
     n = data.size
     scales = tuple(cfg.scales)
@@ -90,11 +90,11 @@ def build_index_device_stats(data, cfg: IndexConfig = DEFAULT_INDEX_CONFIG,
         raise ValueError(
             f"mean-bucket range {bucket_hi - bucket_lo} exceeds the device "
             f"histogram capacity {NB}; build this data's index with "
-            f"kvmatch_tpu.index.build.build_index_tpu(backend='host')")
+            f"kvmatch_tpu_torch.index.build.build_index_host")
     t0 = time.perf_counter()
     if data_dev is None:
         data_dev = torch.as_tensor(data, dtype=torch.float32,
-                                   device=torch.device(device or "cpu"))
+                                   device=backend.resolve_device(device))
     if data_dev.device.type == "cuda":
         torch.cuda.synchronize(data_dev.device)
     t_h2d = time.perf_counter() - t0

@@ -5,8 +5,8 @@ The sources are compiled at first use with ``nvcc`` for ``sm_90a``, one
 library with a plain C interface, loaded with ``ctypes`` (no PyTorch
 headers, so a build takes seconds).  The library lands in ``build/kernels/``
 at the repository root, named by a hash of the sources, so an edited source
-rebuilds and an unchanged one is reused (the same caching rule as
-kvmatch_tpu/native/__init__.py).
+rebuilds and an unchanged one is reused (the same caching rule as the
+native host runtime, native/__init__.py).
 
 Nothing here runs at import: tests on a machine without ``nvcc`` import every
 module of the port.  Each C entry point returns ``cudaGetLastError()`` after

@@ -22,8 +22,8 @@ tensor its kernel.  ``DTW_STATE["variant"]`` picks K3 or K4 for the f32
 stages, as ``_PALLAS_DTW_STATE`` does in JAX.
 
 Offsets are int64 end to end (JAX casts them to int32).  The f64 host DP is
-the JAX package's jax-free native kernel (``kvmatch_tpu.native``), with the
-NumPy twin as its fallback.
+the port's native host kernel (``native.dtw_band_f64``), with the NumPy twin
+as its fallback.
 """
 
 from __future__ import annotations
@@ -32,13 +32,18 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
-from .. import backend, kernels
+from .. import backend, kernels, native
 from .ed import _gather
 
 BIG = 1e30
 
 #: f32 DP variant of the stages: "diag" (K3) or "rows" (K4).
 DTW_STATE = {"variant": "diag"}
+
+#: Widest band K3 runs: up to 32 warps of 32 threads, 26 lanes a thread
+#: (csrc/dtw.cu:kvm_dtw_diag_shape).  A row of L <= K3_MAX_R + 1 points takes
+#: any radius (r is clamped to L - 1).
+K3_MAX_R = (32 * 32 * 26 - 1) // 2
 
 
 # ----------------------------------------------------------- plain versions
@@ -87,6 +92,37 @@ def dtw_banded_plain(a: torch.Tensor, qm: torch.Tensor, qids: torch.Tensor,
         _mask_outside(D, lo, hi, BIG)
         P = D
     return P[:, r]
+
+
+def dtw_diag_plain(a: torch.Tensor, qm: torch.Tensor, qids: torch.Tensor,
+                   r: int) -> torch.Tensor:
+    """Plain version of K3 in its own form: the f32 walk over the 2L-1
+    anti-diagonals s = i + j on (B, W + 2) carries with a BIG lane on each
+    side, one carry per step parity (D_{s-2}, rewritten in place, and
+    D_{s-1}).  Diagonal s rewrites the lanes k with s + r - k even:
+    D_s[k] = min(d(i, j) + min(D_{s-1}[k-1], D_{s-1}[k+1], D_{s-2}[k]), BIG),
+    BIG outside the matrix.  The same f32 operations as the kernel, so the
+    two are equal bit for bit; its sums run in another order than
+    ``dtw_banded_plain``'s row form, within the guard band of it."""
+    B, L, r, W, _ = _row_inputs(a, qm, qids, r)
+    q = qm[qids.long()]
+    dev = a.device
+    carry = [torch.full((B, W + 2), BIG, dtype=a.dtype, device=dev)
+             for _ in range(2)]
+    carry[0][:, r + 1] = 0.0  # D_{-2}: the seed of cell (0, 0)
+    lanes = [torch.arange(p, W, 2, device=dev) for p in (0, 1)]
+    for s in range(2 * L - 1):
+        k = lanes[(s + r) & 1]
+        i = (s + r - k) >> 1
+        j = s - i
+        valid = (i >= 0) & (i < L) & (j >= 0) & (j < L)
+        df = a[:, i.clamp(0, L - 1)] - q[:, j.clamp(0, L - 1)]
+        cur, prev = carry[s & 1], carry[1 - (s & 1)]
+        m = torch.minimum(torch.minimum(prev[:, k], prev[:, k + 2]),
+                          cur[:, k + 1])
+        cur[:, k + 1] = torch.where(valid, torch.clamp_max(df * df + m, BIG),
+                                    BIG)
+    return carry[(2 * L - 2) & 1][:, r + 1]
 
 
 def _ds_two_sum(ah, al, bh, bl):
@@ -181,9 +217,12 @@ def _launch(name: str, a, qm, qids, r: int, n_out: int):
 
 def dtw_diag(a, qm, qids, r: int) -> torch.Tensor:
     """Banded DTW (B,) f32: kernel K3 for CUDA tensors, the plain version
-    for CPU tensors."""
+    for CPU tensors.  K3 equals ``dtw_diag_plain`` bit for bit."""
     if backend.route(a) == "plain":
         return dtw_banded_plain(a, qm, qids, r)
+    if a.dim() == 2 and min(r, a.shape[1] - 1) > K3_MAX_R:
+        raise ValueError(f"dtw_diag: band radius {min(r, a.shape[1] - 1)} "
+                         f"beyond K3_MAX_R={K3_MAX_R}")
     code, (out,) = _launch("dtw_diag", a, qm, qids, r, 1)
     dtw_diag.launches += 1
     kernels.check(code, "dtw_diag")
@@ -349,8 +388,7 @@ def dtw_banded_batch_f64(a_batch: np.ndarray, q: np.ndarray, r: int,
     the library builds, the NumPy twin otherwise.  A finite ``ub`` lets the
     native DP abandon windows that provably exceed it (they report a value
     > ub)."""
-    from kvmatch_tpu.native import dtw_band_f64
-    res = dtw_band_f64(a_batch, q, r, ub)
+    res = native.dtw_band_f64(a_batch, q, r, ub)
     if res is not None:
         return res
     return _dtw_banded_batch_f64_np(a_batch, q, r)

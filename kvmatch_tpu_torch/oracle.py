@@ -3,9 +3,10 @@
 The same semantics as ``kvmatch_tpu/oracle.py`` (``rsm_ed``, ``nsm_ed``):
 an offset is an answer iff its distance^2 <= epsilon^2; window mean/std come
 from float64 prefix sums; distances are returned square-rooted.  The O(n L)
-distance work runs in float64 on ``device`` over chunks of the series'
-window view, so a card checks n=1e6, L=8192 in about a second.  It shares
-no code with the engines it checks.
+distance work runs in float64 on ``device`` (the current CUDA device unless
+the caller passes ``device="cpu"``) over chunks of the series' window view,
+so a card checks n=1e6, L=8192 in about a second.  It shares no code with
+the engines it checks.
 """
 
 from __future__ import annotations

@@ -21,8 +21,7 @@ from typing import NamedTuple, Optional, Tuple
 import numpy as np
 import torch
 
-from kvmatch_tpu.config import IndexConfig
-
+from ..config import IndexConfig
 from ..ops.probe import FLAG, PROBE_BLOCK, probe_flags
 from ..ops.sliding import build_buckets, sliding_window_stats_fwd
 

@@ -12,6 +12,7 @@ import torch
 from kvmatch_tpu.config import IndexConfig
 from kvmatch_tpu.data.generators import generate_series
 from kvmatch_tpu.index import device_build as jdb
+from kvmatch_tpu_torch import config as tconfig
 from kvmatch_tpu_torch.index import device_build as tdb
 
 torch.set_num_threads(2)
@@ -26,7 +27,9 @@ def test_stats_build_equals_jax(n, seed, max_diff):
     data = generate_series(n, seed=seed)
     want = jdb.build_index_device_stats(data, cfg)
     stats = {}
-    got = tdb.build_index_device_stats(data, cfg, stats=stats)
+    got = tdb.build_index_device_stats(
+        data, tconfig.IndexConfig(maximum_diff=max_diff), stats=stats,
+        device="cpu")
     assert stats["build_seconds"] > 0 and stats["mpts_per_second"] > 0
     assert sorted(got) == sorted(want)
     for w in cfg.scales:
@@ -44,9 +47,9 @@ def test_stats_build_equals_jax(n, seed, max_diff):
 def test_stats_build_from_resident_tensor():
     """Passing the resident f32 series skips the upload and gives the same
     statistics as uploading from numpy."""
-    cfg = IndexConfig()
+    cfg = tconfig.IndexConfig()
     data = generate_series(20_000, seed=8)
-    a = tdb.build_index_device_stats(data, cfg)
+    a = tdb.build_index_device_stats(data, cfg, device="cpu")
     b = tdb.build_index_device_stats(
         data, cfg, data_dev=torch.as_tensor(data, dtype=torch.float32))
     for w in cfg.scales:
@@ -59,4 +62,5 @@ def test_stats_build_rejects_huge_bucket_range():
     data = np.zeros(5_000)
     data[7] = 1e6
     with pytest.raises(ValueError, match="histogram capacity"):
-        tdb.build_index_device_stats(data, IndexConfig())
+        tdb.build_index_device_stats(data, tconfig.IndexConfig(),
+                                     device="cpu")

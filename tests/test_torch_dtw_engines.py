@@ -11,6 +11,8 @@ accepts carries the double-single distance, whose square is within
 1e-4 (d^2 + 1), far inside that guard at these shapes.
 """
 
+import dataclasses
+
 import numpy as np
 import pytest
 import torch
@@ -22,7 +24,8 @@ from kvmatch_tpu.engine.norm_dtw import NormQueryEngineDtw as JaxNormDtw
 from kvmatch_tpu.engine.rsm_dtw import QueryEngineDtw as JaxDtw
 from kvmatch_tpu.index.build import build_index_tpu
 from kvmatch_tpu_torch import NormQueryEngineDtw, QueryEngine, QueryEngineDtw
-from kvmatch_tpu_torch.state import index_from_jax
+from kvmatch_tpu_torch import config as tconfig
+from kvmatch_tpu_torch.state import index_from_arrays
 
 torch.set_num_threads(2)
 
@@ -39,13 +42,17 @@ def setup():
     data = generate_series(N, seed=9)
     icfg = IndexConfig()
     jindex = build_index_tpu(data, icfg)
-    index = index_from_jax(jindex)
+    index = index_from_arrays(jindex)
     return dict(data=data, icfg=icfg, index=index, jindex=jindex)
 
 
 def _engine(setup, cls, qcfg=None):
-    return cls(setup["data"], index=setup["index"], icfg=setup["icfg"],
-               **({} if qcfg is None else {"qcfg": qcfg}))
+    """A port engine on the CPU; JAX configs become the port's."""
+    kw = {} if qcfg is None else {
+        "qcfg": tconfig.QueryConfig(**dataclasses.asdict(qcfg))}
+    return cls(setup["data"], index=setup["index"],
+               icfg=tconfig.IndexConfig(**dataclasses.asdict(setup["icfg"])),
+               device="cpu", **kw)
 
 
 def _same(res, offs, dists, what):
@@ -146,13 +153,13 @@ def test_skip_lb_route_matches_cascade_route(setup, cls, kw):
 def test_engines_refuse_streamed_modes(setup):
     with pytest.raises(ValueError, match="not ported"):
         QueryEngineDtw(setup["data"], index=setup["index"],
-                       device_data="stream")
+                       device_data="stream", device="cpu")
 
 
 def test_stage_chunks_change_no_answer(setup, monkeypatch):
     """The cascade's stages run over unpadded chunks (BaseEngine.
     _run_chunked); 7-row chunks give the same answers and distances."""
-    from kvmatch_tpu import verify as vf
+    from kvmatch_tpu_torch import verify as vf
     data = setup["data"]
     qs = np.stack([data[o:o + 256] for o in (3000, 9000)])
     kw = dict(rho=12, alpha=1.5, beta=10.0)

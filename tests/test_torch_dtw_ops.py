@@ -4,6 +4,10 @@ On the CPU every DP stage runs its kernel's plain version.  Tolerances:
 
 * ``dtw_banded_plain`` (the plain version of K3/K4) against JAX's XLA DP and
   the f64 twin: rtol 1e-4 (f32 summation order; tests/test_dtw_kernels.py).
+* ``dtw_diag_plain`` (K3's anti-diagonal plain version) against
+  ``dtw_banded_plain``, JAX's XLA DP and the f64 DP: within the engines'
+  guard band ``verify.guard_threshold(d, L, 1e-2)`` (the two f32 walks sum
+  the same path costs in another order).
 * ``dtw_banded_ds_plain`` (the plain version of the DS kernel): hi + lo
   within 8 eps32 (d64 + 1) of the f64 DP on the same f32 inputs, and within
   ds_guard / 4 of the all-f64 pipeline (tests/test_dtw_guard.py:62,81).
@@ -61,6 +65,34 @@ def test_plain_dp_matches_jax_and_f64(L, r):
     if r == 0:
         ed = ((a.astype(np.float64) - qm[qids]) ** 2).sum(axis=1)
         np.testing.assert_allclose(got, ed, rtol=1e-5)
+
+
+# the shapes above, a wide band beyond one warp's lanes, and common mode
+@pytest.mark.parametrize("L,r,common", [
+    (16, 3, False), (50, 5, False), (100, 10, True), (64, 0, False),
+    (30, 29, False), (33, 7, True), (40, 100, False), (200, 120, False)])
+def test_diag_plain_within_guard_of_row_form_jax_and_f64(L, r, common):
+    rng = np.random.default_rng(3 * L + r)
+    B, Q = 6, 3
+    a = np.cumsum(rng.normal(0, 0.5, (B, L)), axis=1).astype(np.float32)
+    qm = np.cumsum(rng.normal(0, 0.5, (Q, L)), axis=1).astype(np.float32)
+    qids = rng.integers(0, Q, B).astype(np.int32)
+    if common:
+        a += 100.0
+        qm += 100.0
+    a[1] = qm[qids[1]] + rng.normal(0, 1e-3, L).astype(np.float32)
+    got = td.dtw_diag_plain(_t(a), _t(qm), _t(qids), r).numpy().astype(
+        np.float64)
+    rows = td.dtw_banded_plain(_t(a), _t(qm), _t(qids), r).numpy()
+    xla = np.asarray(jd.dtw_banded_batch_multi(jnp.asarray(a),
+                                               jnp.asarray(qm[qids]), r))
+    f64 = np.array([dtw_banded(a[b].astype(np.float64),
+                               qm[qids[b]].astype(np.float64), min(r, L - 1))
+                    for b in range(B)])
+    band = np.array([vf.guard_threshold(d, L, 1e-2) for d in f64])
+    for want in (rows, xla, f64):
+        assert np.all(np.abs(got - want) <= band)
+    np.testing.assert_allclose(got, f64, rtol=1e-4, atol=1e-3)
 
 
 def _guard_windows(kind, B, L, rng):
@@ -222,7 +254,8 @@ def test_variant_selects_k4_route(monkeypatch):
 @pytest.mark.slow  # the Pallas kernels in interpret mode trace slowly
 def test_plain_dp_matches_pallas_kernels():
     """dtw_banded_plain against both Pallas kernels (K3 and K4) in interpret
-    mode, as tests/test_pallas_kernels.py:76-114 holds them to the f64 DP."""
+    mode, as tests/test_pallas_kernels.py:76-114 holds them to the f64 DP;
+    dtw_diag_plain against K3's Pallas kernel, the kernel it ports."""
     from kvmatch_tpu.ops.dtw_pallas import (dtw_banded_pallas_diag_multi,
                                             dtw_banded_pallas_multi)
     rng = np.random.default_rng(8)
@@ -238,3 +271,7 @@ def test_plain_dp_matches_pallas_kernels():
             want = np.asarray(fn(jnp.asarray(a), jnp.asarray(q), rr,
                                  interpret=True))
             np.testing.assert_allclose(got, want, rtol=3e-4, atol=1e-2)
+            if fn is dtw_banded_pallas_diag_multi:
+                diag = td.dtw_diag_plain(
+                    _t(a), _t(q), _t(np.arange(B, dtype=np.int32)), r).numpy()
+                np.testing.assert_allclose(diag, want, rtol=3e-4, atol=1e-2)

@@ -24,7 +24,8 @@ from kvmatch_tpu_torch import NormQueryEngine, QueryEngine
 from kvmatch_tpu_torch.engine.rsm_dtw import paa_env_blocks
 from kvmatch_tpu_torch.ops.dtw import _dtw_banded_batch_f64_np
 from kvmatch_tpu_torch.ops.sliding import sliding_min_max
-from kvmatch_tpu_torch.state import index_from_jax
+from kvmatch_tpu_torch import config as tconfig
+from kvmatch_tpu_torch.state import index_from_arrays
 
 torch.set_num_threads(2)
 
@@ -36,12 +37,13 @@ def setup():
     data = generate_series(N, seed=21)
     icfg = IndexConfig()
     jindex = build_index_tpu(data, icfg, backend="host")
-    index = index_from_jax(jindex)
+    index = index_from_arrays(jindex)
     kw = dict(icfg=icfg)
+    tkw = dict(icfg=tconfig.IndexConfig(), device="cpu")
     return dict(data=data, jraw=JaxRaw(data, index=jindex, **kw),
                 jnorm=JaxNorm(data, index=jindex, **kw),
-                raw=QueryEngine(data, index=index, **kw),
-                norm=NormQueryEngine(data, index=index, **kw))
+                raw=QueryEngine(data, index=index, **tkw),
+                norm=NormQueryEngine(data, index=index, **tkw))
 
 
 def _ctx(q, eps, **params):

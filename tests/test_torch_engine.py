@@ -4,12 +4,15 @@ The port's ``NormQueryEngine`` runs the serving route -- dense flag probe
 with the constraint AND, device phase 2, exact f64 confirm -- through
 ``query_batch_device``, ``query_batch`` and ``query`` on the parameter rows
 of tests/test_norm_ed.py (RSM-ED: tests/test_torch_engine_rsm.py).  The same
-index drives both packages (``state.index_from_jax``).  Answer sets must
+index drives both packages (``state.index_from_arrays``), and the port's
+configs are built from the JAX ones (``dataclasses.asdict``).  Answer sets must
 EQUAL the float64 oracle and the JAX engine.  ``stats.n_candidates`` is
 compared on ``query_batch_device`` only, where it is the exact probe count
 in both packages; ``query_batch`` replaces it with interval coverage, which
 depends on the flag granularity (128 in the port, 256 for JAX on the CPU).
 """
+
+import dataclasses
 
 import numpy as np
 import pytest
@@ -22,9 +25,10 @@ from kvmatch_tpu.engine.norm_ed import NormQueryEngine as JaxNorm
 from kvmatch_tpu.index.build import build_index_tpu
 from kvmatch_tpu_torch import NormQueryEngine
 from kvmatch_tpu_torch import backend
+from kvmatch_tpu_torch import config as tconfig
 from kvmatch_tpu_torch.engine import norm_ed as port_norm
 from kvmatch_tpu_torch.index.device_build import build_index_device_stats
-from kvmatch_tpu_torch.state import index_from_jax, series_to_device
+from kvmatch_tpu_torch.state import index_from_arrays, series_to_device
 
 torch.set_num_threads(2)
 
@@ -32,6 +36,12 @@ N = 60_000
 # Device routes everywhere: the dense probe for every plan, and no tiny-load
 # host shortcut in phase 2.
 SERVE = QueryConfig(dense_probe_min_count=0, host_verify_max_points=0)
+
+
+def port_cfg(cfg):
+    """The port's config with the fields of a JAX package config."""
+    cls = getattr(tconfig, type(cfg).__name__)
+    return cls(**dataclasses.asdict(cfg))
 NORM_ROWS = [  # tests/test_norm_ed.py
     (123, 400, 2.0, 1.5, 20.0),
     (1234, 1600, 5.0, 1.1, 8.0),
@@ -46,11 +56,12 @@ def setup():
     data = generate_series(N, seed=7)
     icfg = IndexConfig()
     jindex = build_index_tpu(data, icfg)
-    index = index_from_jax(jindex)
+    index = index_from_arrays(jindex)
     return dict(
-        data=data, icfg=icfg, index=index,
+        data=data, icfg=port_cfg(icfg), index=index,
         jnorm=JaxNorm(data, index=jindex, icfg=icfg, qcfg=SERVE),
-        norm=NormQueryEngine(data, index=index, icfg=icfg, qcfg=SERVE))
+        norm=NormQueryEngine(data, index=index, icfg=port_cfg(icfg),
+                             qcfg=port_cfg(SERVE), device="cpu"))
 
 
 def _same(res, offs, dists, what):
@@ -135,9 +146,10 @@ def test_serving_index_and_host_phase1(setup):
     host, dev = series_to_device(data, "cpu")
     serving = build_index_device_stats(host, icfg, data_dev=dev)
     eng = NormQueryEngine(host, index=serving, icfg=icfg,
-                          qcfg=QueryConfig(dense_probe_min_count=0),
+                          qcfg=tconfig.QueryConfig(dense_probe_min_count=0),
                           device_data=dev)
-    plain = NormQueryEngine(data, index=setup["index"], icfg=icfg)
+    plain = NormQueryEngine(data, index=setup["index"], icfg=icfg,
+                            device="cpu")
     for off, L, eps, a, b in NORM_ROWS[:2]:
         q = data[off:off + L]
         oo, od = oracle.nsm_ed(data, q, eps, alpha=a, beta=b)
@@ -147,7 +159,7 @@ def test_serving_index_and_host_phase1(setup):
 
 
 def test_backend_device_rules():
-    assert backend.resolve_device(None) == torch.device("cpu")
+    assert backend.resolve_device("cpu") == torch.device("cpu")
     with pytest.raises(ValueError, match="unsupported device"):
         backend.resolve_device("meta")
     with pytest.raises(ValueError, match="no kernel route"):
@@ -157,3 +169,16 @@ def test_backend_device_rules():
             backend.resolve_device("cuda")
     assert not torch.backends.cuda.matmul.allow_tf32
     assert not torch.backends.cudnn.allow_tf32
+
+
+def test_default_device_is_the_card(monkeypatch):
+    """With no device argument the port resolves the current CUDA device;
+    where there is none it raises and does not fall back to the CPU.  The
+    card's absence is decided here, inside the test."""
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        backend.resolve_device()
+    with pytest.raises(RuntimeError, match="not available"):
+        NormQueryEngine(np.zeros(1000))
+    with pytest.raises(RuntimeError, match="not available"):
+        build_index_device_stats(np.zeros(1000), tconfig.IndexConfig())

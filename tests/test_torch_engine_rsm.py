@@ -3,7 +3,7 @@
 The port's ``QueryEngine`` runs the serving route -- dense flag probe,
 device phase 2, exact f64 confirm -- through ``query_batch_device``,
 ``query_batch`` and ``query`` on the parameter rows of tests/test_rsm_ed.py,
-with the index the JAX package built (``state.index_from_jax``).  Answer
+with the index the JAX package built (``state.index_from_arrays``).  Answer
 sets and distances must EQUAL the float64 oracle and the JAX engine;
 ``stats.n_candidates`` is compared on ``query_batch_device``, where both
 packages report the exact probe count (see tests/test_torch_engine.py).
@@ -20,7 +20,8 @@ from kvmatch_tpu.engine.rsm_ed import QueryEngine as JaxRaw
 from kvmatch_tpu.index.build import build_index_tpu
 from kvmatch_tpu_torch import QueryEngine
 from kvmatch_tpu_torch.engine import rsm_ed as port_raw
-from kvmatch_tpu_torch.state import index_from_jax
+from kvmatch_tpu_torch import config as tconfig
+from kvmatch_tpu_torch.state import index_from_arrays
 
 torch.set_num_threads(2)
 
@@ -42,8 +43,12 @@ def setup():
     jindex = build_index_tpu(data, icfg)
     return dict(data=data,
                 jraw=JaxRaw(data, index=jindex, icfg=icfg, qcfg=SERVE),
-                raw=QueryEngine(data, index=index_from_jax(jindex), icfg=icfg,
-                                qcfg=SERVE))
+                raw=QueryEngine(data, index=index_from_arrays(jindex),
+                                icfg=tconfig.IndexConfig(),
+                                qcfg=tconfig.QueryConfig(
+                                    dense_probe_min_count=0,
+                                    host_verify_max_points=0),
+                                device="cpu"))
 
 
 def _same(res, offs, dists, what):

@@ -1,7 +1,8 @@
 """The port's CUDA kernels against their plain PyTorch versions, on the card.
 
 Every test here needs an NVIDIA GPU and skips without one.  The file
-imports no jax, so it also runs where only the port is installed:
+imports nothing of jax or of the JAX package, so it also runs where only
+the port is installed:
 
     python -m pytest --noconftest -p no:cacheprovider -m cuda \
         tests/test_torch_kernels_cuda.py
@@ -17,10 +18,9 @@ import numpy as np
 import pytest
 import torch
 
-from kvmatch_tpu import oracle
-from kvmatch_tpu.config import IndexConfig, QueryConfig
-from kvmatch_tpu.data.generators import generate_series
-from kvmatch_tpu.plan import QuerySegment
+from kvmatch_tpu_torch import oracle
+from kvmatch_tpu_torch.config import IndexConfig, QueryConfig
+from kvmatch_tpu_torch.data.generators import generate_series
 from kvmatch_tpu_torch.engine.norm_ed import NormQueryEngine
 from kvmatch_tpu_torch.engine.rsm_ed import QueryEngine
 from kvmatch_tpu_torch.index.device_build import build_index_device_stats
@@ -28,6 +28,7 @@ from kvmatch_tpu_torch.ops import ed as ted
 from kvmatch_tpu_torch.ops.probe import FLAG, probe_flags, probe_flags_plain
 from kvmatch_tpu_torch.ops.sliding import build_buckets
 from kvmatch_tpu_torch.parallel.query import pack_segments_batch
+from kvmatch_tpu_torch.plan import QuerySegment
 from kvmatch_tpu_torch.state import series_to_device
 
 pytestmark = pytest.mark.cuda
@@ -160,10 +161,11 @@ def test_engines_on_the_card_equal_oracle(dev):
                         (7777, 800, 1.0)]:
         q = data[off:off + L]
         res = norm.query(q, eps, alpha=1.5, beta=10.0)
-        want, _ = oracle.nsm_ed(data, q, eps, alpha=1.5, beta=10.0)
+        want, _ = oracle.nsm_ed(data, q, eps, alpha=1.5, beta=10.0,
+                                device=dev)
         assert set(res.offsets.tolist()) == set(want.tolist())
         res = raw.query(q, 2 * eps)
-        want, _ = oracle.rsm_ed(data, q, 2 * eps)
+        want, _ = oracle.rsm_ed(data, q, 2 * eps, device=dev)
         assert set(res.offsets.tolist()) == set(want.tolist())
     assert probe_flags.launches > k1 and ted.window_ed.launches > k2
 
@@ -173,7 +175,9 @@ def test_engines_on_the_card_equal_oracle(dev):
 # f32 summation order: |d - d_plain| <= verify.guard_threshold(d_plain, L,
 # 1e-2), the band the engines rely on.  The DS kernel's hi + lo is within
 # 8 eps32 (d64 + 1) of the f64 DP on the same f32 inputs
-# (tests/test_dtw_guard.py:62).
+# (tests/test_dtw_guard.py:62).  K3 repeats the f32 operations of
+# dtw_diag_plain, its anti-diagonal plain version, and equals it bit for
+# bit.
 
 def _dtw_case(B, L, Q, seed, common_mode=False):
     rng = np.random.default_rng(seed)
@@ -202,7 +206,7 @@ def _f64_dp(a, qm, qids, r):
     (37, 301, 0, False), (37, 301, 7, True), (5, 1001, 409, True),
     (9, 129, 200, False), (3, 2000, 1100, False)])
 def test_dtw_kernels_equal_plain(dev, B, L, r, common):
-    from kvmatch_tpu import verify as vf
+    from kvmatch_tpu_torch import verify as vf
     from kvmatch_tpu_torch.ops import dtw as tdtw
     a, qm, qids = _dtw_case(B, L, 4, seed=L + r, common_mode=common)
     args = tuple(torch.as_tensor(x, device=dev) for x in (a, qm, qids))
@@ -240,3 +244,30 @@ def test_dtw_kernels_reject_bad_input(dev):
         with pytest.raises(ValueError, match=r"\(Q, L\)"):
             fn(a, qm[:, :50].contiguous(),
                torch.zeros(4, dtype=torch.int32, device=dev), 5)
+
+
+@pytest.mark.parametrize("B,L,r", [
+    (64, 1024, 51), (16, 1024, 409), (13, 1024, 1100), (6, 1024, 52),
+    (37, 301, 0), (9, 129, 200), (7, 500, 479), (7, 1500, 480),
+    (3, 4000, 1500)])
+def test_dtw_diag_equals_diag_plain_bitwise(dev, B, L, r):
+    """K3 against dtw_diag_plain: bit for bit, on one-warp rows (r <= 479;
+    r = 409 is the main path's 26-lane form) and on wide rows of several
+    warps (r = 480 and beyond; r = 1100 at L = 1024 clamps to 1023)."""
+    from kvmatch_tpu_torch.ops import dtw as tdtw
+    a, qm, qids = _dtw_case(B, L, 5, seed=3 * L + r, common_mode=True)
+    args = tuple(torch.as_tensor(x, device=dev) for x in (a, qm, qids))
+    got = tdtw.dtw_diag(*args, r)
+    torch.cuda.synchronize(dev)
+    want = tdtw.dtw_diag_plain(*args, r)
+    assert torch.isfinite(want).all()
+    assert torch.equal(got, want)
+
+
+def test_dtw_diag_rejects_bands_beyond_its_rows(dev):
+    from kvmatch_tpu_torch.ops import dtw as tdtw
+    L = tdtw.K3_MAX_R + 2
+    a = torch.zeros((1, L), device=dev)
+    with pytest.raises(ValueError, match="K3_MAX_R"):
+        tdtw.dtw_diag(a, a, torch.zeros(1, dtype=torch.int32, device=dev),
+                      L - 1)

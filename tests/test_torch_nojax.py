@@ -1,8 +1,12 @@
-"""The port never loads JAX: importing kvmatch_tpu_torch and answering a
-query on the CPU leaves ``jax`` out of ``sys.modules`` (checked in a fresh
-interpreter, since this test process imports jax for the parity tests).
-One probe runs the ED engines, one the DTW engines."""
+"""The port stands alone: importing kvmatch_tpu_torch and answering a
+query on the CPU leaves ``jax`` and every module of the JAX package
+``kvmatch_tpu`` out of ``sys.modules`` (checked in a fresh interpreter,
+since this test process imports both for the parity tests).  One probe runs
+the ED engines, one the DTW engines; every entry point is asked for the CPU
+explicitly, as the card is the port's default.  A static check finds no
+import of ``kvmatch_tpu`` in the port's sources or in chip_smoke.py."""
 
+import ast
 import os
 import subprocess
 import sys
@@ -11,6 +15,16 @@ from pathlib import Path
 import pytest
 
 REPO = Path(__file__).resolve().parents[1]
+
+# The probes' last line: the jax and kvmatch_tpu modules loaded after the
+# query (PRELOADED when jax was there before the port was imported).
+VERDICT = r"""
+loaded = sorted(m for m in sys.modules
+                if m == "jax" or m.startswith("jax.") or m == "kvmatch_tpu"
+                or m.startswith("kvmatch_tpu."))
+print("PRELOADED" if preloaded else "LOADED " + " ".join(loaded) if loaded
+      else "STANDS_ALONE")
+"""
 
 PROBE = r"""
 import sys
@@ -24,19 +38,19 @@ from kvmatch_tpu_torch.index.device_build import build_index_device_stats
 data = generate_series(8_000, seed=3)
 icfg = IndexConfig()
 qcfg = QueryConfig(dense_probe_min_count=0, host_verify_max_points=0)
-index = build_index_device_stats(data, icfg)
+index = build_index_device_stats(data, icfg, device="cpu")
 q = data[1000:1300]
-(a,) = QueryEngine(data, index=index, icfg=icfg, qcfg=qcfg).query_batch(
-    q[None], 2.0)
-(b,) = NormQueryEngine(data, index=index, icfg=icfg, qcfg=qcfg).query_batch(
-    q[None], 2.0, alpha=1.5, beta=5.0)
-assert set(a.offsets.tolist()) == set(oracle.rsm_ed(data, q, 2.0)[0].tolist())
+(a,) = QueryEngine(data, index=index, icfg=icfg, qcfg=qcfg,
+                   device="cpu").query_batch(q[None], 2.0)
+(b,) = NormQueryEngine(data, index=index, icfg=icfg, qcfg=qcfg,
+                       device="cpu").query_batch(q[None], 2.0, alpha=1.5,
+                                                 beta=5.0)
+assert set(a.offsets.tolist()) == set(
+    oracle.rsm_ed(data, q, 2.0, device="cpu")[0].tolist())
 assert set(b.offsets.tolist()) == set(
-    oracle.nsm_ed(data, q, 2.0, alpha=1.5, beta=5.0)[0].tolist())
+    oracle.nsm_ed(data, q, 2.0, alpha=1.5, beta=5.0, device="cpu")[0].tolist())
 assert 1000 in a.offsets.tolist() and 1000 in b.offsets.tolist()
-print("PRELOADED" if preloaded else "JAX_LOADED" if "jax" in sys.modules
-      else "NO_JAX")
-"""
+""" + VERDICT
 
 
 DTW_PROBE = r"""
@@ -50,22 +64,21 @@ from kvmatch_tpu_torch import (IndexConfig, NormQueryEngineDtw, QueryConfig,
 from kvmatch_tpu_torch.index.device_build import build_index_device_stats
 data = generate_series(8_000, seed=3)
 icfg = IndexConfig()
-index = build_index_device_stats(data, icfg)
+index = build_index_device_stats(data, icfg, device="cpu")
 q = data[1000:1200]
 for skip in (0, 1 << 30):  # with and without the LB stage
     qcfg = QueryConfig(dense_probe_min_count=0, dtw_skip_lb_max=skip)
-    (a,) = QueryEngineDtw(data, index=index, icfg=icfg,
-                          qcfg=qcfg).query_batch(q[None], 3.0, rho=10)
-    b = NormQueryEngineDtw(data, index=index, icfg=icfg, qcfg=qcfg).query(
-        q, 3.0, rho=10, alpha=1.5, beta=5.0)
+    (a,) = QueryEngineDtw(data, index=index, icfg=icfg, qcfg=qcfg,
+                          device="cpu").query_batch(q[None], 3.0, rho=10)
+    b = NormQueryEngineDtw(data, index=index, icfg=icfg, qcfg=qcfg,
+                           device="cpu").query(q, 3.0, rho=10, alpha=1.5,
+                                               beta=5.0)
     assert set(a.offsets.tolist()) == set(
-        oracle.rsm_dtw(data, q, 3.0, 10)[0].tolist())
+        oracle.rsm_dtw(data, q, 3.0, 10, device="cpu")[0].tolist())
     assert set(b.offsets.tolist()) == set(
-        oracle.cnsm_dtw(data, q, 3.0, 10, 1.5, 5.0)[0].tolist())
+        oracle.cnsm_dtw(data, q, 3.0, 10, 1.5, 5.0, device="cpu")[0].tolist())
     assert 1000 in a.offsets.tolist() and 1000 in b.offsets.tolist()
-print("PRELOADED" if preloaded else "JAX_LOADED" if "jax" in sys.modules
-      else "NO_JAX")
-"""
+""" + VERDICT
 
 
 @pytest.mark.parametrize("probe", [PROBE, DTW_PROBE], ids=["ed", "dtw"])
@@ -77,4 +90,24 @@ def test_port_runs_without_jax(probe):
     verdict = out.stdout.strip().splitlines()[-1]
     if verdict == "PRELOADED":
         pytest.skip("this interpreter loads jax at start-up")
-    assert verdict == "NO_JAX"
+    assert verdict == "STANDS_ALONE"
+
+
+def _imported_modules(path: Path):
+    for node in ast.walk(ast.parse(path.read_text(), str(path))):
+        if isinstance(node, ast.Import):
+            yield from (a.name for a in node.names)
+        elif isinstance(node, ast.ImportFrom) and node.level == 0:
+            yield node.module
+
+
+def test_port_sources_do_not_import_the_jax_package():
+    """No module of kvmatch_tpu_torch, and not chip_smoke.py, imports
+    kvmatch_tpu or one of its modules (citations in comments are fine)."""
+    files = sorted((REPO / "kvmatch_tpu_torch").rglob("*.py"))
+    files.append(REPO / "chip_smoke.py")
+    assert len(files) > 20
+    bad = [f"{f.relative_to(REPO)}: {m}" for f in files
+           for m in _imported_modules(f)
+           if m == "kvmatch_tpu" or m.startswith("kvmatch_tpu.")]
+    assert not bad, bad

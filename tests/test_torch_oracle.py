@@ -28,7 +28,7 @@ def _equal(got, want):
     (123, 400, 5.0), (1234, 1600, 10.0), (50, 25, 0.5), (7777, 800, 60.0)])
 def test_rsm_ed_equals_reference(data, offset, length, eps):
     q = data[offset:offset + length]
-    got = oracle.rsm_ed(data, q, eps)
+    got = oracle.rsm_ed(data, q, eps, device="cpu")
     _equal(got, ref.rsm_ed(data, q, eps))
     assert offset in got[0].tolist()
 
@@ -38,7 +38,7 @@ def test_rsm_ed_equals_reference(data, offset, length, eps):
     (7777, 800, 8.0, 1.2, 5.0), (2048, 256, 4.0, None, None)])
 def test_nsm_ed_equals_reference(data, offset, length, eps, alpha, beta):
     q = data[offset:offset + length]
-    got = oracle.nsm_ed(data, q, eps, alpha=alpha, beta=beta)
+    got = oracle.nsm_ed(data, q, eps, alpha=alpha, beta=beta, device="cpu")
     _equal(got, ref.nsm_ed(data, q, eps, alpha=alpha, beta=beta))
     assert offset in got[0].tolist()
 
@@ -49,8 +49,8 @@ def test_chunks_cover_every_window(data, monkeypatch):
     monkeypatch.setattr(oracle, "_chunk_rows", lambda device, L: 7)
     want = ref.nsm_ed(x, q, 6.0, alpha=1.5, beta=10.0)
     assert want[0].size > 1
-    _equal(oracle.nsm_ed(x, q, 6.0, alpha=1.5, beta=10.0), want)
-    _equal(oracle.rsm_ed(x, q, 8.0), ref.rsm_ed(x, q, 8.0))
+    _equal(oracle.nsm_ed(x, q, 6.0, alpha=1.5, beta=10.0, device="cpu"), want)
+    _equal(oracle.rsm_ed(x, q, 8.0, device="cpu"), ref.rsm_ed(x, q, 8.0))
 
 
 @pytest.mark.parametrize("offset,length,eps,rho", [
@@ -61,10 +61,10 @@ def test_dtw_oracles_equal_reference(data, offset, length, eps, rho):
     reference's (native f64 DP), on 3,000 points of the series."""
     x = data[:3000]
     q = x[offset:offset + length]
-    got = oracle.rsm_dtw(x, q, eps, rho)
+    got = oracle.rsm_dtw(x, q, eps, rho, device="cpu")
     _equal(got, ref.rsm_dtw(x, q, eps, rho))
     assert offset in got[0].tolist()
-    got = oracle.cnsm_dtw(x, q, eps, rho, 1.5, 10.0)
+    got = oracle.cnsm_dtw(x, q, eps, rho, 1.5, 10.0, device="cpu")
     _equal(got, ref.cnsm_dtw(x, q, eps, rho, 1.5, 10.0))
     assert offset in got[0].tolist()
 
@@ -75,5 +75,5 @@ def test_dtw_chunks_cover_every_window(data, monkeypatch):
     monkeypatch.setattr(oracle, "_dtw_chunk_rows", lambda device, L, n: 7)
     want = ref.cnsm_dtw(x, q, 6.0, 5, 1.5, 10.0)
     assert want[0].size > 1
-    _equal(oracle.cnsm_dtw(x, q, 6.0, 5, 1.5, 10.0), want)
-    _equal(oracle.rsm_dtw(x, q, 8.0, 5), ref.rsm_dtw(x, q, 8.0, 5))
+    _equal(oracle.cnsm_dtw(x, q, 6.0, 5, 1.5, 10.0, device="cpu"), want)
+    _equal(oracle.rsm_dtw(x, q, 8.0, 5, device="cpu"), ref.rsm_dtw(x, q, 8.0, 5))
