@@ -14,15 +14,18 @@ JSON line tagged with the card's name and power limit and its seconds
    build     -- n=1e8 series upload and the stats-only index build;
 2. kernels   -- each kernel against its plain PyTorch version, with both
                 times: K1 (dense probe) on the n=1e8 cached bucket stack
-                with the 8 north-star cNSM-ED plans and the 8 cNSM-DTW
-                envelope plans; K2 (window distances, raw and z-norm) at
-                B=16384, L=8192; K3 (dtw_diag), K4 (dtw_rows) and the
-                double-single DP (dtw_ds) on one bucket of B=1024 windows,
-                L=8192, r=409, raw and z-normed, and K3 on a 16,384-row
-                chunk; K3 bit for bit against dtw_diag_plain at L=1024,
-                r=51, 409 and 1100 and on 8 rows at L=8192, r=409; each
-                kernel's bound (bytes or f32 operations at the card's
-                published peaks);
+                with the 8 north-star cNSM-ED plans, the 8 cNSM-DTW
+                envelope plans and the 8 RSM-ED plans of the same queries;
+                K2 (window distances, raw and z-norm) at B=16384, L=8192;
+                K3 (dtw_diag), K4 (dtw_rows) and the double-single DP
+                (dtw_ds) on one bucket of B=1024 windows, L=8192, r=409,
+                raw and z-normed, and K3 on a 16,384-row chunk; K3 and DS
+                bit for bit against dtw_diag_plain / dtw_ds_diag_plain at
+                L=1024, r=51, 409 and 1100 and on 8 rows at L=8192, r=409;
+                each kernel's bound (bytes or f32 operations at the card's
+                published peaks; K1's counts the terms its early exit
+                leaves and the stack entries they read, ops/probe.py:
+                probe_work);
 3. fft       -- the cuFFT f32 correlation error at the region shape
                 (M=8192, L=8192) against f64, as a share of FFT_ERR_C;
 4. exact     -- n=1e6 answer sets against the port's float64 brute-force
@@ -49,8 +52,9 @@ JSON line tagged with the card's name and power limit and its seconds
                 name, idle share.
 
 Then the kernel table ({"kernels": [...]}), the nvidia-smi name/power line
-and, last, {"ok": true, "device": {...}}.  A failing phase raises and the
-script exits non-zero without the last line; so does a run that loaded jax
+and, last, {"ok": true, "device": {...}}.  The env line carries each
+kernel's registers and spill bytes (cuobjdump -res-usage).  A failing
+phase raises and the script exits non-zero without the last line; so does a run that loaded jax
 or a module of the JAX package kvmatch_tpu (the port stands alone), a
 machine without a CUDA device, or a directory without the repository.
 """
@@ -79,6 +83,7 @@ MAIN_DTW_QUERIES = 8
 # K3 bit for bit against its twin, as (L, r, rows): one warp per row at
 # r = 51 and r = 409 (the main path's instantiation, C = 26), several warps
 # at r = 1100 (clamped to L - 1), and a few rows at the main path's shape.
+# DS is held against dtw_ds_diag_plain in the same cases.
 K3_BITWISE_CASES = ((1024, 51, 256), (1024, 409, 256), (1024, 1100, 256),
                     (L_MAIN, RHO_MAIN, 8))
 
@@ -89,11 +94,18 @@ K3_BITWISE_CASES = ((1024, 51, 256), (1024, 409, 256), (1024, 1100, 256),
 HBM_BYTES_PER_S = 3.35e12
 F32_OPS_PER_S = 67e12
 # f32 operations per unit of work, counted in the kernels' sources:
-# K1 (cNSM plans, csrc/probe.cu's segment loop less its per-segment
-# constants): per (position, query, plan segment) 1 convert, 4 for the key
-# bounds, 2 + 4 for the z-bounds, 4 for delta, 3 for the bound sum, 4 for
-# the Ex tracks, 3 + 2 for the Ex2 track.
-K1_OPS = 27
+# K1 per (position, query, plan segment) term of the bound: 1 convert, 4 for
+# the key bounds, 4 for delta, 3 for the bound sum; cNSM adds 2 + 4 for the
+# z-bounds.  K1 leaves a position once its bound exceeds eps^2, so the work
+# this run needs is the terms still open when reached (ops/probe.py:
+# probe_work), plus, for cNSM, the Ex/Ex2 tracks (4 + 5 a term) over every
+# segment of the positions left for the sigma filter; its bytes are the
+# distinct stack entries those read.  K1_OPS_FULL is the whole
+# (position, segment) grid with the tracks, the count of a probe without
+# the early exit, over the whole stack.
+K1_OPS = {False: 12, True: 18}
+K1_TRACK_OPS = 9
+K1_OPS_FULL = 27
 K2_OPS = {"raw": 3, "znorm": 9}  # per window element: sub, mul, add; z-norm
 # adds the mean sum (1), the centred square sum (3) and the z-difference (2).
 DP_OPS = 5   # K3, K4 per band cell: sub, mul, add, two mins (cap not counted)
@@ -160,25 +172,30 @@ def norm_ctxs(queries, eps: float, **params):
 
 
 # ------------------------------------------------------------- phase 2 ----
-def check_probe_kernel(eng, queries, device, **params) -> dict:
-    """K1 over the engine's cached bucket stack with the batch's plans,
-    against the plain version: counts and flags must be equal.  A cNSM-DTW
-    engine (``rho=``) plans envelope segments (mean_lo < mean_hi)."""
+def check_probe_kernel(eng, bstack, queries, device, norm: bool = True,
+                       **params) -> dict:
+    """K1 over the cached bucket stack ``bstack`` with the plans ``eng``
+    makes for the batch, against the plain version: counts and flags must
+    be equal.  A cNSM-DTW engine (``rho=``) plans envelope segments
+    (mean_lo < mean_hi); a raw engine with ``norm=False`` RSM-ED plans.
+    The bound counts the work this data needs (ops/probe.py:probe_work):
+    the open terms' operations and the distinct stack entries they read."""
     import torch
-    from kvmatch_tpu_torch.ops.probe import FLAG, probe_flags, probe_flags_plain
+    from kvmatch_tpu_torch.ops.probe import (FLAG, probe_flags,
+                                             probe_flags_plain, probe_work)
     from kvmatch_tpu_torch.parallel.query import pack_segments_batch
+    if bstack is None:
+        raise RuntimeError("bucket stack does not fit the device budget")
     L = queries.shape[1]
     ctxs = norm_ctxs(queries, EPS, **params)
     plans = eng._plan_batch(ctxs)
-    bstack = eng._fly_bucket_stack(L)
-    if bstack is None:
-        raise RuntimeError("bucket stack does not fit the device budget")
     icfg = eng.icfg
     segs = pack_segments_batch(plans, tuple(icfg.scales), device)
     eps2 = torch.full((len(ctxs),), EPS * EPS, dtype=torch.float32,
                       device=device)
     cons = torch.tensor([[ALPHA, BETA, c.params["_mu_q"], c.params["_sd_q"]]
-                         for c in ctxs], dtype=torch.float32, device=device)
+                         if norm else [0.0] * 4 for c in ctxs],
+                        dtype=torch.float32, device=device)
     m = eng.n - L + 1
     npos = -(-m // FLAG) * FLAG
     Q = len(ctxs)
@@ -187,25 +204,36 @@ def check_probe_kernel(eng, queries, device, **params) -> dict:
         flags = torch.zeros((Q, npos // FLAG), dtype=torch.bool, device=device)
         counts = torch.zeros(Q, dtype=torch.int32, device=device)
         fn(bstack, 0, segs, eps2, cons, 0, npos, m, flags, counts, length=L,
-           unit=icfg.unit, d=icfg.d, slack=icfg.probe_guard, norm=True)
+           unit=icfg.unit, d=icfg.d, slack=icfg.probe_guard, norm=norm)
         return counts, flags
 
     got, want = run(probe_flags), run(probe_flags_plain)
-    n_segs = sum(len(p) for p in plans)
-    work = bound(bstack.shape[0] * npos * 4 + Q * (npos // FLAG + 4),
-                 K1_OPS * n_segs * npos)
     count_err = int((got[0].long() - want[0].long()).abs().max())
     flag_diff = int((got[1] != want[1]).sum())
     if count_err or flag_diff:
-        raise AssertionError(f"K1 disagrees with its plain version: count "
-                             f"error {count_err}, {flag_diff} flags differ")
-    return dict(counts=got[0].tolist(), flagged_blocks=int(got[1].sum()),
-                max_abs_err=count_err, flags_differ=flag_diff,
-                ms=timed_ms(lambda: run(probe_flags), 5, device),
-                plain_ms=timed_ms(lambda: run(probe_flags_plain), 1, device),
-                segments=[len(p) for p in plans],
-                envelope_segments=sum(s.mean_lo < s.mean_hi
-                                      for p in plans for s in p), **work)
+        raise AssertionError(f"K1 (norm={norm}) disagrees with its plain "
+                             f"version: count error {count_err}, {flag_diff} "
+                             f"flags differ")
+    terms, reads = probe_work(bstack, segs, eps2, cons, m, unit=icfg.unit,
+                              d=icfg.d, slack=icfg.probe_guard, norm=norm)
+    n_segs = sum(len(p) for p in plans)
+    open_terms = sum(sum(t[:-1]) for t in terms)
+    ops = K1_OPS[norm] * open_terms
+    if norm:
+        ops += K1_TRACK_OPS * sum(t[-1] * len(p) for t, p in zip(terms, plans))
+    out_bytes = Q * (npos // FLAG + 4)
+    res = dict(counts=got[0].tolist(), flagged_blocks=int(got[1].sum()),
+               max_abs_err=count_err, flags_differ=flag_diff,
+               ms=timed_ms(lambda: run(probe_flags), 5, device),
+               plain_ms=timed_ms(lambda: run(probe_flags_plain), 1, device),
+               segments=[len(p) for p in plans], open_terms=open_terms,
+               full_terms=n_segs * npos, stack_rows_read=reads,
+               bound_full_ms=bound(bstack.shape[0] * npos * 4 + out_bytes,
+                                   K1_OPS_FULL * n_segs * npos)["bound_ms"],
+               envelope_segments=sum(s.mean_lo < s.mean_hi
+                                     for p in plans for s in p),
+               **bound(4 * sum(reads) + out_bytes, ops))
+    return res
 
 
 def check_window_kernel(data_dev, queries, device, batch: int) -> dict:
@@ -264,15 +292,19 @@ def check_window_kernel(data_dev, queries, device, batch: int) -> dict:
     return out
 
 
-def check_k3_bitwise(data_dev, queries, device,
-                     cases=K3_BITWISE_CASES) -> dict:
-    """K3 against dtw_diag_plain, its anti-diagonal plain version, bit for
-    bit, on z-normed windows of the series against the z-normed first L
-    points of the north-star queries, for each (L, r, rows) of ``cases``."""
+def check_diag_bitwise(data_dev, queries, device, ds: bool = False,
+                       cases=K3_BITWISE_CASES) -> dict:
+    """K3 against dtw_diag_plain (``ds``: DS against dtw_ds_diag_plain, hi
+    and lo), their anti-diagonal plain versions, bit for bit, on z-normed
+    windows of the series against the z-normed first L points of the
+    north-star queries, for each (L, r, rows) of ``cases``."""
     import numpy as np
     import torch
     from kvmatch_tpu_torch.ops import dtw as td
     from kvmatch_tpu_torch.ops.ed import _gather
+    fn, plain = ((td.dtw_ds, td.dtw_ds_diag_plain) if ds
+                 else (td.dtw_diag, td.dtw_diag_plain))
+    name = "DS" if ds else "K3"
     Q = queries.shape[0]
     rng = np.random.default_rng(8)
     out = {}
@@ -286,18 +318,20 @@ def check_k3_bitwise(data_dev, queries, device,
         qhat = torch.as_tensor((qs - qs.mean(1, keepdims=True))
                                / qs.std(1, keepdims=True),
                                dtype=torch.float32, device=device)
-        got = td.dtw_diag(z, qhat, qids, r)
+        got = fn(z, qhat, qids, r)
         t0 = time.perf_counter()
-        want = td.dtw_diag_plain(z, qhat, qids, r)
+        want = plain(z, qhat, qids, r)
         torch.cuda.synchronize(device)
         plain_ms = (time.perf_counter() - t0) * 1e3
-        if not torch.equal(got, want):
+        got, want = ((got, want) if ds else ((got,), (want,)))
+        differ = sum(int((g != w).sum()) for g, w in zip(got, want))
+        if differ:
             raise AssertionError(
-                f"K3 L={L} r={r}: {int((got != want).sum())} of {batch} rows "
-                f"differ from dtw_diag_plain")
+                f"{name} L={L} r={r}: {differ} of {batch} rows (x "
+                f"{len(got)} outputs) differ from {plain.__name__}")
         out[f"L{L}_r{r}"] = dict(rows=batch, bit_equal=True, finite=bool(
-            torch.isfinite(got).all()), diag_plain_ms=plain_ms,
-            ms=timed_ms(lambda: td.dtw_diag(z, qhat, qids, r), 3, device))
+            torch.isfinite(got[0]).all()), diag_plain_ms=plain_ms,
+            ms=timed_ms(lambda: fn(z, qhat, qids, r), 3, device))
     return out
 
 
@@ -801,6 +835,34 @@ def profile_batch(eng, queries) -> dict:
         device_ms_by_name=[[k, v[0], v[1]] for k, v in top])
 
 
+def kernel_registers(so) -> dict:
+    """Registers, and local memory (spills) in bytes, of each kernel of the
+    library, from ``cuobjdump -res-usage``; empty where the toolkit has no
+    cuobjdump."""
+    import shutil
+    tool = shutil.which("cuobjdump") or "/usr/local/cuda/bin/cuobjdump"
+    if not Path(tool).exists():
+        return {}
+    text = subprocess.run([tool, "-res-usage", str(so)], capture_output=True,
+                          text=True, timeout=120, check=True).stdout
+    out, name = {}, None
+    for line in text.splitlines():
+        line = line.strip()
+        if line.startswith("Function "):
+            name = line[len("Function "):].rstrip(":")
+        elif name and line.startswith("REG:"):
+            f = dict(kv.split(":", 1) for kv in line.split() if ":" in kv)
+            out[name] = [int(f["REG"]), int(f.get("LOCAL", 0))]
+            name = None
+    filt = shutil.which("c++filt")
+    if filt and out:
+        names = subprocess.run([filt], input="\n".join(out), text=True,
+                               capture_output=True, timeout=60,
+                               check=True).stdout.splitlines()
+        out = {n.split("(")[0]: v for n, v in zip(names, out.values())}
+    return out
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -815,7 +877,8 @@ def main() -> int:
     sys.path.insert(0, str(REPO))
     from kvmatch_tpu_torch import (IndexConfig, NormQueryEngine,
                                    NormQueryEngineDtw, QueryConfig,
-                                   QueryEngineDtw, generate_series, kernels)
+                                   QueryEngine, QueryEngineDtw,
+                                   generate_series, kernels)
     from kvmatch_tpu_torch.index.device_build import build_index_device_stats
     from kvmatch_tpu_torch.ops.dtw import dtw_diag, dtw_ds, dtw_rows
     from kvmatch_tpu_torch.ops.ed import window_ed
@@ -828,11 +891,12 @@ def main() -> int:
     t0 = time.perf_counter()
     so = kernels.build()
     kernels.lib()
+    build_s = time.perf_counter() - t0
     emit(dict(phase="env", card=card, device=kind,
               count=torch.cuda.device_count(), torch=torch.__version__,
               cuda=torch.version.cuda, python=sys.version.split()[0],
-              kernel_library=so.name,
-              kernel_build_s=time.perf_counter() - t0))
+              kernel_library=so.name, kernel_build_s=build_s,
+              kernel_registers=kernel_registers(so)))
 
     # The n=1e8 serving state: one upload, the stats-only build, the engine.
     icfg = IndexConfig()
@@ -872,13 +936,23 @@ def main() -> int:
     eng8d = NormQueryEngineDtw(data8, index=index8, icfg=icfg,
                                qcfg=QueryConfig(dense_probe_min_count=0),
                                device_data=dev8)
+    # RSM-ED plans of the same queries, probed over the same bucket stack.
+    raw8 = QueryEngine(data8, index=index8, icfg=icfg,
+                       qcfg=QueryConfig(dense_probe_min_count=0),
+                       device_data=dev8)
+    stack8 = eng8._fly_bucket_stack(L_MAIN)
     kern = phase("kernels", lambda: dict(
-        k1=check_probe_kernel(eng8, q8, device),
-        k1_dtw_plans=check_probe_kernel(eng8d, q8, device, rho=RHO_MAIN),
+        k1=check_probe_kernel(eng8, stack8, q8, device),
+        k1_dtw_plans=check_probe_kernel(eng8d, eng8d._fly_bucket_stack(L_MAIN),
+                                        q8, device, rho=RHO_MAIN),
+        k1_raw_plans=check_probe_kernel(raw8, stack8, q8, device,
+                                        norm=False),
         k2=check_window_kernel(dev8, q8, device, K2_BATCH),
         dtw=check_dtw_kernels(dev8, q8, device),
-        k3_bitwise=check_k3_bitwise(dev8, q8, device)))
-    k1, k1d, k2, kd = (kern[k] for k in ("k1", "k1_dtw_plans", "k2", "dtw"))
+        k3_bitwise=check_diag_bitwise(dev8, q8, device),
+        ds_bitwise=check_diag_bitwise(dev8, q8, device, ds=True)))
+    k1, k1d, k1r, k2, kd = (kern[k] for k in (
+        "k1", "k1_dtw_plans", "k1_raw_plans", "k2", "dtw"))
     phase("fft", lambda: fft_error(dev8, q8, device))
     phase("exact", lambda: exact_small(device))
     dtw_rows.launches = 0
@@ -964,11 +1038,17 @@ def main() -> int:
             source="kvmatch_tpu_torch/csrc/probe.cu",
             replaces="kvmatch_tpu/ops/probe_pallas.py:63",
             launches=launches["probe_flags"], launched_on="main",
-            max_abs_err=max(k1["max_abs_err"], k1d["max_abs_err"]),
-            tolerance="counts and flags equal (ED and DTW plans)",
+            max_abs_err=max(k["max_abs_err"] for k in (k1, k1d, k1r)),
+            tolerance="counts and flags equal (cNSM-ED, cNSM-DTW and RSM-ED "
+                      "plans)",
             ms=k1["ms"], plain_ms=k1["plain_ms"], library_ms=None,
+            bound_full_ms=k1["bound_full_ms"],
             dtw_plans_ms=k1d["ms"], dtw_plans_plain_ms=k1d["plain_ms"],
-            dtw_plans_bound_ms=k1d["bound_ms"]), k1,
+            dtw_plans_bound_ms=k1d["bound_ms"],
+            raw_plans_ms=k1r["ms"], raw_plans_plain_ms=k1r["plain_ms"],
+            raw_plans_bound_ms=k1r["bound_ms"],
+            raw_plans_bound_by=k1r["bound_by"],
+            raw_plans_stack_rows_read=k1r["stack_rows_read"]), k1,
             per_batch["probe_flags"]),
         with_bound(dict(
             name="window_ed", route="cuda",
@@ -999,7 +1079,8 @@ def main() -> int:
              plain_ms=kd["znorm"]["plain_ms"]),
         dict(dp_entry("dtw_ds", "kvmatch_tpu/ops/dtw.py:190", "dtw_ds",
                       dtw_launches["dtw_ds"], "main_dtw", kd["ds_bound"]),
-             tolerance="|hi + lo - d64| <= 8 eps32 (d64 + 1)",
+             tolerance="|hi + lo - d64| <= 8 eps32 (d64 + 1); bit-equal "
+                       "to dtw_ds_diag_plain (K3_BITWISE_CASES)",
              plain_ms=kd["raw"]["dtw_ds"]["plain_ms"]),
     ]})
     print(card, flush=True)

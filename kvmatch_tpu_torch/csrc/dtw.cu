@@ -21,14 +21,14 @@
 //   dtw_banded_batch_ds_multi with the K3 walk on (hi, lo) pairs (TwoSum
 //   additions, lexicographic minima); returns hi and lo.  TwoSum is
 //   error-free only without multiply-add contraction: the library is built
-//   with --fmad=false and without fast math.
+//   with --fmad=false and without fast math.  It is K3's kernel with the
+//   band held as pairs (the DS template flag; see the K3 section).
 //
-// What bounds K4 and DS on an H100: the serial chain of 2L-1 steps (DS) or
-// L rows (K4) per candidate row, each a few shared-memory loads, one f32 add
-// and a barrier -- latency, not device memory (each row reads 2 L floats
-// once).  The a and q rows are staged in shared memory (2 x 32 KB at
-// L = 8192) when they fit the block's opt-in limit, else read from global
-// memory; enough blocks stay resident per SM to hide the barrier latency.
+// What bounds K4 on an H100: the serial chain of L rows per candidate row,
+// each a few shared-memory loads, one f32 add and two block scans -- latency,
+// not device memory (each row reads 2 L floats once).  The a and q rows are
+// staged in shared memory (2 x 32 KB at L = 8192) when they fit the block's
+// opt-in limit, else read from global memory.
 // The TPU kernels' repeat-interleaved, 128-aligned inputs and their
 // wrong-parity garbage lanes are Mosaic devices and are not carried over.
 
@@ -116,6 +116,19 @@ __device__ __forceinline__ void stage_rows(const float* a, const float* qm,
 //   +inf from a masked a or q slot and stay BIG.
 // The f32 operations of each cell are those of the first design and of
 // dtw_diag_plain, so the outputs are equal bit for bit.
+//
+// DS (the DS template flag) is this kernel on (hi, lo) pairs: each lane
+// holds a pair in D/Dl, a step shuffles both halves of the edge pair, and
+// the cell is d = df * df, two ds_min, ds_two_sum with (d, 0) and the cap
+// to (BIG, 0) when !(hi < BIG) -- the operations of dtw_ds_diag_plain, so
+// the two are equal bit for bit.  Cells outside the matrix see d = inf or
+// NaN from the sentinels; the sum is then NaN or inf and the cap gives
+// (BIG, 0), as the plain version's explicit value.  What bounds it: f32
+// operations, about 20 a cell against K3's 5 (with the selects of the
+// pair minima and the cap, about 28 against 6: it runs at 4.5x K3's
+// time).  The first DS design (one
+// block per row, carries in shared memory, a barrier per anti-diagonal)
+// was K3's first design and lost what that design lost.
 #define KVM_K3_WARPS 4
 #define KVM_K3_MAX_WARPS_PER_ROW 32
 
@@ -143,13 +156,14 @@ __device__ __forceinline__ float k3_load(const float* row, int idx, int L) {
 
 // C lanes per thread, E = r & 1 (the parity of every chunk's first active
 // lane on even diagonals).  WIDE == false: one warp per row, KVM_K3_WARPS
-// rows per block (G == 1); WIDE: one row per block of G warps.
-template <int C, int E, bool WIDE>
+// rows per block (G == 1); WIDE: one row per block of G warps.  DS: the
+// double-single DP, out = hi and out_lo = lo; otherwise out_lo is unused.
+template <int C, int E, bool WIDE, bool DS>
 __global__ void __launch_bounds__(WIDE ? KVM_K3_MAX_WARPS_PER_ROW * 32
                                        : KVM_K3_WARPS * 32)
 dtw_diag_kernel(const float* __restrict__ a, const float* __restrict__ qm,
                 const int* __restrict__ qids, int B, int L, int Q, int r,
-                int G, float* __restrict__ out) {
+                int G, float* __restrict__ out, float* __restrict__ out_lo) {
   constexpr int R = K3Ring<C>::R;
   constexpr int M = R - 1;
   constexpr int RS = K3Ring<C>::STRIDE;
@@ -161,12 +175,16 @@ dtw_diag_kernel(const float* __restrict__ a, const float* __restrict__ qm,
   const int g = WIDE ? warp : 0;  // the warp's place in its row
   float* ringA = smem + warp * 2 * RS;
   float* ringQ = ringA + RS;
-  // WIDE only: [2 diagonals][last lanes, first lanes][G]
+  // WIDE only: [2 diagonals][last lanes, first lanes][G], then (DS) the
+  // same for the lo halves.
   float* edge = smem + (WIDE ? G : KVM_K3_WARPS) * 2 * RS;
   if (row >= B) return;  // not WIDE only: a WIDE grid has no spare block
   const int qid = qids[row];
   if (qid < 0 || qid >= Q) {
-    if (lane == 0 && g == 0) out[row] = NAN;
+    if (lane == 0 && g == 0) {
+      out[row] = NAN;
+      if (DS) out_lo[row] = NAN;
+    }
     return;  // uniform over the row's warps
   }
   const float* arow = a + (long long)row * L;
@@ -193,8 +211,13 @@ dtw_diag_kernel(const float* __restrict__ a, const float* __restrict__ qm,
   __syncwarp();
 
   float D[C];
+  float Dl[DS ? C : 1];  // DS: the lo halves
 #pragma unroll
   for (int u = 0; u < C; ++u) D[u] = (k0 + u == r) ? 0.0f : KVM_BIG;
+  if constexpr (DS) {
+#pragma unroll
+    for (int u = 0; u < C; ++u) Dl[u] = 0.0f;
+  }
   const int T0 = (r - E) / 2 - k0 / 2;
   for (int p = 0; p < L; ++p) {
     if (p > 0 && (p & 31) == 0) {
@@ -233,17 +256,37 @@ dtw_diag_kernel(const float* __restrict__ a, const float* __restrict__ qm,
       const float mine = par == 0 ? D[C - 1] : D[0];
       float nb = par == 0 ? __shfl_up_sync(0xffffffffu, mine, 1)
                           : __shfl_down_sync(0xffffffffu, mine, 1);
+      float nbl = 0.0f;
+      if constexpr (DS) {
+        const float minel = par == 0 ? Dl[C - 1] : Dl[0];
+        nbl = par == 0 ? __shfl_up_sync(0xffffffffu, minel, 1)
+                       : __shfl_down_sync(0xffffffffu, minel, 1);
+      }
       if (WIDE) {
         // Chunk edges between warps go through shared memory.
         float* eb = edge + half * 2 * G;  // [0]: warps' last lanes, [1]: first
+        float* ebl = eb + 4 * G;          // DS: the lo halves
         if (lane == 31) eb[g] = D[C - 1];
         if (lane == 0) eb[G + g] = D[0];
+        if constexpr (DS) {
+          if (lane == 31) ebl[g] = Dl[C - 1];
+          if (lane == 0) ebl[G + g] = Dl[0];
+        }
         __syncthreads();
-        if (par == 0 && lane == 0) nb = g > 0 ? eb[g - 1] : KVM_BIG;
-        if (par == 1 && lane == 31) nb = g + 1 < G ? eb[G + g + 1] : KVM_BIG;
+        if (par == 0 && lane == 0) {
+          nb = g > 0 ? eb[g - 1] : KVM_BIG;
+          if constexpr (DS) nbl = g > 0 ? ebl[g - 1] : 0.0f;
+        }
+        if (par == 1 && lane == 31) {
+          nb = g + 1 < G ? eb[G + g + 1] : KVM_BIG;
+          if constexpr (DS) nbl = g + 1 < G ? ebl[G + g + 1] : 0.0f;
+        }
       } else {
         if (par == 0 && lane == 0) nb = KVM_BIG;
         if (par == 1 && lane == 31) nb = KVM_BIG;
+        if constexpr (DS) {
+          if ((par == 0 && lane == 0) || (par == 1 && lane == 31)) nbl = 0.0f;
+        }
       }
 #pragma unroll
       for (int m = 0; m < H; ++m) {
@@ -254,82 +297,34 @@ dtw_diag_kernel(const float* __restrict__ a, const float* __restrict__ qm,
         // q-slot m + 1 - E
         const float df = half == 0 ? av[m + E] - qv[m]
                                    : av[m] - qv[m + 1 - E];
-        const float mn = fminf(fminf(lft, rgt), D[u]);
-        D[u] = fminf(df * df + mn, KVM_BIG);
+        if constexpr (DS) {
+          const float lftl = u == 0 ? nbl : Dl[u > 0 ? u - 1 : 0];
+          const float rgtl = u == C - 1 ? nbl : Dl[u < C - 1 ? u + 1 : 0];
+          float mh, ml, vh, vl;
+          ds_min(lft, lftl, rgt, rgtl, mh, ml);
+          ds_min(mh, ml, D[u], Dl[u], mh, ml);
+          ds_two_sum(mh, ml, df * df, 0.0f, vh, vl);
+          const bool ok = vh < KVM_BIG;
+          D[u] = ok ? vh : KVM_BIG;
+          Dl[u] = ok ? vl : 0.0f;
+        } else {
+          const float mn = fminf(fminf(lft, rgt), D[u]);
+          D[u] = fminf(df * df + mn, KVM_BIG);
+        }
       }
     }
   }
   const int kk = r - k0;
   if (kk >= 0 && kk < C) {
-    float res = KVM_BIG;
+    float res = KVM_BIG, res_l = 0.0f;
 #pragma unroll
     for (int u = 0; u < C; ++u)
-      if (u == kk) res = D[u];
-    out[row] = res;
-  }
-}
-
-// ------------------------------------------------------------------- DS
-__global__ void __launch_bounds__(KVM_DTW_THREADS)
-dtw_ds_kernel(const float* __restrict__ a, const float* __restrict__ qm,
-              const int* __restrict__ qids, int L, int Q, int r, int stage,
-              float* __restrict__ out_hi, float* __restrict__ out_lo) {
-  extern __shared__ float smem[];
-  const int W = 2 * r + 1;
-  const int qid = qids[blockIdx.x];
-  if (qid < 0 || qid >= Q) {
-    if (threadIdx.x == 0) {
-      out_hi[blockIdx.x] = NAN;
-      out_lo[blockIdx.x] = NAN;
-    }
-    return;
-  }
-  float* h0 = smem;
-  float* l0 = smem + (W + 2);
-  float* h1 = smem + 2 * (W + 2);
-  float* l1 = smem + 3 * (W + 2);
-  const float* arow;
-  const float* qrow;
-  stage_rows(a, qm, qid, L, stage, smem + 4 * (W + 2), arow, qrow);
-  for (int t = threadIdx.x; t < W + 2; t += blockDim.x) {
-    h0[t] = (t == r + 1) ? 0.0f : KVM_BIG;
-    l0[t] = 0.0f;
-    h1[t] = KVM_BIG;
-    l1[t] = 0.0f;
-  }
-  __syncthreads();
-  const int S = 2 * L - 1;
-  for (int s = 0; s < S; ++s) {
-    float* ch = (s & 1) ? h1 : h0;
-    float* cl = (s & 1) ? l1 : l0;
-    const float* ph = (s & 1) ? h0 : h1;
-    const float* pl = (s & 1) ? l0 : l1;
-    const int p = (s + r) & 1;
-    for (int k = 2 * threadIdx.x + p; k < W; k += 2 * blockDim.x) {
-      const int i = (s + r - k) >> 1;
-      const int j = s - i;
-      float vh = KVM_BIG, vl = 0.0f;
-      if (i >= 0 && i < L && j >= 0 && j < L) {
-        const float df = arow[i] - qrow[j];
-        const float d = df * df;
-        float mh, ml;
-        ds_min(ph[k], pl[k], ph[k + 2], pl[k + 2], mh, ml);
-        ds_min(mh, ml, ch[k + 1], cl[k + 1], mh, ml);
-        ds_two_sum(mh, ml, d, 0.0f, vh, vl);
-        if (!(vh < KVM_BIG)) {
-          vh = KVM_BIG;
-          vl = 0.0f;
-        }
+      if (u == kk) {
+        res = D[u];
+        if constexpr (DS) res_l = Dl[u];
       }
-      ch[k + 1] = vh;
-      cl[k + 1] = vl;
-    }
-    __syncthreads();
-  }
-  if (threadIdx.x == 0) {
-    const int last = (S - 1) & 1;
-    out_hi[blockIdx.x] = (last ? h1 : h0)[r + 1];
-    out_lo[blockIdx.x] = (last ? l1 : l0)[r + 1];
+    out[row] = res;
+    if (DS) out_lo[row] = res_l;
   }
 }
 
@@ -469,14 +464,15 @@ static int k3_shape(int r, int* C, int* G) {
   return 0;
 }
 
-template <int C, int E, bool WIDE>
+template <int C, int E, bool WIDE, bool DS>
 static int launch_diag(const float* a, const float* qm, const int* qids,
                        int B, int L, int Q, int r, int G, float* out,
-                       cudaStream_t stream) {
-  auto kernel = dtw_diag_kernel<C, E, WIDE>;
+                       float* out_lo, cudaStream_t stream) {
+  auto kernel = dtw_diag_kernel<C, E, WIDE, DS>;
   const int warps = WIDE ? G : KVM_K3_WARPS;
   const size_t bytes = sizeof(float) *
-      ((size_t)warps * 2 * K3Ring<C>::STRIDE + (WIDE ? 4 * (size_t)G : 0));
+      ((size_t)warps * 2 * K3Ring<C>::STRIDE
+       + (WIDE ? (DS ? 8 : 4) * (size_t)G : 0));
   if (bytes > 48 * 1024) {
     const cudaError_t err = cudaFuncSetAttribute(
         kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)bytes);
@@ -484,31 +480,32 @@ static int launch_diag(const float* a, const float* qm, const int* qids,
   }
   const int blocks = WIDE ? B : (B + KVM_K3_WARPS - 1) / KVM_K3_WARPS;
   kernel<<<blocks, warps * 32, bytes, stream>>>(a, qm, qids, B, L, Q, r, G,
-                                                out);
+                                                out, out_lo);
   return (int)cudaGetLastError();
 }
 
-template <int E>
+template <int E, bool DS>
 static int dispatch_diag(int C, int G, const float* a, const float* qm,
                          const int* qids, int B, int L, int Q, int r,
-                         float* out, cudaStream_t s) {
-  if (G > 1) return launch_diag<26, E, true>(a, qm, qids, B, L, Q, r, G, out, s);
+                         float* o, float* ol, cudaStream_t s) {
+  if (G > 1)
+    return launch_diag<26, E, true, DS>(a, qm, qids, B, L, Q, r, G, o, ol, s);
   switch (C) {
-    case 2: return launch_diag<2, E, false>(a, qm, qids, B, L, Q, r, 1, out, s);
-    case 6: return launch_diag<6, E, false>(a, qm, qids, B, L, Q, r, 1, out, s);
-    case 10: return launch_diag<10, E, false>(a, qm, qids, B, L, Q, r, 1, out, s);
-    case 14: return launch_diag<14, E, false>(a, qm, qids, B, L, Q, r, 1, out, s);
-    case 18: return launch_diag<18, E, false>(a, qm, qids, B, L, Q, r, 1, out, s);
-    case 22: return launch_diag<22, E, false>(a, qm, qids, B, L, Q, r, 1, out, s);
-    case 26: return launch_diag<26, E, false>(a, qm, qids, B, L, Q, r, 1, out, s);
-    case 30: return launch_diag<30, E, false>(a, qm, qids, B, L, Q, r, 1, out, s);
+#define KVM_K3_CASE(c) \
+    case c: return launch_diag<c, E, false, DS>(a, qm, qids, B, L, Q, r, 1, \
+                                               o, ol, s);
+    KVM_K3_CASE(2) KVM_K3_CASE(6) KVM_K3_CASE(10) KVM_K3_CASE(14)
+    KVM_K3_CASE(18) KVM_K3_CASE(22) KVM_K3_CASE(26) KVM_K3_CASE(30)
+#undef KVM_K3_CASE
   }
   return (int)cudaErrorInvalidValue;
 }
 
-extern "C" int kvm_dtw_diag(const void* a, const void* qm, const void* qids,
-                            int B, int L, int Q, int r, void* out,
-                            void* stream) {
+// K3 (out_lo == nullptr) or DS (hi to out, lo to out_lo).
+template <bool DS>
+static int run_diag(const void* a, const void* qm, const void* qids, int B,
+                    int L, int Q, int r, void* out, void* out_lo,
+                    void* stream) {
   if (bad_args(B, L, Q, r)) return (int)cudaErrorInvalidValue;
   int C = 0, G = 0;
   const int err = k3_shape(r, &C, &G);
@@ -516,24 +513,23 @@ extern "C" int kvm_dtw_diag(const void* a, const void* qm, const void* qids,
   const float* fa = (const float*)a;
   const float* fq = (const float*)qm;
   const int* fi = (const int*)qids;
+  float* o = (float*)out;
+  float* ol = (float*)out_lo;
   cudaStream_t s = (cudaStream_t)stream;
-  return (r & 1) ? dispatch_diag<1>(C, G, fa, fq, fi, B, L, Q, r, (float*)out, s)
-                 : dispatch_diag<0>(C, G, fa, fq, fi, B, L, Q, r, (float*)out, s);
+  return (r & 1) ? dispatch_diag<1, DS>(C, G, fa, fq, fi, B, L, Q, r, o, ol, s)
+                 : dispatch_diag<0, DS>(C, G, fa, fq, fi, B, L, Q, r, o, ol, s);
+}
+
+extern "C" int kvm_dtw_diag(const void* a, const void* qm, const void* qids,
+                            int B, int L, int Q, int r, void* out,
+                            void* stream) {
+  return run_diag<false>(a, qm, qids, B, L, Q, r, out, nullptr, stream);
 }
 
 extern "C" int kvm_dtw_ds(const void* a, const void* qm, const void* qids,
                           int B, int L, int Q, int r, void* out_hi,
                           void* out_lo, void* stream) {
-  if (bad_args(B, L, Q, r)) return (int)cudaErrorInvalidValue;
-  int stage = 0;
-  size_t bytes = 0;
-  const int err = configure(dtw_ds_kernel, 4LL * (2 * r + 3), L, &stage,
-                            &bytes);
-  if (err) return err;
-  dtw_ds_kernel<<<B, threads_for(r + 1), bytes, (cudaStream_t)stream>>>(
-      (const float*)a, (const float*)qm, (const int*)qids, L, Q, r, stage,
-      (float*)out_hi, (float*)out_lo);
-  return (int)cudaGetLastError();
+  return run_diag<true>(a, qm, qids, B, L, Q, r, out_hi, out_lo, stream);
 }
 
 extern "C" int kvm_dtw_rows(const void* a, const void* qm, const void* qids,

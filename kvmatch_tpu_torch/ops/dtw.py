@@ -13,12 +13,15 @@ DPs are hand-written kernels (csrc/dtw.cu) behind three wrappers:
 * ``dtw_rows`` -- K4, the row prefix-scan form (replaces
   kvmatch_tpu/ops/dtw_pallas.py:_dtw_kernel), the selectable variant;
 * ``dtw_ds``   -- the double-single DP (XLA in JAX,
-  kvmatch_tpu/ops/dtw.py:dtw_banded_batch_ds_multi).
+  kvmatch_tpu/ops/dtw.py:dtw_banded_batch_ds_multi), K3's walk on f32
+  pairs.
 
 Each takes the gathered (B, L) f32 rows, the (Q, L) f32 query matrix with
 int32 ``qids`` and the band radius ``r``.  On a CPU tensor it runs its plain
 PyTorch version (``dtw_banded_plain``, ``dtw_banded_ds_plain``), on a CUDA
-tensor its kernel.  ``DTW_STATE["variant"]`` picks K3 or K4 for the f32
+tensor its kernel; ``dtw_diag_plain`` and ``dtw_ds_diag_plain`` repeat
+K3's and DS's operations in their anti-diagonal order, for the bitwise
+checks on the card.  ``DTW_STATE["variant"]`` picks K3 or K4 for the f32
 stages, as ``_PALLAS_DTW_STATE`` does in JAX.
 
 Offsets are int64 end to end (JAX casts them to int32).  The f64 host DP is
@@ -40,8 +43,8 @@ BIG = 1e30
 #: f32 DP variant of the stages: "diag" (K3) or "rows" (K4).
 DTW_STATE = {"variant": "diag"}
 
-#: Widest band K3 runs: up to 32 warps of 32 threads, 26 lanes a thread
-#: (csrc/dtw.cu:kvm_dtw_diag_shape).  A row of L <= K3_MAX_R + 1 points takes
+#: Widest band K3 and DS run: up to 32 warps of 32 threads, 26 lanes a
+#: thread (csrc/dtw.cu:k3_shape).  A row of L <= K3_MAX_R + 1 points takes
 #: any radius (r is clamped to L - 1).
 K3_MAX_R = (32 * 32 * 26 - 1) // 2
 
@@ -156,10 +159,11 @@ def _ds_scan(h, l, op):
 
 def dtw_banded_ds_plain(a: torch.Tensor, qm: torch.Tensor, qids: torch.Tensor,
                         r: int):
-    """Plain version of the DS kernel: kvmatch_tpu/ops/dtw.py:
-    dtw_banded_batch_ds_multi with every DP value an unevaluated f32 pair
+    """Double-single DP in the row form of kvmatch_tpu/ops/dtw.py:
+    dtw_banded_batch_ds_multi, every DP value an unevaluated f32 pair
     (hi, lo); the row's cumsum and cummin are log-step scans of
-    ``_ds_two_sum`` / ``_ds_min``.  Returns (hi, lo), each (B,) f32."""
+    ``_ds_two_sum`` / ``_ds_min``.  Returns (hi, lo), each (B,) f32.  The
+    CPU route of ``dtw_ds``; the kernel's own form is ``dtw_ds_diag_plain``."""
     B, L, r, W, qpad = _row_inputs(a, qm, qids, r)
     dev = a.device
     zeros = torch.zeros((B, W), dtype=torch.float32, device=dev)
@@ -185,6 +189,42 @@ def dtw_banded_ds_plain(a: torch.Tensor, qm: torch.Tensor, qids: torch.Tensor,
         Dl = torch.where(Dh < BIG, Dl, 0.0)
         Ph, Pl = Dh, Dl
     return Ph[:, r], Pl[:, r]
+
+
+def dtw_ds_diag_plain(a: torch.Tensor, qm: torch.Tensor, qids: torch.Tensor,
+                      r: int):
+    """Plain version of the DS kernel in its own form: ``dtw_diag_plain``'s
+    walk over the 2L-1 anti-diagonals on (B, W + 2) carries of f32 pairs.
+    A cell is (vh, vl) = ds_two_sum(ds_min(ds_min(D_{s-1}[k-1],
+    D_{s-1}[k+1]), D_{s-2}[k]), (d, 0)), capped to (BIG, 0) where
+    !(vh < BIG) and outside the matrix: the kernel's pair operations, so
+    the two are equal bit for bit.  Returns (hi, lo), each (B,) f32."""
+    B, L, r, W, _ = _row_inputs(a, qm, qids, r)
+    q = qm[qids.long()]
+    dev = a.device
+    hi = [torch.full((B, W + 2), BIG, dtype=a.dtype, device=dev)
+          for _ in range(2)]
+    lo = [torch.zeros((B, W + 2), dtype=a.dtype, device=dev)
+          for _ in range(2)]
+    hi[0][:, r + 1] = 0.0  # D_{-2}: the seed of cell (0, 0)
+    lanes = [torch.arange(p, W, 2, device=dev) for p in (0, 1)]
+    zero = torch.zeros((), dtype=a.dtype, device=dev)
+    for s in range(2 * L - 1):
+        k = lanes[(s + r) & 1]
+        i = (s + r - k) >> 1
+        j = s - i
+        valid = (i >= 0) & (i < L) & (j >= 0) & (j < L)
+        df = a[:, i.clamp(0, L - 1)] - q[:, j.clamp(0, L - 1)]
+        c, p = s & 1, 1 - (s & 1)
+        mh, ml = _ds_min(hi[p][:, k], lo[p][:, k], hi[p][:, k + 2],
+                         lo[p][:, k + 2])
+        mh, ml = _ds_min(mh, ml, hi[c][:, k + 1], lo[c][:, k + 1])
+        vh, vl = _ds_two_sum(mh, ml, df * df, zero)
+        ok = valid & (vh < BIG)
+        hi[c][:, k + 1] = torch.where(ok, vh, BIG)
+        lo[c][:, k + 1] = torch.where(ok, vl, 0.0)
+    last = (2 * L - 2) & 1
+    return hi[last][:, r + 1], lo[last][:, r + 1]
 
 
 # ------------------------------------------------------------ the kernels
@@ -215,14 +255,18 @@ def _launch(name: str, a, qm, qids, r: int, n_out: int):
     return code, outs
 
 
+def _check_k3_band(name: str, a, r: int) -> None:
+    if a.dim() == 2 and min(r, a.shape[1] - 1) > K3_MAX_R:
+        raise ValueError(f"{name}: band radius {min(r, a.shape[1] - 1)} "
+                         f"beyond K3_MAX_R={K3_MAX_R}")
+
+
 def dtw_diag(a, qm, qids, r: int) -> torch.Tensor:
     """Banded DTW (B,) f32: kernel K3 for CUDA tensors, the plain version
     for CPU tensors.  K3 equals ``dtw_diag_plain`` bit for bit."""
     if backend.route(a) == "plain":
         return dtw_banded_plain(a, qm, qids, r)
-    if a.dim() == 2 and min(r, a.shape[1] - 1) > K3_MAX_R:
-        raise ValueError(f"dtw_diag: band radius {min(r, a.shape[1] - 1)} "
-                         f"beyond K3_MAX_R={K3_MAX_R}")
+    _check_k3_band("dtw_diag", a, r)
     code, (out,) = _launch("dtw_diag", a, qm, qids, r, 1)
     dtw_diag.launches += 1
     kernels.check(code, "dtw_diag")
@@ -242,9 +286,12 @@ def dtw_rows(a, qm, qids, r: int) -> torch.Tensor:
 
 def dtw_ds(a, qm, qids, r: int):
     """Double-single banded DTW, (hi, lo) each (B,) f32: the DS kernel for
-    CUDA tensors, the plain version for CPU tensors."""
+    CUDA tensors, the plain version for CPU tensors.  The DS kernel is K3's
+    walk on pairs (the same band limit, K3_MAX_R) and equals
+    ``dtw_ds_diag_plain`` bit for bit."""
     if backend.route(a) == "plain":
         return dtw_banded_ds_plain(a, qm, qids, r)
+    _check_k3_band("dtw_ds", a, r)
     code, (hi, lo) = _launch("dtw_ds", a, qm, qids, r, 2)
     dtw_ds.launches += 1
     kernels.check(code, "dtw_ds")

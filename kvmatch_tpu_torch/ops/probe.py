@@ -51,6 +51,67 @@ def probe_flags_plain(bwin, col0, segs, eps2, cons, p0, npos, m, flags,
             flags[q, b0 // FLAG:(b0 + nb) // FLAG] = mask.reshape(-1, FLAG).any(1)
 
 
+def probe_work(bstack, segs, eps2, cons, m, *, unit, d, slack, norm):
+    """The work K1 needs on this data over positions [0, m) of the bucket
+    stack ``bstack`` (column 0 = position 0), for its bound (chip_smoke.py).
+
+    K1 leaves a position once its bound exceeds eps2: every term is >= 0,
+    so the bound only grows.  Returns ``(terms, reads)``: ``terms[q][t]``
+    is the number of positions whose bound is still <= eps2 when query q's
+    t-th valid segment is reached (t = k, after the last one: the positions
+    whose cNSM sigma-filter tracks read every segment again); ``reads[s]``
+    is the number of distinct entries of stack row s that those terms and
+    tracks read.  The bound repeats the plain version's f32 operations
+    (parallel/query.py:_dense_probe, _dense_probe_norm)."""
+    dev = bstack.device
+    d32, slack32 = float(np.float32(d)), float(np.float32(slack))
+    slack2 = float(2 * np.float32(slack))
+    one = torch.ones((), dtype=torch.float32, device=dev)
+    read = torch.zeros(bstack.shape, dtype=torch.bool, device=dev)
+    terms = []
+    for q in range(eps2.shape[0]):
+        scale_idx, order, mean_lo, mean_hi, width, valid = (f[q] for f in segs)
+        segs_q = [(s, int(scale_idx[s]), (int(order[s]) - 1) * unit)
+                  for s in range(valid.shape[0]) if int(valid[s])]
+        if norm:
+            alpha, beta, mu_q, sd_q = cons[q]
+            inv_big = torch.div(one, alpha * sd_q)
+            inv_small = torch.div(one, sd_q / alpha)
+            inv_sd = torch.div(one, sd_q)
+            mub, mmb = mu_q + beta, mu_q - beta
+        tq = [0] * (len(segs_q) + 1)
+        for b0 in range(0, m, PROBE_BLOCK):
+            nb = min(PROBE_BLOCK, m - b0)
+            acc = torch.zeros(nb, dtype=torch.float32, device=dev)
+            for t, (s, row, shift) in enumerate(segs_q):
+                cols = slice(b0 + shift, b0 + shift + nb)
+                live = acc <= eps2[q]
+                tq[t] += int(live.sum())
+                read[row, cols] |= live
+                key_lo = bstack[row, cols].to(torch.float32) * d32 - slack32
+                key_hi = key_lo + d32 + slack2
+                if norm:
+                    n_lo, n_hi = key_lo - mub, key_hi - mmb
+                    lo = torch.where(n_lo >= 0, n_lo * inv_big,
+                                     n_lo * inv_small)
+                    hi = torch.where(n_hi >= 0, n_hi * inv_small,
+                                     n_hi * inv_big)
+                    m_lo = (mean_lo[s] - mu_q) * inv_sd
+                    m_hi = (mean_hi[s] - mu_q) * inv_sd
+                else:
+                    lo, hi, m_lo, m_hi = key_lo, key_hi, mean_lo[s], mean_hi[s]
+                delta = torch.clamp_min(torch.maximum(lo - m_hi, m_lo - hi),
+                                        0.0)
+                acc = acc + width[s] * delta * delta
+            live = acc <= eps2[q]
+            tq[-1] += int(live.sum())
+            if norm:
+                for _, row, shift in segs_q:
+                    read[row, b0 + shift: b0 + shift + nb] |= live
+        terms.append(tq)
+    return terms, read.sum(1).tolist()
+
+
 def _check(cond: bool, what: str) -> None:
     if not cond:
         raise ValueError(f"probe_flags: {what}")

@@ -8,9 +8,10 @@ On the CPU every DP stage runs its kernel's plain version.  Tolerances:
   ``dtw_banded_plain``, JAX's XLA DP and the f64 DP: within the engines'
   guard band ``verify.guard_threshold(d, L, 1e-2)`` (the two f32 walks sum
   the same path costs in another order).
-* ``dtw_banded_ds_plain`` (the plain version of the DS kernel): hi + lo
-  within 8 eps32 (d64 + 1) of the f64 DP on the same f32 inputs, and within
-  ds_guard / 4 of the all-f64 pipeline (tests/test_dtw_guard.py:62,81).
+* ``dtw_banded_ds_plain`` and ``dtw_ds_diag_plain`` (the DS DP's row form
+  and the anti-diagonal form of its kernel): hi + lo within 8 eps32
+  (d64 + 1) of the f64 DP on the same f32 inputs and of JAX's DS DP, and
+  within ds_guard / 4 of the all-f64 pipeline (tests/test_dtw_guard.py:62,81).
 * LB stages: equal to JAX's within 1e-5 relative (f32 reductions), and never
   above the f64 banded DTW.
 The CUDA kernels are held against these plain versions in
@@ -113,15 +114,18 @@ def _guard_windows(kind, B, L, rng):
     return win, q
 
 
+@pytest.mark.parametrize("form", ["rows", "diag"])
 @pytest.mark.parametrize("kind", ["walk", "spiky", "offset"])
-def test_ds_plain_within_guard_bounds(kind):
+def test_ds_plain_within_guard_bounds(kind, form):
+    """Both plain versions of the DS DP: the row form (the CPU route) and
+    the anti-diagonal form the kernel repeats bit for bit."""
     L, rho, B = 256, 12, 16
     rng = np.random.default_rng(len(kind))
     win, q = _guard_windows(kind, B, L, rng)
     w32 = win.astype(np.float32)
     q32 = q.astype(np.float32)
-    hi, lo = td.dtw_banded_ds_plain(_t(w32), _t(q32[None]),
-                                    _t(np.zeros(B, np.int32)), rho)
+    fn = td.dtw_banded_ds_plain if form == "rows" else td.dtw_ds_diag_plain
+    hi, lo = fn(_t(w32), _t(q32[None]), _t(np.zeros(B, np.int32)), rho)
     got = td.ds_value(hi.numpy(), lo.numpy())
     same = td._dtw_banded_batch_f64_np(w32, q32, rho)
     assert np.all(np.abs(got - same) <= 8.0 * EPS32 * (same + 1.0))

@@ -9,7 +9,8 @@ the port is installed:
 
 Tolerances: K1 (dense probe) counts and flags exactly equal -- the kernel is
 compiled without multiply-add contraction and repeats the plain version's
-f32 operations in order.  K2 (window distances): |d2 - d2_plain| <= 1e-5 L +
+f32 operations in order.  K3 and DS equal their anti-diagonal plain versions
+(dtw_diag_plain, dtw_ds_diag_plain) bit for bit.  K2 (window distances): |d2 - d2_plain| <= 1e-5 L +
 1e-5 d2 and mean/std within 1e-5 of the window's max |x| (summation order
 differs; see tests/test_torch_ed.py).  Engine answers EQUAL the oracle.
 """
@@ -28,7 +29,7 @@ from kvmatch_tpu_torch.ops import ed as ted
 from kvmatch_tpu_torch.ops.probe import FLAG, probe_flags, probe_flags_plain
 from kvmatch_tpu_torch.ops.sliding import build_buckets
 from kvmatch_tpu_torch.parallel.query import pack_segments_batch
-from kvmatch_tpu_torch.plan import QuerySegment
+from kvmatch_tpu_torch.plan import QuerySegment, envelope
 from kvmatch_tpu_torch.state import series_to_device
 
 pytestmark = pytest.mark.cuda
@@ -41,7 +42,12 @@ def dev():
     return torch.device("cuda")
 
 
-def _probe_case(norm, dev, n=40_000, L=512, Q=3, seed=0):
+def _probe_case(norm, dev, n=40_000, L=512, Q=3, seed=0,
+                widths=(100, 50, 25, 200, 25, 400, 25), rho=None,
+                reverse=False):
+    """Hand-made plans over a random walk.  ``rho``: envelope segments
+    (mean_lo < mean_hi, as the DTW engines plan them); ``reverse``: the
+    tables' columns reversed, so the valid segments are not a prefix."""
     icfg = IndexConfig()
     rng = np.random.default_rng(seed)
     data = np.cumsum(rng.normal(0, 0.1, n + L + 512)).astype(np.float32)
@@ -49,20 +55,23 @@ def _probe_case(norm, dev, n=40_000, L=512, Q=3, seed=0):
     seg_lists = []
     for o in offs:
         q = data[o:o + L]
+        lo, hi = (q, q) if rho is None else envelope(q, rho)
         segs, pos = [], 0
-        for w in (100, 50, 25, 200, 25, 400, 25):
+        for w in widths:
             if (pos + 1) * icfg.unit + w > L:
                 break
-            mean = float(q[pos * icfg.unit: pos * icfg.unit + w].mean())
-            segs.append(QuerySegment(order=pos + 1, w=w, mean_lo=mean,
-                                     mean_hi=mean, count=1))
+            span = slice(pos * icfg.unit, pos * icfg.unit + w)
+            segs.append(QuerySegment(order=pos + 1, w=w,
+                                     mean_lo=float(lo[span].mean()),
+                                     mean_hi=float(hi[span].mean()), count=1))
             pos += w // icfg.unit
         seg_lists.append(segs)
     bk = build_buckets(torch.as_tensor(data, device=dev), tuple(icfg.scales),
                        icfg.pos_of_d)
     width = bk[max(icfg.scales)].shape[0]
     bstack = torch.stack([b[:width] for b in bk.values()]).contiguous()
-    eps2 = torch.tensor([1.0, 25.0, 4.0][:Q], dtype=torch.float32, device=dev)
+    eps2 = torch.tensor([[1.0, 25.0, 4.0][i % 3] for i in range(Q)],
+                        dtype=torch.float32, device=dev)
     if norm:
         cons = torch.tensor([[1.2, 5.0, data[o:o + L].mean(),
                               data[o:o + L].std()] for o in offs],
@@ -70,31 +79,86 @@ def _probe_case(norm, dev, n=40_000, L=512, Q=3, seed=0):
     else:
         cons = torch.zeros((Q, 4), dtype=torch.float32, device=dev)
     segs = pack_segments_batch(seg_lists, tuple(icfg.scales), dev)
-    return icfg, bstack, segs, eps2, cons, n - L + 1, L
+    if reverse:
+        segs = type(segs)(*(t.flip(1).contiguous() for t in segs))
+    return icfg, bstack, segs, eps2, cons, n - L + 1, L, data[:n]
 
 
-def _run(fn, case, p0, npos, dev, norm):
-    icfg, bstack, segs, eps2, cons, m, L = case
+def _run(fn, case, p0, npos, dev, norm, col0=0):
+    """``fn`` over positions [p0, p0 + npos) of the case's bucket stack,
+    given as the window of its columns from ``col0`` on."""
+    icfg, bstack, segs, eps2, cons, m, L, _ = case
     Q = eps2.shape[0]
     flags = torch.zeros((Q, (p0 + npos) // FLAG), dtype=torch.bool, device=dev)
     counts = torch.zeros(Q, dtype=torch.int32, device=dev)
-    fn(bstack, 0, segs, eps2, cons, p0, npos, m, flags, counts, length=L,
-       unit=icfg.unit, d=icfg.d, slack=icfg.probe_guard, norm=norm)
+    fn(bstack[:, col0:].contiguous(), col0, segs, eps2, cons, p0, npos, m,
+       flags, counts, length=L, unit=icfg.unit, d=icfg.d,
+       slack=icfg.probe_guard, norm=norm)
     torch.cuda.synchronize(dev)
     return counts.cpu().numpy(), flags.cpu().numpy()
 
 
+# (p0, npos, _probe_case arguments, and col0: the stack's first column in
+# the window passed).  m = n - L + 1 is never a multiple of 128 here; the
+# kernel's block takes 8192 positions in tiles of 2048, a warp 256 (two
+# flags).
+PROBE_CASES = {
+    "whole": (0, 40_064, {}),                  # the last tile is partial
+    "window": (8_192, 16_384, {}),             # p0 > 0, stops before m
+    "window_col0": (8_192, 16_384, dict(col0=8_192)),  # col0 = p0 > 0
+    "tail_col0": (23_552, 16_512, dict(col0=23_552)),  # ... past m
+    "col0_below_p0": (16_384, 8_192, dict(col0=8_000)),
+    "p0_odd": (384, 9_984, {}),                # p0, npos off the tile grid
+    "q1": (0, 40_064, dict(Q=1)),
+    "q32_holes": (128, 39_936, dict(Q=32, reverse=True)),
+    "seg30_envelope": (0, 40_064, dict(        # 30 segments, mean_lo < mean_hi
+        L=2048, Q=4, rho=40, widths=(25, 50, 25, 100, 25) * 6)),
+}
+
+
 @pytest.mark.parametrize("norm", [False, True])
-@pytest.mark.parametrize("p0,npos", [(0, 40_064), (8_192, 16_384)])
-def test_probe_kernel_equals_plain(dev, norm, p0, npos):
-    case = _probe_case(norm, dev)
+@pytest.mark.parametrize("case", sorted(PROBE_CASES))
+def test_probe_kernel_equals_plain(dev, norm, case):
+    p0, npos, kw = PROBE_CASES[case]
+    kw = dict(kw)
+    col0 = kw.pop("col0", 0)
+    data = _probe_case(norm, dev, **kw)
+    segs = data[2]
+    if case == "seg30_envelope":
+        assert int(segs.valid.sum(1).min()) == 30
+        assert bool((segs.mean_lo < segs.mean_hi).all())
     before = probe_flags.launches
-    got = _run(probe_flags, case, p0, npos, dev, norm)
+    got = _run(probe_flags, data, p0, npos, dev, norm, col0)
     assert probe_flags.launches == before + 1
-    want = _run(probe_flags_plain, case, p0, npos, dev, norm)
+    want = _run(probe_flags_plain, data, p0, npos, dev, norm, col0)
     np.testing.assert_array_equal(got[0], want[0])
     np.testing.assert_array_equal(got[1], want[1])
     assert want[0].sum() > 0
+
+
+@pytest.mark.parametrize("norm", [False, True])
+def test_dense_probe_uncached_blocks_equal_plain(dev, norm, monkeypatch):
+    """The probe without a cached stack: one K1 launch per 16,384-position
+    block over a bucket window whose column 0 is the block's first
+    position (col0 = p0 > 0 from the second block on), held equal to the
+    plain version on the same windows."""
+    from kvmatch_tpu_torch.parallel import query as tq
+    icfg, _, segs, eps2, cons, m, L, data = _probe_case(norm, dev)
+    n = data.shape[0]
+    pad = tq.fly_pad_for(L, max(icfg.scales))
+    data_p = torch.cat([torch.as_tensor(data, device=dev),
+                        torch.full((pad,), float(tq.FLY_FILL), device=dev)])
+    monkeypatch.setattr(tq, "PROBE_BLOCK", 1 << 14)
+    blocks = -(-m // (1 << 14))
+    assert blocks == 3
+    before = probe_flags.launches
+    got = tq.dense_probe_flags(data_p, segs, eps2, cons, n, icfg, L, norm)
+    assert probe_flags.launches == before + blocks
+    monkeypatch.setattr(tq, "probe_flags", probe_flags_plain)
+    want = tq.dense_probe_flags(data_p, segs, eps2, cons, n, icfg, L, norm)
+    for g, w in zip(got, want):
+        np.testing.assert_array_equal(g.cpu().numpy(), w.cpu().numpy())
+    assert int(want[0].sum()) > 0
 
 
 def test_probe_kernel_rejects_bad_input(dev):
@@ -264,10 +328,30 @@ def test_dtw_diag_equals_diag_plain_bitwise(dev, B, L, r):
     assert torch.equal(got, want)
 
 
+@pytest.mark.parametrize("B,L,r", [
+    (64, 1024, 51), (16, 1024, 409), (13, 1024, 1100), (6, 1024, 52),
+    (37, 301, 0), (9, 129, 200), (7, 500, 479), (7, 1500, 480),
+    (3, 4000, 1500)])
+def test_dtw_ds_equals_diag_plain_bitwise(dev, B, L, r):
+    """DS against dtw_ds_diag_plain: hi and lo bit for bit, in K3's shapes
+    (one warp per row up to r = 479, several warps beyond)."""
+    from kvmatch_tpu_torch.ops import dtw as tdtw
+    a, qm, qids = _dtw_case(B, L, 5, seed=3 * L + r + 1, common_mode=True)
+    args = tuple(torch.as_tensor(x, device=dev) for x in (a, qm, qids))
+    before = tdtw.dtw_ds.launches
+    hi, lo = tdtw.dtw_ds(*args, r)
+    torch.cuda.synchronize(dev)
+    assert tdtw.dtw_ds.launches == before + 1
+    want_hi, want_lo = tdtw.dtw_ds_diag_plain(*args, r)
+    assert torch.isfinite(want_hi).all() and (want_hi < tdtw.BIG).all()
+    assert torch.equal(hi, want_hi)
+    assert torch.equal(lo, want_lo)
+
+
 def test_dtw_diag_rejects_bands_beyond_its_rows(dev):
     from kvmatch_tpu_torch.ops import dtw as tdtw
     L = tdtw.K3_MAX_R + 2
     a = torch.zeros((1, L), device=dev)
-    with pytest.raises(ValueError, match="K3_MAX_R"):
-        tdtw.dtw_diag(a, a, torch.zeros(1, dtype=torch.int32, device=dev),
-                      L - 1)
+    for fn in (tdtw.dtw_diag, tdtw.dtw_ds):
+        with pytest.raises(ValueError, match="K3_MAX_R"):
+            fn(a, a, torch.zeros(1, dtype=torch.int32, device=dev), L - 1)

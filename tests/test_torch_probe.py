@@ -52,21 +52,26 @@ def _mk_segments(data, offs, L, icfg, widths, rho=None):
     return seg_lists
 
 
-def _probe_fixture(norm, rho=None):
+# (Q, L, plan widths): the fixture of tests/test_probe_pallas.py, and the
+# widest plan tables the kernel takes -- 32 queries of 30 segments each.
+PROBE_SHAPES = {"q2": (2, 512, [100, 50, 25, 200, 25]),
+                "q32_seg30": (32, 1536, [25, 50, 25, 100, 25] * 6)}
+
+
+def _probe_fixture(norm, rho=None, shape="q2"):
     """The fixture of tests/test_probe_pallas.py: two tiles of positions,
     the window end inside the block, hand-made segment plans (envelope
     segments with ``rho``)."""
     icfg = IndexConfig()
     rng = np.random.default_rng(0)
-    L, Q = 512, 2
+    Q, L, widths = PROBE_SHAPES[shape]
     blk = 2 * TILE
     halo = TILE
     n = blk - 3000
     data = np.cumsum(rng.normal(0, 0.1, blk + halo + 400))
     offs = rng.integers(0, n - L, Q)
-    seg_lists = _mk_segments(data, offs, L, icfg, [100, 50, 25, 200, 25],
-                             rho)
-    eps2 = np.asarray([1.0, 25.0], np.float32)
+    seg_lists = _mk_segments(data, offs, L, icfg, widths, rho)
+    eps2 = np.asarray([1.0, 25.0] * (Q // 2), np.float32)
     if norm:
         cons = np.asarray([[1.2, 5.0, data[o:o + L].mean(), data[o:o + L].std()]
                            for o in offs], np.float32)
@@ -88,16 +93,18 @@ def _port_probe(icfg, L, Q, blk, m, seg_lists, eps2, cons, bwin, norm):
     return counts.numpy(), flags.numpy()
 
 
-@pytest.mark.parametrize("norm,rho", [(False, None), (True, None),
-                                      (False, 25), (True, 25)])
-def test_plain_probe_matches_xla_probe(norm, rho):
+@pytest.mark.parametrize("norm,rho,shape", [
+    (False, None, "q2"), (True, None, "q2"), (False, 25, "q2"),
+    (True, 25, "q2"), (False, 25, "q32_seg30"), (True, 25, "q32_seg30")])
+def test_plain_probe_matches_xla_probe(norm, rho, shape):
     """Counts and flags equal the XLA probe's, on point segments and (rho)
     on the DTW engines' envelope segments, where both z-bounds of the
-    where-form are live."""
+    where-form are live; q32_seg30 is the widest table K1 takes."""
     icfg, data, L, Q, blk, m, seg_lists, eps2, cons, bwin = _probe_fixture(
-        norm, rho)
+        norm, rho, shape)
     if rho is not None:
         assert all(s.mean_lo < s.mean_hi for segs in seg_lists for s in segs)
+    assert min(map(len, seg_lists)) == len(PROBE_SHAPES[shape][2])
     segs = jq.pack_segments_batch(seg_lists, tuple(icfg.scales))
     slack = np.float32(icfg.probe_guard)
     bw = jnp.asarray(bwin)
@@ -115,6 +122,39 @@ def test_plain_probe_matches_xla_probe(norm, rho):
     np.testing.assert_array_equal(flags,
                                   mask.reshape(Q, blk // FLAG, FLAG).any(2))
     assert counts.min() >= 1  # self-query offsets are candidates
+
+
+@pytest.mark.parametrize("blocked", [False, True])
+@pytest.mark.parametrize("norm", [False, True])
+def test_plain_probe_terms_count_open_positions(norm, blocked, monkeypatch):
+    """probe_work, the work K1's early exit needs: every live position is
+    open before the first segment, a position never reopens (each term is
+    >= 0), and after the last segment the open positions are the plain
+    probe's counts (RSM-ED) or a superset of them (the sigma filter of
+    cNSM removes some).  The entries read cover each query's first segment
+    over all m positions and touch no row outside the plans.  ``blocked``:
+    summed over several position blocks."""
+    from kvmatch_tpu_torch.ops import probe as tp
+    if blocked:
+        monkeypatch.setattr(tp, "PROBE_BLOCK", 1 << 12)
+    icfg, data, L, Q, blk, m, seg_lists, eps2, cons, bwin = _probe_fixture(
+        norm, 25)
+    segs = tq.pack_segments_batch(seg_lists, tuple(icfg.scales), "cpu")
+    terms, reads = tp.probe_work(
+        torch.as_tensor(bwin), segs, torch.as_tensor(eps2),
+        torch.as_tensor(cons), m, unit=icfg.unit, d=icfg.d,
+        slack=icfg.probe_guard, norm=norm)
+    want = _port_probe(icfg, L, Q, blk, m, seg_lists, eps2, cons, bwin, norm)
+    for t, segs_q, c in zip(terms, seg_lists, want[0]):
+        assert len(t) == len(segs_q) + 1 and t[0] == m
+        assert all(a >= b for a, b in zip(t, t[1:]))
+        assert t[-1] == c if not norm else t[-1] >= c
+    assert sum(map(sum, terms)) < (len(seg_lists[0]) + 1) * m * Q
+    rows = {icfg.scales.index(s.w) for segs_q in seg_lists for s in segs_q}
+    assert all(reads[icfg.scales.index(segs_q[0].w)] >= m
+               for segs_q in seg_lists)
+    assert all(r == 0 for i, r in enumerate(reads) if i not in rows)
+    assert sum(reads) < len(rows) * bwin.shape[1]
 
 
 @pytest.fixture(scope="module")
