@@ -21,7 +21,9 @@ JSON line tagged with the card's name and power limit and its seconds
                 (dtw_ds) on one bucket of B=1024 windows, L=8192, r=409,
                 raw and z-normed, and K3 on a 16,384-row chunk; K3 and DS
                 bit for bit against dtw_diag_plain / dtw_ds_diag_plain at
-                L=1024, r=51, 409 and 1100 and on 8 rows at L=8192, r=409;
+                L=1024, r=51, 409 and 1100 and on 8 rows at L=8192, r=409,
+                K4 against dtw_rows_plain in the same cases (bit for bit
+                on the one-warp rows, r <= 479);
                 each kernel's bound (bytes or f32 operations at the card's
                 published peaks; K1's counts the terms its early exit
                 leaves and the stack entries they read, ops/probe.py:
@@ -34,6 +36,13 @@ JSON line tagged with the card's name and power limit and its seconds
    exact_dtw -- n=1e6 RSM-DTW (L=1024, rho=51) and cNSM-DTW (L=1024,
                 rho=51; L=8192, rho=409) answer sets against the oracle,
                 each with K3 and with the K4 variant;
+   wide_band -- bands past one block (r > 13,311): K3 and DS bit for bit
+                against their plain versions, K4 within the guard band, at
+                (L, r) = (13,313, 13,312) and (26,625, 26,624) (clusters
+                of 2 and 3 blocks); then RSM-DTW and cNSM-DTW at n=17,000,
+                L=16,384, rho=13,500 (2 self-queries each, with K3 and with
+                K4; 44-segment plans, so host phase 1 over a host-built
+                index) against the oracle, with the clustered launches;
 5. main      -- cNSM-ED at n=1e8, L=8192, 8 self-queries, eps=4,
                 alpha=1.2, beta=5 (bench.py's north star): one warm batch,
                 3 timed batches, then each query alone through engine.query
@@ -86,6 +95,18 @@ MAIN_DTW_QUERIES = 8
 # DS is held against dtw_ds_diag_plain in the same cases.
 K3_BITWISE_CASES = ((1024, 51, 256), (1024, 409, 256), (1024, 1100, 256),
                     (L_MAIN, RHO_MAIN, 8))
+# Bands wider than one block of K3 holds, as (L, r, rows): the first past
+# the one-block limit (K3_BLOCK_MAX_R + 1, a cluster of 2 blocks) and the
+# first of a cluster of 3 blocks (r = 26,624, 65 warps).  K4's carries are
+# in its global workspace at both.
+WIDE_BAND_CASES = ((13_313, 13_312, 2), (26_625, 26_624, 2))
+# The engines on such a band: (engine, n, L, rho, eps).  A query of more
+# than 12,024 points needs more than the default 30 plan segments (44 at
+# L = 16,384: segments of 1-16 units of 25 points); K1 packs at most 30, so
+# these plans take host phase 1 over a host-built index.
+WIDE_ENGINE_SHAPES = (("rsm_dtw", 17_000, 16_384, 13_500, EPS_RSM),
+                      ("cnsm_dtw", 17_000, 16_384, 13_500, EPS))
+WIDE_MAX_SEGMENTS = 64
 
 # The least time the card could take for a kernel's work (bound_ms): the
 # larger of its bytes (each input read once, each output written once) over
@@ -292,46 +313,71 @@ def check_window_kernel(data_dev, queries, device, batch: int) -> dict:
     return out
 
 
-def check_diag_bitwise(data_dev, queries, device, ds: bool = False,
-                       cases=K3_BITWISE_CASES) -> dict:
-    """K3 against dtw_diag_plain (``ds``: DS against dtw_ds_diag_plain, hi
-    and lo), their anti-diagonal plain versions, bit for bit, on z-normed
-    windows of the series against the z-normed first L points of the
-    north-star queries, for each (L, r, rows) of ``cases``."""
-    import numpy as np
+def znormed_windows(data_dev, device, rng, L: int, batch: int):
+    """z-normed windows of the series at random offsets, (batch, L) f32."""
     import torch
     from kvmatch_tpu_torch.ops import dtw as td
     from kvmatch_tpu_torch.ops.ed import _gather
-    fn, plain = ((td.dtw_ds, td.dtw_ds_diag_plain) if ds
-                 else (td.dtw_diag, td.dtw_diag_plain))
-    name = "DS" if ds else "K3"
+    offs = torch.as_tensor(rng.integers(0, data_dev.shape[0] - L + 1, batch),
+                           device=device)
+    return td._znorm_rows(_gather(data_dev, offs, L), L)[0]
+
+
+def check_bitwise(data_dev, queries, device, kernel: str = "K3",
+                  cases=K3_BITWISE_CASES) -> dict:
+    """A DP kernel against its plain version in its own order, bit for bit,
+    on z-normed windows of the series against the z-normed first L points
+    of the north-star queries, for each (L, r, rows) of ``cases``: K3
+    against dtw_diag_plain, DS against dtw_ds_diag_plain (hi and lo), K4
+    against dtw_rows_plain on rows one warp holds; K4's block form (2r + 1
+    > K4_WARP_LANES) within guard_threshold(d, L, 1e-2) of
+    dtw_banded_plain."""
+    import numpy as np
+    import torch
+    from kvmatch_tpu_torch import verify
+    from kvmatch_tpu_torch.ops import dtw as td
+    fn, own = {"K3": (td.dtw_diag, td.dtw_diag_plain),
+               "DS": (td.dtw_ds, td.dtw_ds_diag_plain),
+               "K4": (td.dtw_rows, td.dtw_rows_plain)}[kernel]
     Q = queries.shape[0]
     rng = np.random.default_rng(8)
     out = {}
     for L, r, batch in cases:
-        offs = torch.as_tensor(rng.integers(0, data_dev.shape[0] - L + 1,
-                                            batch), device=device)
+        z = znormed_windows(data_dev, device, rng, L, batch)
         qids = torch.as_tensor(rng.integers(0, Q, batch).astype(np.int32),
                                device=device)
-        z, _, _ = td._znorm_rows(_gather(data_dev, offs, L), L)
         qs = queries[:, :L]
         qhat = torch.as_tensor((qs - qs.mean(1, keepdims=True))
                                / qs.std(1, keepdims=True),
                                dtype=torch.float32, device=device)
+        bitwise = not (kernel == "K4"
+                       and 2 * min(r, L - 1) + 1 > td.K4_WARP_LANES)
+        plain = own if bitwise else td.dtw_banded_plain
         got = fn(z, qhat, qids, r)
         t0 = time.perf_counter()
         want = plain(z, qhat, qids, r)
         torch.cuda.synchronize(device)
         plain_ms = (time.perf_counter() - t0) * 1e3
-        got, want = ((got, want) if ds else ((got,), (want,)))
-        differ = sum(int((g != w).sum()) for g, w in zip(got, want))
-        if differ:
-            raise AssertionError(
-                f"{name} L={L} r={r}: {differ} of {batch} rows (x "
-                f"{len(got)} outputs) differ from {plain.__name__}")
-        out[f"L{L}_r{r}"] = dict(rows=batch, bit_equal=True, finite=bool(
-            torch.isfinite(got[0]).all()), diag_plain_ms=plain_ms,
-            ms=timed_ms(lambda: fn(z, qhat, qids, r), 3, device))
+        got, want = ((got, want) if kernel == "DS" else ((got,), (want,)))
+        res = dict(rows=batch, bit_equal=bitwise, finite=bool(
+            torch.isfinite(got[0]).all()), plain=plain.__name__,
+            plain_ms=plain_ms, ms=timed_ms(lambda: fn(z, qhat, qids, r), 3,
+                                           device))
+        if bitwise:
+            differ = sum(int((g != w).sum()) for g, w in zip(got, want))
+            if differ:
+                raise AssertionError(
+                    f"{kernel} L={L} r={r}: {differ} of {batch} rows (x "
+                    f"{len(got)} outputs) differ from {plain.__name__}")
+        else:
+            w = want[0].double()
+            ratio = float(((got[0].double() - w).abs()
+                           / verify.guard_threshold(w, L, 1e-2)).max())
+            if not ratio <= 1.0:
+                raise AssertionError(f"K4 L={L} r={r}: error {ratio} of the "
+                                     f"guard band of dtw_banded_plain")
+            res["max_err_over_bound"] = ratio
+        out[f"L{L}_r{r}"] = res
     return out
 
 
@@ -342,8 +388,9 @@ def check_dtw_kernels(data_dev, queries, device, batch: int = DTW_BATCH,
     z-normed.  K3 and K4: |d - d_plain| <= verify.guard_threshold(d_plain, L,
     1e-2), and K3 within the same band of K4.  DS: hi + lo within
     8 eps32 (d64 + 1) of the f64 DP of the same f32 inputs (the plain
-    version run in float64 on the card).  K3 is also timed on ``chunk``
-    z-normed rows, the engine's largest launch at this L."""
+    version run in float64 on the card).  K3 and K4 are also timed on
+    ``chunk`` z-normed rows, the engine's largest launch at this L (16
+    times the warps of a bucket: how far each is held by latency)."""
     import numpy as np
     import torch
     from kvmatch_tpu_torch import verify
@@ -416,13 +463,14 @@ def check_dtw_kernels(data_dev, queries, device, batch: int = DTW_BATCH,
     qids = torch.as_tensor(rng.integers(0, Q, chunk).astype(np.int32),
                            device=device)
     z, _, _ = td._znorm_rows(_gather(data_dev, offs, L), L)
-    chunk_ms = timed_ms(lambda: td.dtw_diag(z, qhat, qids, r), 3, device)
+    chunk_bound = bound(io * chunk / batch, DP_OPS * cells * chunk / batch)
     return dict(batch=batch, L=L, r=r, cells=cells,
                 dp_bound=bound(io, DP_OPS * cells),
                 ds_bound=bound(io + batch * 4, DS_OPS * cells),
-                k3_chunk=dict(rows=chunk, ms=chunk_ms,
-                              **bound(io * chunk / batch,
-                                      DP_OPS * cells * chunk / batch)),
+                **{f"{k}_chunk": dict(rows=chunk, ms=timed_ms(
+                    lambda fn=fn: fn(z, qhat, qids, r), 3, device),
+                    **chunk_bound)
+                   for k, fn in (("k3", td.dtw_diag), ("k4", td.dtw_rows))},
                 **out)
 
 
@@ -512,18 +560,23 @@ def exact_small(device, n: int = 1_000_000, seed: int = 20260816,
 
 
 def exact_dtw(device, shapes=DTW_EXACT_SHAPES, seed: int = 20260816,
-              n_queries: int = 4) -> dict:
+              n_queries: int = 4, max_segments: int | None = None) -> dict:
     """DTW answer sets EQUAL the port's float64 oracle (on the card), each
     shape run twice through ``query_batch``: with K3 (``dtw_diag``) and
-    with the K4 variant (``dtw_rows``) as the f32 DP."""
+    with the K4 variant (``dtw_rows``) as the f32 DP.  Phase 1 is the dense
+    probe (K1) over the stats-only index, or, with ``max_segments`` (plans
+    longer than K1's 30 segments), host phase 1 over a host-built index."""
     from kvmatch_tpu_torch import (IndexConfig, NormQueryEngineDtw,
                                    QueryConfig, QueryEngineDtw,
                                    generate_series, oracle)
+    from kvmatch_tpu_torch.index.build import build_index_host
     from kvmatch_tpu_torch.index.device_build import build_index_device_stats
     from kvmatch_tpu_torch.ops import dtw as td
     from kvmatch_tpu_torch.state import series_to_device
     icfg = IndexConfig()
-    qcfg = QueryConfig(dense_probe_min_count=0)
+    qcfg = (QueryConfig(dense_probe_min_count=0) if max_segments is None
+            else QueryConfig(dense_probe_min_count=None,
+                             max_segments=max_segments))
     series = {}
     out = []
     for name, n, L, rho, eps in shapes:
@@ -531,7 +584,8 @@ def exact_dtw(device, shapes=DTW_EXACT_SHAPES, seed: int = 20260816,
             data, dev = series_to_device(generate_series(n, seed=seed),
                                          device)
             series[n] = (data, dev, build_index_device_stats(
-                data, icfg, data_dev=dev))
+                data, icfg, data_dev=dev) if max_segments is None
+                else build_index_host(data, icfg))
         data, dev, index = series[n]
         offs, qs = self_queries(data, n_queries, L, seed=1)
         norm = name == "cnsm_dtw"
@@ -563,6 +617,83 @@ def exact_dtw(device, shapes=DTW_EXACT_SHAPES, seed: int = 20260816,
             row[f"{variant}_stages"] = dict(eng.stage_counts)
         out.append(row)
     return dict(shapes=out, equal=True)
+
+
+def wide_band(data_dev, device, cases=WIDE_BAND_CASES,
+              shapes=WIDE_ENGINE_SHAPES) -> dict:
+    """Bands past one block of K3 (r > K3_BLOCK_MAX_R), on z-normed windows
+    of the series against two z-normed windows as queries, for each
+    (L, r, rows) of ``cases``: K3 and DS bit for bit against dtw_diag_plain
+    and dtw_ds_diag_plain, each launch in the cluster form; K4 within
+    guard_threshold(d, L, 1e-2) of dtw_banded_plain and of K3; the times
+    of all three.  Then the DTW engines at ``shapes`` through ``exact_dtw``
+    (answer sets equal to the oracle with K3 and with K4) and the clustered
+    launches of K3 and DS they made."""
+    import numpy as np
+    import torch
+    from kvmatch_tpu_torch import verify
+    from kvmatch_tpu_torch.ops import dtw as td
+    rng = np.random.default_rng(9)
+    clustered = (td.dtw_diag, td.dtw_ds)
+    out = {}
+    for L, r, batch in cases:
+        args = (znormed_windows(data_dev, device, rng, L, batch),
+                znormed_windows(data_dev, device, rng, L, 2),
+                torch.as_tensor(np.arange(batch) % 2, dtype=torch.int32,
+                                device=device), r)
+        before = [fn.cluster_launches for fn in clustered]
+        got = {td.dtw_diag: (td.dtw_diag(*args),), td.dtw_ds: td.dtw_ds(*args)}
+        if [fn.cluster_launches - b for fn, b in zip(clustered, before)] \
+                != [1, 1]:
+            raise AssertionError(f"L={L} r={r}: K3 and DS did not take the "
+                                 f"cluster form")
+        res = dict(rows=batch)
+        for fn, plain in ((td.dtw_diag, td.dtw_diag_plain),
+                          (td.dtw_ds, td.dtw_ds_diag_plain)):
+            t0 = time.perf_counter()
+            want = plain(*args)
+            torch.cuda.synchronize(device)
+            plain_ms = (time.perf_counter() - t0) * 1e3
+            want = want if isinstance(want, tuple) else (want,)
+            differ = sum(int((g != w).sum()) for g, w in zip(got[fn], want))
+            if differ:
+                raise AssertionError(f"{fn.__name__} L={L} r={r}: {differ} "
+                                     f"values differ from {plain.__name__}")
+            res[fn.__name__] = dict(bit_equal=True, plain_ms=plain_ms,
+                                    ms=timed_ms(lambda fn=fn: fn(*args), 1,
+                                                device))
+        t0 = time.perf_counter()
+        want = td.dtw_banded_plain(*args).double()
+        torch.cuda.synchronize(device)
+        plain_ms = (time.perf_counter() - t0) * 1e3
+        band = verify.guard_threshold(want, L, 1e-2)
+        k4 = td.dtw_rows(*args).double()
+        ratio = float(((k4 - want).abs() / band).max())
+        cross = float(((k4 - got[td.dtw_diag][0].double()).abs()
+                       / band).max())
+        if not (ratio <= 1.0 and cross <= 1.0):
+            raise AssertionError(f"dtw_rows L={L} r={r}: {ratio} of the "
+                                 f"guard band of dtw_banded_plain, {cross} "
+                                 f"of K3's")
+        res["dtw_rows"] = dict(
+            max_err_over_bound=ratio, vs_k3_over_bound=cross,
+            plain_ms=plain_ms,
+            ms=timed_ms(lambda: td.dtw_rows(*args), 1, device))
+        res.update(d2=want.tolist(), finite=bool(torch.isfinite(k4).all()))
+        out[f"L{L}_r{r}"] = res
+    before = [fn.cluster_launches for fn in clustered]
+    rows_before = td.dtw_rows.launches
+    engines = exact_dtw(device, shapes=shapes, n_queries=2,
+                        max_segments=WIDE_MAX_SEGMENTS)
+    launches = {fn.__name__: fn.cluster_launches - b
+                for fn, b in zip(clustered, before)}
+    if launches["dtw_diag"] < 1:
+        raise AssertionError("the wide-band engines made no clustered K3 "
+                             "launch")
+    return dict(kernels=out, engines=engines["shapes"],
+                engines_equal=engines["equal"],
+                engine_cluster_launches=launches,
+                engine_k4_launches=td.dtw_rows.launches - rows_before)
 
 
 # ------------------------------------------------------------- phase 5 ----
@@ -949,8 +1080,9 @@ def main() -> int:
                                         norm=False),
         k2=check_window_kernel(dev8, q8, device, K2_BATCH),
         dtw=check_dtw_kernels(dev8, q8, device),
-        k3_bitwise=check_diag_bitwise(dev8, q8, device),
-        ds_bitwise=check_diag_bitwise(dev8, q8, device, ds=True)))
+        k3_bitwise=check_bitwise(dev8, q8, device),
+        ds_bitwise=check_bitwise(dev8, q8, device, "DS"),
+        k4_bitwise=check_bitwise(dev8, q8, device, "K4")))
     k1, k1d, k1r, k2, kd = (kern[k] for k in (
         "k1", "k1_dtw_plans", "k1_raw_plans", "k2", "dtw"))
     phase("fft", lambda: fft_error(dev8, q8, device))
@@ -958,6 +1090,7 @@ def main() -> int:
     dtw_rows.launches = 0
     phase("exact_dtw", lambda: exact_dtw(device))
     rows_launches = dtw_rows.launches
+    wide = phase("wide_band", lambda: wide_band(dev8, device))
 
     torch.cuda.reset_peak_memory_stats(device)
     probe_flags.launches = 0
@@ -1029,7 +1162,9 @@ def main() -> int:
                             ("raw", "znorm")),
             max_err_over_bound=max(kd[v][key]["max_err_over_bound"]
                                    for v in ("raw", "znorm")),
-            ms=kd["znorm"][key]["ms"], library_ms=None), work,
+            ms=kd["znorm"][key]["ms"], library_ms=None,
+            wide_band_ms={case: v[name]["ms"]
+                          for case, v in wide["kernels"].items()}), work,
             per_batch[name])
 
     emit({"kernels": [
@@ -1075,8 +1210,16 @@ def main() -> int:
         dict(dp_entry("dtw_rows", "kvmatch_tpu/ops/dtw_pallas.py:52",
                       "dtw_rows", rows_launches, "exact_dtw",
                       kd["dp_bound"]),
-             tolerance="|d - d_plain| <= guard_threshold(d_plain, L, 1e-2)",
-             plain_ms=kd["znorm"]["plain_ms"]),
+             tolerance="|d - d_plain| <= guard_threshold(d_plain, L, 1e-2); "
+                       "bit-equal to dtw_rows_plain (the one-warp rows of "
+                       "K3_BITWISE_CASES)",
+             plain_ms=kd["znorm"]["plain_ms"],
+             chunk_rows=kd["k4_chunk"]["rows"], chunk_ms=kd["k4_chunk"]["ms"],
+             chunk_bound_ms=kd["k4_chunk"]["bound_ms"],
+             rows_plain_ms_8_rows=kern["k4_bitwise"][
+                 f"L{L_MAIN}_r{RHO_MAIN}"]["plain_ms"],
+             k4_over_k3=kd["znorm"]["dtw_rows"]["ms"]
+             / kd["znorm"]["dtw_diag"]["ms"]),
         dict(dp_entry("dtw_ds", "kvmatch_tpu/ops/dtw.py:190", "dtw_ds",
                       dtw_launches["dtw_ds"], "main_dtw", kd["ds_bound"]),
              tolerance="|hi + lo - d64| <= 8 eps32 (d64 + 1); bit-equal "

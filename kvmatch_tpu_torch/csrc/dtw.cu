@@ -12,11 +12,14 @@
 //       D_s[k] = d(i, j) + min(D_{s-1}[k-1], D_{s-1}[k+1], D_{s-2}[k]).
 //   Only lanes with s + r - k even hold a cell on diagonal s, and they read
 //   only lanes of the same class.  One warp per row, the band in registers
-//   (see the K3 section for its bound and design).
+//   (see the K3 section for its bound and design); a band wider than one
+//   block holds spans the blocks of a thread-block cluster.
 // * dtw_rows  (K4) replaces kvmatch_tpu/ops/dtw_pallas.py:_dtw_kernel: the
 //   row prefix-scan form D[k] = C[k] + min_{j<=k}(M[j] - C[j-1]) with
-//   M[k] = min(P[k], P[k+1]), C = cumsum(d), one block per row and two
-//   hand-written block scans (warp shuffles + shared memory) per DP row.
+//   M[k] = min(P[k], P[k+1]), C = cumsum(d).  One warp per row with the
+//   band in registers and two warp scans per DP row when a warp holds the
+//   band (2r + 1 <= 960), else one block per row with two block scans (see
+//   the K4 section).
 // * dtw_ds replaces the XLA double-single DP of kvmatch_tpu/ops/dtw.py:
 //   dtw_banded_batch_ds_multi with the K3 walk on (hi, lo) pairs (TwoSum
 //   additions, lexicographic minima); returns hi and lo.  TwoSum is
@@ -24,19 +27,18 @@
 //   with --fmad=false and without fast math.  It is K3's kernel with the
 //   band held as pairs (the DS template flag; see the K3 section).
 //
-// What bounds K4 on an H100: the serial chain of L rows per candidate row,
-// each a few shared-memory loads, one f32 add and two block scans -- latency,
-// not device memory (each row reads 2 L floats once).  The a and q rows are
-// staged in shared memory (2 x 32 KB at L = 8192) when they fit the block's
-// opt-in limit, else read from global memory.
 // The TPU kernels' repeat-interleaved, 128-aligned inputs and their
 // wrong-parity garbage lanes are Mosaic devices and are not carried over.
 
+#include <cooperative_groups.h>
 #include <cuda_runtime.h>
 #include <math.h>
 
+namespace cg = cooperative_groups;
+
 #define KVM_BIG 1e30f
 #define KVM_DTW_THREADS 1024
+#define KVM_FULL 0xffffffffu
 
 // ------------------------------------------------------------ helpers
 __device__ __forceinline__ void ds_two_sum(float ah, float al, float bh,
@@ -54,24 +56,6 @@ __device__ __forceinline__ void ds_min(float ah, float al, float bh,
   const bool take_a = (ah < bh) || ((ah == bh) && (al <= bl));
   h = take_a ? ah : bh;
   l = take_a ? al : bl;
-}
-
-// Stage row b of a and its query row in shared memory when `stage`; returns
-// the pointers the DP reads.
-__device__ __forceinline__ void stage_rows(const float* a, const float* qm,
-                                           int qid, int L, int stage,
-                                           float* sh, const float*& arow,
-                                           const float*& qrow) {
-  arow = a + (long long)blockIdx.x * L;
-  qrow = qm + (long long)qid * L;
-  if (stage) {
-    for (int t = threadIdx.x; t < L; t += blockDim.x) {
-      sh[t] = arow[t];
-      sh[L + t] = qrow[t];
-    }
-    arow = sh;
-    qrow = sh + L;
-  }
 }
 
 // ------------------------------------------------------------------- K3
@@ -117,6 +101,16 @@ __device__ __forceinline__ void stage_rows(const float* a, const float* qm,
 // The f32 operations of each cell are those of the first design and of
 // dtw_diag_plain, so the outputs are equal bit for bit.
 //
+// A band wider than one block's 32 warps (r > 13,311) takes the CLUSTER
+// form: the G warps of a row are spread over the blocks of a thread-block
+// cluster (at most 8, the portable size; r <= 106,495), g numbers them
+// across the cluster, and each keeps its own ring.  The chunk edges between
+// warps go through the same double-buffered edge slots; a warp at a block's
+// edge reads its neighbour block's slot through distributed shared memory,
+// and cluster.sync() takes the place of __syncthreads().  Rows one block
+// holds keep the instantiations above (CLUSTER == false compiles to the
+// same code as before the cluster form).
+//
 // DS (the DS template flag) is this kernel on (hi, lo) pairs: each lane
 // holds a pair in D/Dl, a step shuffles both halves of the edge pair, and
 // the cell is d = df * df, two ds_min, ds_two_sum with (d, 0) and the cap
@@ -156,14 +150,17 @@ __device__ __forceinline__ float k3_load(const float* row, int idx, int L) {
 
 // C lanes per thread, E = r & 1 (the parity of every chunk's first active
 // lane on even diagonals).  WIDE == false: one warp per row, KVM_K3_WARPS
-// rows per block (G == 1); WIDE: one row per block of G warps.  DS: the
-// double-single DP, out = hi and out_lo = lo; otherwise out_lo is unused.
-template <int C, int E, bool WIDE, bool DS>
+// rows per block (G == 1); WIDE: one row per block of G warps; WIDE and
+// CLUSTER: one row per cluster of G / Gb blocks of Gb warps (G warps in
+// all).  DS: the double-single DP, out = hi and out_lo = lo; otherwise
+// out_lo is unused.
+template <int C, int E, bool WIDE, bool DS, bool CLUSTER = false>
 __global__ void __launch_bounds__(WIDE ? KVM_K3_MAX_WARPS_PER_ROW * 32
                                        : KVM_K3_WARPS * 32)
 dtw_diag_kernel(const float* __restrict__ a, const float* __restrict__ qm,
                 const int* __restrict__ qids, int B, int L, int Q, int r,
                 int G, float* __restrict__ out, float* __restrict__ out_lo) {
+  static_assert(WIDE || !CLUSTER, "the cluster form is a wide form");
   constexpr int R = K3Ring<C>::R;
   constexpr int M = R - 1;
   constexpr int RS = K3Ring<C>::STRIDE;
@@ -171,13 +168,22 @@ dtw_diag_kernel(const float* __restrict__ a, const float* __restrict__ qm,
   extern __shared__ float smem[];
   const int lane = threadIdx.x & 31;
   const int warp = threadIdx.x >> 5;
-  const int row = WIDE ? blockIdx.x : blockIdx.x * KVM_K3_WARPS + warp;
-  const int g = WIDE ? warp : 0;  // the warp's place in its row
+  int row, g;  // g: the warp's place in its row
+  int Gb = G, rank = 0;  // CLUSTER: warps per block, the block's rank
+  if constexpr (CLUSTER) {
+    Gb = blockDim.x >> 5;
+    rank = (int)cg::this_cluster().block_rank();
+    row = blockIdx.x / (G / Gb);
+    g = rank * Gb + warp;
+  } else {
+    row = WIDE ? blockIdx.x : blockIdx.x * KVM_K3_WARPS + warp;
+    g = WIDE ? warp : 0;
+  }
   float* ringA = smem + warp * 2 * RS;
   float* ringQ = ringA + RS;
-  // WIDE only: [2 diagonals][last lanes, first lanes][G], then (DS) the
+  // WIDE only: [2 diagonals][last lanes, first lanes][Gb], then (DS) the
   // same for the lo halves.
-  float* edge = smem + (WIDE ? G : KVM_K3_WARPS) * 2 * RS;
+  float* edge = smem + (WIDE ? Gb : KVM_K3_WARPS) * 2 * RS;
   if (row >= B) return;  // not WIDE only: a WIDE grid has no spare block
   const int qid = qids[row];
   if (qid < 0 || qid >= Q) {
@@ -262,7 +268,28 @@ dtw_diag_kernel(const float* __restrict__ a, const float* __restrict__ qm,
         nbl = par == 0 ? __shfl_up_sync(0xffffffffu, minel, 1)
                        : __shfl_down_sync(0xffffffffu, minel, 1);
       }
-      if (WIDE) {
+      if constexpr (CLUSTER) {
+        // As below, with the slots of warps g -/+ 1 in the block of rank
+        // (g -/+ 1) / Gb, read through distributed shared memory.
+        cg::cluster_group cluster = cg::this_cluster();
+        float* eb = edge + half * 2 * Gb;
+        float* ebl = eb + 4 * Gb;
+        if (lane == 31) eb[warp] = D[C - 1];
+        if (lane == 0) eb[Gb + warp] = D[0];
+        if constexpr (DS) {
+          if (lane == 31) ebl[warp] = Dl[C - 1];
+          if (lane == 0) ebl[Gb + warp] = Dl[0];
+        }
+        cluster.sync();
+        const int nw = par == 0 ? g - 1 : g + 1;  // the neighbour warp
+        if ((par == 0 && lane == 0) || (par == 1 && lane == 31)) {
+          const bool in = nw >= 0 && nw < G;
+          const int slot = (nw % Gb) + (par == 0 ? 0 : Gb);
+          nb = in ? cluster.map_shared_rank(eb, nw / Gb)[slot] : KVM_BIG;
+          if constexpr (DS)
+            nbl = in ? cluster.map_shared_rank(ebl, nw / Gb)[slot] : 0.0f;
+        }
+      } else if (WIDE) {
         // Chunk edges between warps go through shared memory.
         float* eb = edge + half * 2 * G;  // [0]: warps' last lanes, [1]: first
         float* ebl = eb + 4 * G;          // DS: the lo halves
@@ -314,6 +341,8 @@ dtw_diag_kernel(const float* __restrict__ a, const float* __restrict__ qm,
       }
     }
   }
+  // No block may leave while a neighbour can still read its edge slots.
+  if constexpr (CLUSTER) cg::this_cluster().sync();
   const int kk = r - k0;
   if (kk >= 0 && kk < C) {
     float res = KVM_BIG, res_l = 0.0f;
@@ -329,106 +358,323 @@ dtw_diag_kernel(const float* __restrict__ a, const float* __restrict__ qm,
 }
 
 // ------------------------------------------------------------------- K4
-// Exclusive block scan of one value per thread (sum or min); `wt` holds 32
-// floats of shared memory.  blockDim.x is a multiple of 32.
-template <bool kMin>
-__device__ __forceinline__ float block_excl_scan(float v, float* wt) {
-  const float ident = kMin ? INFINITY : 0.0f;
+// The row prefix-scan form.  Each DP row i, per band lane k (j = i - r + k):
+//   d = (a_i - q_j)^2, 0 outside the matrix;  C = cumsum(d);
+//   M = min(P[k], P[k + 1]) (row 0: 0 at k = r, BIG elsewhere);
+//   G = M - C[k - 1];  D = min(C + cummin(G), BIG), BIG outside the matrix.
+//
+// What bounds it: the same work as K3 (5 f32 operations a band cell, about
+// 0.50 ms for 1024 rows at L = 8192, r = 409), but each row is a chain:
+// two scans across the band before the next row can start.
+//
+// What the first design (one block per row, one thread per band lane,
+// carries in shared memory, two block scans a row) lost: 8 block barriers
+// a row, each behind dependent shared-memory loads, for about 7 f32
+// operations a lane (62 ms at that shape, 0.8% of the bound).
+//
+// This design, for bands one warp holds (W = 2r + 1 <= 960):
+// * One warp per row, KVM_K3_WARPS rows per block, no barrier.
+// * The band in registers: thread t holds the C lanes [tC, tC + C) of P
+//   (C as K3 picks it: 2, 6, ..., 30, the least with 32 C >= W); lanes
+//   k >= W are padding, d = 0 and D = BIG there.
+// * The running sum and the running min inside a chunk are sequential;
+//   across chunks, an inclusive Hillis-Steele warp scan of the 32 chunk
+//   totals (5 __shfl_up_sync steps, n + x), shifted by one lane for the
+//   exclusive value (0, or +inf for the min, at lane 0).  P[k + 1] and
+//   C[k - 1] across a chunk edge are one shuffle each.
+// * q stays in registers: qv[u] = q[i - r + tC + u] shifts by one lane a
+//   row, the new last value is the right thread's qv[0] (the last thread's
+//   from a 32-value buffer loaded every 32 rows, as is a_i).
+// dtw_rows_plain repeats these f32 operations in this order, so the two
+// are equal bit for bit.  Wider bands take the block form below: one block
+// a row as in the first design, with one block scan a row of another form,
+// and its three carries (about 3W floats) in a global workspace when they
+// pass the shared-memory opt-in limit.
+__device__ __forceinline__ float k4_load(const float* row, int idx, int L) {
+  return (idx >= 0 && idx < L) ? __ldg(row + idx) : 0.0f;
+}
+
+template <int C>
+__global__ void __launch_bounds__(KVM_K3_WARPS * 32)
+dtw_rows_warp_kernel(const float* __restrict__ a,
+                     const float* __restrict__ qm,
+                     const int* __restrict__ qids, int B, int L, int Q, int r,
+                     float* __restrict__ out) {
+  const int lane = threadIdx.x & 31;
+  const int row = blockIdx.x * KVM_K3_WARPS + (threadIdx.x >> 5);
+  if (row >= B) return;
+  const int qid = qids[row];
+  if (qid < 0 || qid >= Q) {
+    if (lane == 0) out[row] = NAN;
+    return;
+  }
+  const float* arow = a + (long long)row * L;
+  const float* qrow = qm + (long long)qid * L;
+  const int k0 = lane * C;               // first lane of this thread's chunk
+  const int nw = 2 * r + 1 - k0;         // lanes u < nw lie inside the band
+  const int jr = 32 * C - r;             // q index of row i's new last value
+  float qv[C], P[C], c[C];
+#pragma unroll
+  for (int u = 0; u < C; ++u) {
+    qv[u] = k4_load(qrow, k0 + u - r, L);
+    P[u] = KVM_BIG;
+  }
+  float ab = k4_load(arow, lane, L), ab_next = k4_load(arow, 32 + lane, L);
+  float qe = k4_load(qrow, jr + lane, L);
+  float qe_next = k4_load(qrow, jr + 32 + lane, L);
+  for (int i = 0; i < L; ++i) {
+    if (i > 0 && (i & 31) == 0) {
+      ab = ab_next;
+      qe = qe_next;
+      ab_next = k4_load(arow, i + 32 + lane, L);
+      qe_next = k4_load(qrow, jr + i + 32 + lane, L);
+    }
+    const float ai = __shfl_sync(KVM_FULL, ab, i & 31);
+    // Lanes u in [ulo, uhi] hold cells of the matrix (0 <= j < L, k < W).
+    const int jb = i - r + k0;
+    const int ulo = -jb;
+    const int uhi = min(nw, L - jb) - 1;
+    const bool full = ulo <= 0 && uhi >= C - 1;
+    float run = 0.0f;
+    if (full) {
+#pragma unroll
+      for (int u = 0; u < C; ++u) {
+        const float df = ai - qv[u];
+        run = run + df * df;
+        c[u] = run;
+      }
+    } else {
+#pragma unroll
+      for (int u = 0; u < C; ++u) {
+        const float df = ai - qv[u];
+        run = run + ((u >= ulo && u <= uhi) ? df * df : 0.0f);
+        c[u] = run;
+      }
+    }
+    float x = run;
+#pragma unroll
+    for (int o = 1; o < 32; o <<= 1) {
+      const float n = __shfl_up_sync(KVM_FULL, x, o);
+      if (lane >= o) x = n + x;
+    }
+    const float off_n = __shfl_up_sync(KVM_FULL, x, 1);
+    const float off = lane == 0 ? 0.0f : off_n;
+#pragma unroll
+    for (int u = 0; u < C; ++u) c[u] = off + c[u];
+    const float cl_n = __shfl_up_sync(KVM_FULL, c[C - 1], 1);
+    const float cl = lane == 0 ? 0.0f : cl_n;  // C[k0 - 1]
+    // G = M - C[k - 1] and its running min, written over P (P[u] is dead
+    // once M[u] is taken; P[u + 1] is read before it is overwritten).
+    float gm = INFINITY;
+    if (i == 0) {
+#pragma unroll
+      for (int u = 0; u < C; ++u) {
+        const float m = (k0 + u == r) ? 0.0f : KVM_BIG;
+        gm = fminf(gm, m - (u == 0 ? cl : c[u > 0 ? u - 1 : 0]));
+        P[u] = gm;
+      }
+    } else {
+      const float pr_n = __shfl_down_sync(KVM_FULL, P[0], 1);
+      const float pr = lane == 31 ? KVM_BIG : pr_n;  // P[k0 + C]
+#pragma unroll
+      for (int u = 0; u < C; ++u) {
+        const float m = fminf(P[u], u + 1 < C ? P[u + 1 < C ? u + 1 : 0] : pr);
+        gm = fminf(gm, m - (u == 0 ? cl : c[u > 0 ? u - 1 : 0]));
+        P[u] = gm;
+      }
+    }
+    float y = gm;
+#pragma unroll
+    for (int o = 1; o < 32; o <<= 1) {
+      const float n = __shfl_up_sync(KVM_FULL, y, o);
+      if (lane >= o) y = fminf(n, y);
+    }
+    const float pre_n = __shfl_up_sync(KVM_FULL, y, 1);
+    const float pre = lane == 0 ? INFINITY : pre_n;
+    if (full) {
+#pragma unroll
+      for (int u = 0; u < C; ++u)
+        P[u] = fminf(c[u] + fminf(pre, P[u]), KVM_BIG);
+    } else {
+#pragma unroll
+      for (int u = 0; u < C; ++u)
+        P[u] = (u >= ulo && u <= uhi)
+                   ? fminf(c[u] + fminf(pre, P[u]), KVM_BIG) : KVM_BIG;
+    }
+    // Row i + 1's q window: one lane to the left.
+    const float qn = __shfl_down_sync(KVM_FULL, qv[0], 1);
+    const float qr = __shfl_sync(KVM_FULL, qe, i & 31);
+#pragma unroll
+    for (int u = 0; u + 1 < C; ++u) qv[u] = qv[u + 1];
+    qv[C - 1] = lane == 31 ? qr : qn;
+  }
+  const int kk = r - k0;
+  if (kk >= 0 && kk < C) {
+    float res = KVM_BIG;
+#pragma unroll
+    for (int u = 0; u < C; ++u)
+      if (u == kk) res = P[u];
+    out[row] = res;
+  }
+}
+
+// The block form, for bands wider than a warp holds: one block per row, a
+// thread per run of `per` contiguous lanes.  Its arithmetic is the row
+// recurrence D[k] = d[k] + min(D[k - 1], M[k]) itself, scanned as a
+// composition of the lanes' maps x -> min(x, M[k]) + d[k]: a run of lanes
+// composes to x -> min(x + A, G), A the run's sum of d and G the least
+// path cost that enters the run from above, and two runs compose as
+//   (A1, G1) then (A2, G2) = (A1 + A2, min(G1 + A2, G2)).
+// Every sum is a sum of path costs (no f32 cancellation), so its error is
+// relative, as K3's.  (The prefix form above, C[k] + min(M[j] - C[j - 1]),
+// subtracts prefix sums of the whole band: on wide bands they reach 1e5 and
+// more, and the minimum over j picks the most negative rounding, row after
+// row: -3.79 against 0.0039 at L = 32,768, r = 20,000 in its first block
+// form.)  One exclusive block scan of (A, G) pairs a DP row; `wt` holds 64
+// floats of shared memory, blockDim.x is a multiple of 32.  Returns G of
+// the lanes before this thread's run: the carry into it (+inf for the
+// first run).
+__device__ __forceinline__ float block_excl_minplus(float A, float G,
+                                                    float* wt) {
   const int lane = threadIdx.x & 31;
   const int warp = threadIdx.x >> 5;
   const int nw = blockDim.x >> 5;
-  float x = v;
+  float a = A, g = G;
   for (int o = 1; o < 32; o <<= 1) {
-    const float n = __shfl_up_sync(0xffffffffu, x, o);
-    if (lane >= o) x = kMin ? fminf(n, x) : n + x;
+    const float na = __shfl_up_sync(KVM_FULL, a, o);
+    const float ng = __shfl_up_sync(KVM_FULL, g, o);
+    if (lane >= o) {
+      g = fminf(ng + a, g);
+      a = na + a;
+    }
   }
-  if (lane == 31) wt[warp] = x;
+  if (lane == 31) {
+    wt[warp] = a;
+    wt[32 + warp] = g;
+  }
   __syncthreads();
   if (warp == 0) {
-    float t = lane < nw ? wt[lane] : ident;
+    float ta = lane < nw ? wt[lane] : 0.0f;
+    float tg = lane < nw ? wt[32 + lane] : INFINITY;
     for (int o = 1; o < 32; o <<= 1) {
-      const float n = __shfl_up_sync(0xffffffffu, t, o);
-      if (lane >= o) t = kMin ? fminf(n, t) : n + t;
+      const float na = __shfl_up_sync(KVM_FULL, ta, o);
+      const float ng = __shfl_up_sync(KVM_FULL, tg, o);
+      if (lane >= o) {
+        tg = fminf(ng + ta, tg);
+        ta = na + ta;
+      }
     }
-    wt[lane] = t;
+    wt[lane] = ta;
+    wt[32 + lane] = tg;
   }
   __syncthreads();
-  float e = __shfl_up_sync(0xffffffffu, x, 1);
-  if (lane == 0) e = ident;
-  if (warp > 0) e = kMin ? fminf(wt[warp - 1], e) : wt[warp - 1] + e;
-  __syncthreads();  // wt is rewritten by the next scan
-  return e;
+  const float ea_n = __shfl_up_sync(KVM_FULL, a, 1);
+  const float eg_n = __shfl_up_sync(KVM_FULL, g, 1);
+  const float ea = lane == 0 ? 0.0f : ea_n;
+  float eg = lane == 0 ? INFINITY : eg_n;
+  if (warp > 0) eg = fminf(wt[32 + warp - 1] + ea, eg);
+  __syncthreads();  // wt is rewritten by the next row's scan
+  return eg;
 }
 
+// Each carry holds per x T slots: lane k = t per + u of thread t (its
+// contiguous run) lives at slot u T + t, so the threads of a warp touch
+// consecutive slots (coalesced in the global workspace, no bank conflict in
+// shared memory).  GLOBAL: the three carries in the block's slice of `ws`
+// (a workspace for the blocks of the grid, which stride over the rows),
+// otherwise in shared memory.  The a and q rows are staged in shared
+// memory when `stage` (they fit the opt-in limit), else read from global
+// memory.
+template <bool GLOBAL>
 __global__ void __launch_bounds__(KVM_DTW_THREADS)
 dtw_rows_kernel(const float* __restrict__ a, const float* __restrict__ qm,
-                const int* __restrict__ qids, int L, int Q, int r, int stage,
-                float* __restrict__ out) {
+                const int* __restrict__ qids, int B, int L, int Q, int r,
+                int stage, float* ws, float* __restrict__ out) {
   extern __shared__ float smem[];
   const int W = 2 * r + 1;
-  const int qid = qids[blockIdx.x];
-  if (qid < 0 || qid >= Q) {
-    if (threadIdx.x == 0) out[blockIdx.x] = NAN;
-    return;
-  }
-  float* sP = smem;              // previous row, W lanes + a BIG sentinel
-  float* sC = sP + (W + 1);      // cumsum of d
-  float* sM = sC + W;            // M, then the running min of M - C_prev
-  float* wt = sM + W;            // 32 warp totals
-  const float* arow;
-  const float* qrow;
-  stage_rows(a, qm, qid, L, stage, wt + 32, arow, qrow);
-  // Each thread owns the contiguous lanes [k0, k1).
-  const int per = (W + blockDim.x - 1) / blockDim.x;
-  const int k0 = min(W, (int)threadIdx.x * per);
-  const int k1 = min(W, k0 + per);
-  for (int t = threadIdx.x; t < W + 1; t += blockDim.x) sP[t] = KVM_BIG;
-  __syncthreads();
-  for (int i = 0; i < L; ++i) {
-    const float ai = arow[i];
-    float run = 0.0f;
-    for (int k = k0; k < k1; ++k) {
-      const int j = i - r + k;
-      float d = 0.0f;
-      if (j >= 0 && j < L) {
-        const float df = ai - qrow[j];
-        d = df * df;
+  const int T = blockDim.x;
+  const int t = threadIdx.x;
+  const int per = (W + T - 1) / T;
+  const int S = per * T;         // slots of each carry
+  float* wt = smem;              // 64 floats: the warps' (A, G) totals
+  float* sP = GLOBAL ? ws + (long long)blockIdx.x * 3 * S
+                     : smem + 64;  // the previous row's D
+  float* sD = sP + S;            // d of this row
+  float* sM = sD + S;            // M of this row
+  float* rows = GLOBAL ? smem + 64 : sM + S;  // staged a and q rows
+  const int k0 = t * per;        // this thread's lanes [k0, k0 + nk)
+  const int nk = max(0, min(per, W - k0));
+  for (int b = blockIdx.x; b < B; b += gridDim.x) {
+    const int qid = qids[b];
+    if (qid < 0 || qid >= Q) {
+      if (t == 0) out[b] = NAN;
+      continue;  // uniform over the block
+    }
+    const float* arow = a + (long long)b * L;
+    const float* qrow = qm + (long long)qid * L;
+    if (stage) {
+      for (int x = t; x < L; x += T) {
+        rows[x] = arow[x];
+        rows[L + x] = qrow[x];
       }
-      run = run + d;
-      sC[k] = run;
-      sM[k] = i == 0 ? (k == r ? 0.0f : KVM_BIG) : fminf(sP[k], sP[k + 1]);
+      arow = rows;
+      qrow = rows + L;
     }
-    const float off = block_excl_scan<false>(run, wt);
-    for (int k = k0; k < k1; ++k) sC[k] = off + sC[k];
+    for (int x = t; x < S; x += T) sP[x] = KVM_BIG;
     __syncthreads();
-    float g = INFINITY;
-    for (int k = k0; k < k1; ++k) {
-      g = fminf(g, sM[k] - (k > 0 ? sC[k - 1] : 0.0f));
-      sM[k] = g;
+    for (int i = 0; i < L; ++i) {
+      const float ai = arow[i];
+      float A = 0.0f, G = INFINITY;
+      for (int u = 0; u < nk; ++u) {
+        const int k = k0 + u;
+        const int j = i - r + k;
+        float d = 0.0f;
+        if (j >= 0 && j < L) {
+          const float df = ai - qrow[j];
+          d = df * df;
+        }
+        // P[k + 1]: the next slot of this run, or the next thread's first;
+        // BIG past the band.
+        const float pn = k + 1 >= W ? KVM_BIG
+                         : sP[u + 1 < per ? (u + 1) * T + t : t + 1];
+        const float m = i == 0 ? (k == r ? 0.0f : KVM_BIG)
+                               : fminf(sP[u * T + t], pn);
+        sD[u * T + t] = d;
+        sM[u * T + t] = m;
+        G = fminf(G, m) + d;
+        A = A + d;
+      }
+      // Every read of sP above precedes the scan's barriers.
+      float h = block_excl_minplus(A, G, wt);
+      for (int u = 0; u < nk; ++u) {
+        h = fminf(h, sM[u * T + t]) + sD[u * T + t];
+        const int j = i - r + k0 + u;
+        sP[u * T + t] = (j >= 0 && j < L) ? fminf(h, KVM_BIG) : KVM_BIG;
+      }
+      __syncthreads();
     }
-    const float pre = block_excl_scan<true>(g, wt);
-    for (int k = k0; k < k1; ++k) {
-      const int j = i - r + k;
-      sP[k] = (j >= 0 && j < L) ? fminf(sC[k] + fminf(pre, sM[k]), KVM_BIG)
-                                : KVM_BIG;
-    }
-    __syncthreads();
+    if (t == 0) out[b] = sP[(r % per) * T + r / per];
+    __syncthreads();  // sP and the staged rows are rewritten next
   }
-  if (threadIdx.x == 0) out[blockIdx.x] = sP[r];
 }
 
 // ------------------------------------------------------------ launchers
-// Dynamic shared memory: `base` floats of carries plus 2 L floats of staged
-// rows when they fit the device's opt-in limit.
-template <typename K>
-static int configure(K kernel, long long base, int L, int* stage,
-                     size_t* bytes) {
-  int dev = 0, optin = 0;
+// The shared-memory opt-in limit of a block and the SM count of the device.
+static int device_limits(int* optin, int* sms) {
+  int dev = 0;
   cudaError_t err = cudaGetDevice(&dev);
   if (err != cudaSuccess) return (int)err;
-  err = cudaDeviceGetAttribute(&optin, cudaDevAttrMaxSharedMemoryPerBlockOptin,
+  err = cudaDeviceGetAttribute(optin, cudaDevAttrMaxSharedMemoryPerBlockOptin,
                                dev);
   if (err != cudaSuccess) return (int)err;
+  return (int)cudaDeviceGetAttribute(sms, cudaDevAttrMultiProcessorCount, dev);
+}
+
+// Dynamic shared memory: `base` floats plus 2 L floats of staged rows when
+// they fit the device's opt-in limit.
+template <typename K>
+static int configure(K kernel, long long base, int L, int optin, int* stage,
+                     size_t* bytes) {
   const long long with_rows = (base + 2LL * L) * (long long)sizeof(float);
   *stage = with_rows <= optin;
   const long long b = *stage ? with_rows : base * (long long)sizeof(float);
@@ -447,20 +693,32 @@ static bool bad_args(int B, int L, int Q, int r) {
   return B <= 0 || L <= 0 || Q <= 0 || r < 0 || r >= L;
 }
 
-// K3's shape for a band of W lanes: C lanes per thread (C = 2 mod 4) and
-// G warps per row.  A warp holds up to 32 x 30 lanes; a wider band takes
+// C lanes per thread (C = 2 mod 4) for a band one warp holds (W <= 960).
+static int warp_chunk(int W) {
+  int C = 2;
+  while (32 * C < W) C += 4;
+  return C;
+}
+
+// K3's shape for a band of W lanes: C lanes per thread, G warps per row,
+// NB blocks per row.  A warp holds up to 32 x 30 lanes; a wider band takes
 // G = ceil(W / (32 x 26)) warps of 26 lanes a thread (rings of 512
-// floats), up to KVM_K3_MAX_WARPS_PER_ROW: r <= 13311 (ops/dtw.py:K3_MAX_R).
-static int k3_shape(int r, int* C, int* G) {
+// floats).  Up to KVM_K3_MAX_WARPS_PER_ROW warps are one block (NB = 1);
+// more take NB = ceil(G / 32) blocks of a cluster, at most
+// KVM_K3_MAX_CLUSTER (the portable cluster size), with G rounded up to a
+// multiple of NB (the extra warps hold lanes past the band, which stay
+// BIG): r <= 106,495 (ops/dtw.py:K3_MAX_R).
+#define KVM_K3_MAX_CLUSTER 8
+static int k3_shape(int r, int* C, int* G, int* NB) {
   const int W = 2 * r + 1;
+  *NB = 1;
   *G = W <= 32 * 30 ? 1 : (W + 32 * 26 - 1) / (32 * 26);
-  if (*G > KVM_K3_MAX_WARPS_PER_ROW) return (int)cudaErrorInvalidValue;
-  if (*G > 1) {
-    *C = 26;
-    return 0;
+  if (*G > KVM_K3_MAX_WARPS_PER_ROW) {
+    *NB = (*G + KVM_K3_MAX_WARPS_PER_ROW - 1) / KVM_K3_MAX_WARPS_PER_ROW;
+    if (*NB > KVM_K3_MAX_CLUSTER) return (int)cudaErrorInvalidValue;
+    *G = (*G + *NB - 1) / *NB * *NB;
   }
-  *C = 2;
-  while (32 * *C < W) *C += 4;
+  *C = *G > 1 ? 26 : warp_chunk(W);
   return 0;
 }
 
@@ -484,10 +742,48 @@ static int launch_diag(const float* a, const float* qm, const int* qids,
   return (int)cudaGetLastError();
 }
 
+// The cluster form: one row per cluster of NB blocks of G / NB warps.
+// Returns an error, and launches nothing, when no such cluster fits the
+// device (cudaOccupancyMaxActiveClusters is 0).
 template <int E, bool DS>
-static int dispatch_diag(int C, int G, const float* a, const float* qm,
-                         const int* qids, int B, int L, int Q, int r,
-                         float* o, float* ol, cudaStream_t s) {
+static int launch_cluster(const float* a, const float* qm, const int* qids,
+                          int B, int L, int Q, int r, int G, int NB,
+                          float* out, float* out_lo, cudaStream_t stream) {
+  auto kernel = dtw_diag_kernel<26, E, true, DS, true>;
+  const int Gb = G / NB;
+  const size_t bytes = sizeof(float) *
+      ((size_t)Gb * 2 * K3Ring<26>::STRIDE + (DS ? 8 : 4) * (size_t)Gb);
+  cudaError_t err = cudaFuncSetAttribute(
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)bytes);
+  if (err != cudaSuccess) return (int)err;
+  cudaLaunchAttribute attr[1];
+  attr[0].id = cudaLaunchAttributeClusterDimension;
+  attr[0].val.clusterDim.x = NB;
+  attr[0].val.clusterDim.y = 1;
+  attr[0].val.clusterDim.z = 1;
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = dim3((unsigned)B * (unsigned)NB);
+  cfg.blockDim = dim3(Gb * 32);
+  cfg.dynamicSmemBytes = bytes;
+  cfg.stream = stream;
+  cfg.attrs = attr;
+  cfg.numAttrs = 1;
+  int clusters = 0;
+  err = cudaOccupancyMaxActiveClusters(&clusters, (const void*)kernel, &cfg);
+  if (err != cudaSuccess) return (int)err;
+  if (clusters < 1) return (int)cudaErrorInvalidConfiguration;
+  err = cudaLaunchKernelEx(&cfg, kernel, a, qm, qids, B, L, Q, r, G, out,
+                           out_lo);
+  if (err != cudaSuccess) return (int)err;
+  return (int)cudaGetLastError();
+}
+
+template <int E, bool DS>
+static int dispatch_diag(int C, int G, int NB, const float* a,
+                         const float* qm, const int* qids, int B, int L,
+                         int Q, int r, float* o, float* ol, cudaStream_t s) {
+  if (NB > 1)
+    return launch_cluster<E, DS>(a, qm, qids, B, L, Q, r, G, NB, o, ol, s);
   if (G > 1)
     return launch_diag<26, E, true, DS>(a, qm, qids, B, L, Q, r, G, o, ol, s);
   switch (C) {
@@ -507,8 +803,8 @@ static int run_diag(const void* a, const void* qm, const void* qids, int B,
                     int L, int Q, int r, void* out, void* out_lo,
                     void* stream) {
   if (bad_args(B, L, Q, r)) return (int)cudaErrorInvalidValue;
-  int C = 0, G = 0;
-  const int err = k3_shape(r, &C, &G);
+  int C = 0, G = 0, NB = 0;
+  const int err = k3_shape(r, &C, &G, &NB);
   if (err) return err;
   const float* fa = (const float*)a;
   const float* fq = (const float*)qm;
@@ -516,8 +812,9 @@ static int run_diag(const void* a, const void* qm, const void* qids, int B,
   float* o = (float*)out;
   float* ol = (float*)out_lo;
   cudaStream_t s = (cudaStream_t)stream;
-  return (r & 1) ? dispatch_diag<1, DS>(C, G, fa, fq, fi, B, L, Q, r, o, ol, s)
-                 : dispatch_diag<0, DS>(C, G, fa, fq, fi, B, L, Q, r, o, ol, s);
+  return (r & 1)
+      ? dispatch_diag<1, DS>(C, G, NB, fa, fq, fi, B, L, Q, r, o, ol, s)
+      : dispatch_diag<0, DS>(C, G, NB, fa, fq, fi, B, L, Q, r, o, ol, s);
 }
 
 extern "C" int kvm_dtw_diag(const void* a, const void* qm, const void* qids,
@@ -532,18 +829,98 @@ extern "C" int kvm_dtw_ds(const void* a, const void* qm, const void* qids,
   return run_diag<true>(a, qm, qids, B, L, Q, r, out_hi, out_lo, stream);
 }
 
-extern "C" int kvm_dtw_rows(const void* a, const void* qm, const void* qids,
-                            int B, int L, int Q, int r, void* out,
-                            void* stream) {
-  if (bad_args(B, L, Q, r)) return (int)cudaErrorInvalidValue;
+// K4's launch: the one-warp form (C > 0) when a warp holds the band, else
+// the block form with its carries in shared memory (ws_floats == 0) or,
+// past the opt-in limit, in a workspace of ws_floats floats: the carries of
+// `grid` blocks, the blocks resident at once (at most B), which stride over
+// the rows.
+struct RowsPlan {
+  int C, threads, stage, grid;
+  size_t bytes;
+  long long ws_floats;
+};
+
+static int rows_plan(int B, int L, int r, RowsPlan* p) {
   const int W = 2 * r + 1;
-  int stage = 0;
-  size_t bytes = 0;
-  const int err = configure(dtw_rows_kernel, 3LL * W + 1 + 32, L, &stage,
-                            &bytes);
+  *p = RowsPlan{};
+  if (W <= 32 * 30) {
+    p->C = warp_chunk(W);
+    p->grid = (B + KVM_K3_WARPS - 1) / KVM_K3_WARPS;
+    return 0;
+  }
+  int optin = 0, sms = 0;
+  int err = device_limits(&optin, &sms);
   if (err) return err;
-  dtw_rows_kernel<<<B, threads_for(W), bytes, (cudaStream_t)stream>>>(
-      (const float*)a, (const float*)qm, (const int*)qids, L, Q, r, stage,
-      (float*)out);
+  p->threads = threads_for(W);
+  // Three carries of per x threads slots each (dtw_rows_kernel).
+  const long long carries = 3LL * ((W + p->threads - 1) / p->threads)
+                            * p->threads;
+  if ((64 + carries) * (long long)sizeof(float) <= optin) {
+    p->grid = B;
+    return configure(dtw_rows_kernel<false>, 64 + carries, L, optin,
+                     &p->stage, &p->bytes);
+  }
+  err = configure(dtw_rows_kernel<true>, 64, L, optin, &p->stage, &p->bytes);
+  if (err) return err;
+  int per_sm = 0;
+  err = (int)cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+      &per_sm, dtw_rows_kernel<true>, p->threads, p->bytes);
+  if (err) return err;
+  if (per_sm < 1) return (int)cudaErrorInvalidConfiguration;
+  p->grid = (int)(B < (long long)per_sm * sms ? B : (long long)per_sm * sms);
+  p->ws_floats = p->grid * carries;
+  return 0;
+}
+
+// Floats of workspace kvm_dtw_rows needs for these arguments (0: none).
+extern "C" int kvm_dtw_rows_workspace(int B, int L, int Q, int r,
+                                      long long* floats) {
+  if (bad_args(B, L, Q, r)) return (int)cudaErrorInvalidValue;
+  RowsPlan p;
+  const int err = rows_plan(B, L, r, &p);
+  if (err) return err;
+  *floats = p.ws_floats;
+  return 0;
+}
+
+template <int C>
+static int launch_rows_warp(const float* a, const float* qm, const int* qids,
+                            int B, int L, int Q, int r, int grid, float* out,
+                            cudaStream_t s) {
+  dtw_rows_warp_kernel<C><<<grid, KVM_K3_WARPS * 32, 0, s>>>(
+      a, qm, qids, B, L, Q, r, out);
+  return (int)cudaGetLastError();
+}
+
+extern "C" int kvm_dtw_rows(const void* a, const void* qm, const void* qids,
+                            int B, int L, int Q, int r, void* out, void* ws,
+                            long long ws_floats, void* stream) {
+  if (bad_args(B, L, Q, r)) return (int)cudaErrorInvalidValue;
+  RowsPlan p;
+  const int err = rows_plan(B, L, r, &p);
+  if (err) return err;
+  const float* fa = (const float*)a;
+  const float* fq = (const float*)qm;
+  const int* fi = (const int*)qids;
+  float* o = (float*)out;
+  cudaStream_t s = (cudaStream_t)stream;
+  switch (p.C) {
+#define KVM_K4_CASE(c) \
+    case c: return launch_rows_warp<c>(fa, fq, fi, B, L, Q, r, p.grid, o, s);
+    KVM_K4_CASE(2) KVM_K4_CASE(6) KVM_K4_CASE(10) KVM_K4_CASE(14)
+    KVM_K4_CASE(18) KVM_K4_CASE(22) KVM_K4_CASE(26) KVM_K4_CASE(30)
+#undef KVM_K4_CASE
+    case 0: break;
+    default: return (int)cudaErrorInvalidValue;
+  }
+  if (p.ws_floats > 0) {
+    if (ws == nullptr || ws_floats < p.ws_floats)
+      return (int)cudaErrorInvalidValue;
+    dtw_rows_kernel<true><<<p.grid, p.threads, p.bytes, s>>>(
+        fa, fq, fi, B, L, Q, r, p.stage, (float*)ws, o);
+  } else {
+    dtw_rows_kernel<false><<<p.grid, p.threads, p.bytes, s>>>(
+        fa, fq, fi, B, L, Q, r, p.stage, nullptr, o);
+  }
   return (int)cudaGetLastError();
 }

@@ -115,14 +115,18 @@ def lib() -> ctypes.CDLL:
             P, P, I, I,                 # offsets (int64), qids (int32), B, znorm
             P, P, P,                    # d2, mean, std
             P]                          # stream
-        for name, n_out in (("kvm_dtw_diag", 1), ("kvm_dtw_rows", 1),
-                            ("kvm_dtw_ds", 2)):
+        for name, extra in (("kvm_dtw_diag", [P]), ("kvm_dtw_ds", [P, P]),
+                            ("kvm_dtw_rows", [P, P, L])):
             fn = getattr(cdll, name)
             fn.restype = I
             fn.argtypes = [P, P, P,     # rows (B, L), queries (Q, L), qids
                            I, I, I, I,  # B, L, Q, r (<= L - 1)
-                           *[P] * n_out,  # outputs (B,) f32
-                           P]           # stream
+                           *extra,      # outputs (B,) f32; K4: + workspace
+                           P]           # and its floats; stream
+        cdll.kvm_dtw_rows_workspace.restype = I
+        cdll.kvm_dtw_rows_workspace.argtypes = [
+            I, I, I, I,                 # B, L, Q, r
+            ctypes.POINTER(L)]          # out: floats of K4's workspace
         _State.lib = cdll
     return _State.lib
 

@@ -20,9 +20,10 @@ Each takes the gathered (B, L) f32 rows, the (Q, L) f32 query matrix with
 int32 ``qids`` and the band radius ``r``.  On a CPU tensor it runs its plain
 PyTorch version (``dtw_banded_plain``, ``dtw_banded_ds_plain``), on a CUDA
 tensor its kernel; ``dtw_diag_plain`` and ``dtw_ds_diag_plain`` repeat
-K3's and DS's operations in their anti-diagonal order, for the bitwise
-checks on the card.  ``DTW_STATE["variant"]`` picks K3 or K4 for the f32
-stages, as ``_PALLAS_DTW_STATE`` does in JAX.
+K3's and DS's operations in their anti-diagonal order, and
+``dtw_rows_plain`` K4's one-warp form in its chunked scan order, for the
+bitwise checks on the card.  ``DTW_STATE["variant"]`` picks K3 or K4 for
+the f32 stages, as ``_PALLAS_DTW_STATE`` does in JAX.
 
 Offsets are int64 end to end (JAX casts them to int32).  The f64 host DP is
 the port's native host kernel (``native.dtw_band_f64``), with the NumPy twin
@@ -30,6 +31,8 @@ as its fallback.
 """
 
 from __future__ import annotations
+
+import ctypes
 
 import numpy as np
 import torch
@@ -43,10 +46,16 @@ BIG = 1e30
 #: f32 DP variant of the stages: "diag" (K3) or "rows" (K4).
 DTW_STATE = {"variant": "diag"}
 
-#: Widest band K3 and DS run: up to 32 warps of 32 threads, 26 lanes a
-#: thread (csrc/dtw.cu:k3_shape).  A row of L <= K3_MAX_R + 1 points takes
-#: any radius (r is clamped to L - 1).
-K3_MAX_R = (32 * 32 * 26 - 1) // 2
+#: Widest band one block of K3 and DS holds: 32 warps of 32 threads, 26
+#: lanes a thread (csrc/dtw.cu:k3_shape).  Wider bands span the blocks of a
+#: thread-block cluster.
+K3_BLOCK_MAX_R = (32 * 32 * 26 - 1) // 2
+#: Widest band K3 and DS run: a cluster of at most 8 such blocks.  A row of
+#: L <= K3_MAX_R + 1 points takes any radius (r is clamped to L - 1).
+K3_MAX_R = (8 * 32 * 32 * 26 - 1) // 2
+#: Widest band K4's one-warp form holds (32 threads of up to 30 lanes);
+#: wider bands take its block form.
+K4_WARP_LANES = 32 * 30
 
 
 # ----------------------------------------------------------- plain versions
@@ -126,6 +135,68 @@ def dtw_diag_plain(a: torch.Tensor, qm: torch.Tensor, qids: torch.Tensor,
         cur[:, k + 1] = torch.where(valid, torch.clamp_max(df * df + m, BIG),
                                     BIG)
     return carry[(2 * L - 2) & 1][:, r + 1]
+
+
+def k4_chunk(W: int) -> int:
+    """Band lanes a thread of K4's one-warp form holds: the least C = 2 mod 4
+    with 32 C >= W (csrc/dtw.cu:warp_chunk)."""
+    C = 2
+    while 32 * C < W:
+        C += 4
+    return C
+
+
+def _warp_scan(x: torch.Tensor, op) -> torch.Tensor:
+    """Inclusive Hillis-Steele scan of (B, 32) chunk totals, as a warp runs
+    it: 5 steps, x[t] = op(x[t - o], x[t]) for t >= o."""
+    for o in (1, 2, 4, 8, 16):
+        x = torch.cat([x[:, :o], op(x[:, :-o], x[:, o:])], dim=1)
+    return x
+
+
+def dtw_rows_plain(a: torch.Tensor, qm: torch.Tensor, qids: torch.Tensor,
+                   r: int) -> torch.Tensor:
+    """Plain version of K4's one-warp form in its own order: the row
+    recurrence of ``dtw_banded_plain`` on (B, 32, C) chunks, C =
+    ``k4_chunk(W)``, the band padded to 32 C lanes (d = 0 and D = BIG on
+    the padding).  In each row the running sum inside a chunk is
+    sequential, and the chunk offsets are the exclusive form of
+    ``_warp_scan`` over the 32 chunk totals; the running minima take any
+    order (min is exact), here ``torch.cummin`` and ``_warp_scan``.  The
+    same f32 operations as the kernel, so the two are equal bit for bit on
+    rows one warp holds (2r + 1 <= K4_WARP_LANES); wider rows take K4's
+    block form, whose sums run in another order (within the guard band)."""
+    B, L, r, W, _ = _row_inputs(a, qm, qids, r)
+    C = k4_chunk(W)
+    K = 32 * C
+    dt, dev = a.dtype, a.device
+    qpad = F.pad(qm[qids.long()], (r, K))  # qpad[:, i + k] = q[i - r + k]
+    k = torch.arange(K, device=dev)
+    first = torch.full((B, K), BIG, dtype=dt, device=dev)
+    first[:, r] = 0.0
+    P = first
+    for i in range(L):
+        j = i - r + k
+        valid = (j >= 0) & (j < L) & (k < W)
+        d = torch.where(valid, (a[:, i:i + 1] - qpad[:, i:i + K]).square_(),
+                        0.0).view(B, 32, C)
+        c = torch.empty_like(d)
+        run = torch.zeros((B, 32), dtype=dt, device=dev)
+        for u in range(C):
+            run = run + d[:, :, u]
+            c[:, :, u] = run
+        off = F.pad(_warp_scan(run, torch.add)[:, :-1], (1, 0))
+        Cc = (off[:, :, None] + c).view(B, K)
+        M = first if i == 0 else torch.minimum(
+            P, F.pad(P[:, 1:], (0, 1), value=BIG))
+        g = torch.cummin((M - F.pad(Cc[:, :-1], (1, 0))).view(B, 32, C),
+                         dim=2).values
+        pre = F.pad(_warp_scan(g[:, :, -1], torch.minimum)[:, :-1], (1, 0),
+                    value=float("inf"))
+        D = torch.clamp_max(Cc + torch.minimum(pre[:, :, None], g).view(B, K),
+                            BIG)
+        P = torch.where(valid, D, BIG)
+    return P[:, r]
 
 
 def _ds_two_sum(ah, al, bh, bl):
@@ -228,8 +299,11 @@ def dtw_ds_diag_plain(a: torch.Tensor, qm: torch.Tensor, qids: torch.Tensor,
 
 
 # ------------------------------------------------------------ the kernels
-def _launch(name: str, a, qm, qids, r: int, n_out: int):
-    """Validate, allocate and launch one DP kernel of csrc/dtw.cu."""
+def _launch(name: str, a, qm, qids, r: int, n_out: int,
+            workspace: bool = False):
+    """Validate, allocate and launch one DP kernel of csrc/dtw.cu
+    (``workspace``: with the global workspace K4's block form asks for,
+    kvm_dtw_rows_workspace)."""
     dev = a.device
     B = a.shape[0] if a.dim() == 2 else 0
     ok = (a.dtype == torch.float32 and a.dim() == 2 and a.is_contiguous()
@@ -245,20 +319,35 @@ def _launch(name: str, a, qm, qids, r: int, n_out: int):
             f"int32 qids (B,) on one CUDA device, B, L, Q > 0, r >= 0 (got "
             f"rows {tuple(a.shape)} {a.dtype}, queries {tuple(qm.shape)} "
             f"{qm.dtype}, qids {tuple(qids.shape)} {qids.dtype}, r={r})")
-    L = a.shape[1]
+    L, Q = a.shape[1], qm.shape[0]
+    r = min(r, L - 1)
+    lib = kernels.lib()
     outs = [torch.empty(B, dtype=torch.float32, device=dev)
             for _ in range(n_out)]
+    args = [a.data_ptr(), qm.data_ptr(), qids.data_ptr(), B, L, Q, r,
+            *(o.data_ptr() for o in outs)]
+    if workspace:
+        n = ctypes.c_longlong(0)
+        code = lib.kvm_dtw_rows_workspace(B, L, Q, r, ctypes.byref(n))
+        if code:
+            return code, outs
+        # Freed when this returns: the caching allocator hands it out again
+        # only to work queued after the launch on the same stream.
+        ws = torch.empty(n.value, dtype=torch.float32, device=dev)
+        args += [ws.data_ptr() if n.value else None, n.value]
     stream = torch.cuda.current_stream(dev).cuda_stream
-    code = getattr(kernels.lib(), f"kvm_{name}")(
-        a.data_ptr(), qm.data_ptr(), qids.data_ptr(), B, L, qm.shape[0],
-        min(r, L - 1), *(o.data_ptr() for o in outs), stream)
+    code = getattr(lib, f"kvm_{name}")(*args, stream)
     return code, outs
 
 
-def _check_k3_band(name: str, a, r: int) -> None:
-    if a.dim() == 2 and min(r, a.shape[1] - 1) > K3_MAX_R:
-        raise ValueError(f"{name}: band radius {min(r, a.shape[1] - 1)} "
-                         f"beyond K3_MAX_R={K3_MAX_R}")
+def _k3_cluster(name: str, a, r: int) -> bool:
+    """Raise past K3_MAX_R; True when the band takes K3's cluster form."""
+    if a.dim() == 2:
+        r = min(r, a.shape[1] - 1)
+    if r > K3_MAX_R:
+        raise ValueError(f"{name}: band radius {r} beyond K3_MAX_R="
+                         f"{K3_MAX_R} (a cluster of 8 blocks)")
+    return r > K3_BLOCK_MAX_R
 
 
 def dtw_diag(a, qm, qids, r: int) -> torch.Tensor:
@@ -266,19 +355,24 @@ def dtw_diag(a, qm, qids, r: int) -> torch.Tensor:
     for CPU tensors.  K3 equals ``dtw_diag_plain`` bit for bit."""
     if backend.route(a) == "plain":
         return dtw_banded_plain(a, qm, qids, r)
-    _check_k3_band("dtw_diag", a, r)
+    cluster = _k3_cluster("dtw_diag", a, r)
     code, (out,) = _launch("dtw_diag", a, qm, qids, r, 1)
     dtw_diag.launches += 1
+    dtw_diag.cluster_launches += cluster
     kernels.check(code, "dtw_diag")
     return out
 
 
 def dtw_rows(a, qm, qids, r: int) -> torch.Tensor:
     """Banded DTW (B,) f32: kernel K4 for CUDA tensors, the plain version
-    for CPU tensors."""
+    for CPU tensors.  On rows one warp holds K4 equals ``dtw_rows_plain``
+    bit for bit; wider rows take its block form (a block scan of the row
+    recurrence without prefix-sum cancellation, within the guard band),
+    with a global workspace once the carries pass the shared-memory limit
+    (any band)."""
     if backend.route(a) == "plain":
         return dtw_banded_plain(a, qm, qids, r)
-    code, (out,) = _launch("dtw_rows", a, qm, qids, r, 1)
+    code, (out,) = _launch("dtw_rows", a, qm, qids, r, 1, workspace=True)
     dtw_rows.launches += 1
     kernels.check(code, "dtw_rows")
     return out
@@ -291,16 +385,17 @@ def dtw_ds(a, qm, qids, r: int):
     ``dtw_ds_diag_plain`` bit for bit."""
     if backend.route(a) == "plain":
         return dtw_banded_ds_plain(a, qm, qids, r)
-    _check_k3_band("dtw_ds", a, r)
+    cluster = _k3_cluster("dtw_ds", a, r)
     code, (hi, lo) = _launch("dtw_ds", a, qm, qids, r, 2)
     dtw_ds.launches += 1
+    dtw_ds.cluster_launches += cluster
     kernels.check(code, "dtw_ds")
     return hi, lo
 
 
-dtw_diag.launches = 0
+dtw_diag.launches = dtw_diag.cluster_launches = 0
 dtw_rows.launches = 0
-dtw_ds.launches = 0
+dtw_ds.launches = dtw_ds.cluster_launches = 0
 
 
 def _dtw_f32(x, qm, qids, r: int) -> torch.Tensor:

@@ -4,6 +4,9 @@ On the CPU every DP stage runs its kernel's plain version.  Tolerances:
 
 * ``dtw_banded_plain`` (the plain version of K3/K4) against JAX's XLA DP and
   the f64 twin: rtol 1e-4 (f32 summation order; tests/test_dtw_kernels.py).
+* ``dtw_rows_plain`` (K4's one-warp form in its chunked scan order)
+  against JAX's XLA DP and the f64 DP: rtol 1e-4; against
+  ``dtw_banded_plain``: within the guard band (another f32 summation order).
 * ``dtw_diag_plain`` (K3's anti-diagonal plain version) against
   ``dtw_banded_plain``, JAX's XLA DP and the f64 DP: within the engines'
   guard band ``verify.guard_threshold(d, L, 1e-2)`` (the two f32 walks sum
@@ -66,6 +69,50 @@ def test_plain_dp_matches_jax_and_f64(L, r):
     if r == 0:
         ed = ((a.astype(np.float64) - qm[qids]) ** 2).sum(axis=1)
         np.testing.assert_allclose(got, ed, rtol=1e-5)
+
+
+# the shapes above, common mode, and C = 30 (the widest one-warp band)
+@pytest.mark.parametrize("L,r,common", [
+    (16, 3, False), (50, 5, False), (100, 10, False), (64, 0, False),
+    (30, 29, False), (33, 7, False), (40, 100, False), (100, 10, True),
+    (500, 479, False)])
+def test_rows_plain_matches_jax_f64_and_row_form(L, r, common):
+    rng = np.random.default_rng(L + r + 7 * common)
+    B, Q = 6, 3
+    a = rng.normal(size=(B, L)).astype(np.float32)
+    qm = rng.normal(size=(Q, L)).astype(np.float32)
+    if common:
+        a += 100.0
+        qm += 100.0
+    qids = rng.integers(0, Q, B).astype(np.int32)
+    if r == 479:
+        assert td.k4_chunk(2 * r + 1) == 30
+    got = td.dtw_rows_plain(_t(a), _t(qm), _t(qids), r).numpy()
+    want = np.asarray(jd.dtw_banded_batch_multi(jnp.asarray(a),
+                                                jnp.asarray(qm[qids]), r))
+    np.testing.assert_allclose(got, want, rtol=1e-4)
+    ref = np.array([dtw_banded(a[b].astype(np.float64),
+                               qm[qids[b]].astype(np.float64), min(r, L - 1))
+                    for b in range(B)])
+    np.testing.assert_allclose(got, ref, rtol=1e-4)
+    rows = td.dtw_banded_plain(_t(a), _t(qm), _t(qids), r).numpy()
+    band = np.array([vf.guard_threshold(d, L, 1e-2) for d in ref])
+    assert np.all(np.abs(got.astype(np.float64) - rows) <= band)
+    f64 = td.dtw_rows_plain(_t(a, torch.float64), _t(qm, torch.float64),
+                            _t(qids), r).numpy()
+    np.testing.assert_allclose(f64, ref, rtol=1e-12)
+    if r == 0:  # the squared Euclidean distance
+        ed = ((a.astype(np.float64) - qm[qids]) ** 2).sum(axis=1)
+        np.testing.assert_allclose(got, ed, rtol=1e-5)
+
+
+def test_k4_chunk_and_band_limits():
+    """K4's lanes a thread (the least C = 2 mod 4 with 32 C >= W, as K3's
+    one-warp form) and the band limits of K3's block and cluster forms."""
+    got = [td.k4_chunk(w) for w in (1, 64, 65, 192, 193, 819, 960)]
+    assert got == [2, 2, 6, 6, 10, 26, 30]
+    assert td.K4_WARP_LANES == 32 * 30
+    assert (td.K3_BLOCK_MAX_R, td.K3_MAX_R) == (13_311, 106_495)
 
 
 # the shapes above, a wide band beyond one warp's lanes, and common mode

@@ -10,7 +10,9 @@ the port is installed:
 Tolerances: K1 (dense probe) counts and flags exactly equal -- the kernel is
 compiled without multiply-add contraction and repeats the plain version's
 f32 operations in order.  K3 and DS equal their anti-diagonal plain versions
-(dtw_diag_plain, dtw_ds_diag_plain) bit for bit.  K2 (window distances): |d2 - d2_plain| <= 1e-5 L +
+(dtw_diag_plain, dtw_ds_diag_plain) bit for bit, in the one-warp, one-block
+and cluster forms; K4 equals dtw_rows_plain bit for bit on rows one warp
+holds.  K2 (window distances): |d2 - d2_plain| <= 1e-5 L +
 1e-5 d2 and mean/std within 1e-5 of the window's max |x| (summation order
 differs; see tests/test_torch_ed.py).  Engine answers EQUAL the oracle.
 """
@@ -349,9 +351,100 @@ def test_dtw_ds_equals_diag_plain_bitwise(dev, B, L, r):
 
 
 def test_dtw_diag_rejects_bands_beyond_its_rows(dev):
+    """Past K3_MAX_R = 106,495 (a cluster of 8 blocks) K3 and DS raise."""
     from kvmatch_tpu_torch.ops import dtw as tdtw
+    assert tdtw.K3_MAX_R == 106_495
     L = tdtw.K3_MAX_R + 2
     a = torch.zeros((1, L), device=dev)
     for fn in (tdtw.dtw_diag, tdtw.dtw_ds):
         with pytest.raises(ValueError, match="K3_MAX_R"):
             fn(a, a, torch.zeros(1, dtype=torch.int32, device=dev), L - 1)
+
+
+@pytest.mark.parametrize("B,L,r", [
+    (64, 1024, 51), (16, 1024, 409), (6, 1024, 52), (37, 301, 0),
+    (9, 129, 200), (7, 500, 479), (8, 8192, 409)])
+def test_dtw_rows_equals_rows_plain_bitwise(dev, B, L, r):
+    """K4's one-warp form (2r + 1 <= 960) against dtw_rows_plain, its plain
+    version in the same chunked scan order: bit for bit."""
+    from kvmatch_tpu_torch.ops import dtw as tdtw
+    a, qm, qids = _dtw_case(B, L, 5, seed=3 * L + r + 2, common_mode=True)
+    args = tuple(torch.as_tensor(x, device=dev) for x in (a, qm, qids))
+    before = tdtw.dtw_rows.launches
+    got = tdtw.dtw_rows(*args, r)
+    torch.cuda.synchronize(dev)
+    assert tdtw.dtw_rows.launches == before + 1
+    want = tdtw.dtw_rows_plain(*args, r)
+    assert torch.isfinite(want).all() and (want < tdtw.BIG).all()
+    assert torch.equal(got, want)
+
+
+# Bands past one block of K3 (r > K3_BLOCK_MAX_R = 13,311): the first band
+# past it (a cluster of 2 blocks), and clusters of 2 and 3 blocks.
+WIDE_BANDS = [(3, 13_313, 13_312), (2, 32_768, 20_000), (2, 40_000, 30_000)]
+
+
+def _znormed_case(B, L, Q, seed):
+    """z-normed windows of the synthetic series, as the DTW engines pass
+    them, row 1 a near-copy of its query.  (The row form's prefix sums of a
+    wide band of raw random walks reach 1e8, where f32 cancellation alone
+    passes the guard band; the engines' rows stay far from that.)"""
+    rng = np.random.default_rng(seed)
+    data = generate_series(L + 20_000, seed=seed)
+    offs = rng.integers(0, data.size - L, B + Q)
+    w = np.stack([data[o:o + L] for o in offs])
+    w = ((w - w.mean(1, keepdims=True)) / w.std(1, keepdims=True))
+    a, qm = w[:B].astype(np.float32), w[B:].astype(np.float32)
+    qids = rng.integers(0, Q, B).astype(np.int32)
+    a[1] = qm[qids[1]] + rng.normal(0, 1e-3, L).astype(np.float32)
+    return a, qm, qids
+
+
+@pytest.mark.parametrize("B,L,r", WIDE_BANDS)
+def test_dtw_wide_bands_equal_plain(dev, B, L, r):
+    """K3 and DS in the cluster form bit for bit against dtw_diag_plain and
+    dtw_ds_diag_plain; K4 (its block form, carries in the global
+    workspace) within the guard band of dtw_banded_plain and of K3."""
+    from kvmatch_tpu_torch import verify as vf
+    from kvmatch_tpu_torch.ops import dtw as tdtw
+    assert r > tdtw.K3_BLOCK_MAX_R
+    a, qm, qids = _znormed_case(B, L, 2, seed=L + r)
+    args = tuple(torch.as_tensor(x, device=dev) for x in (a, qm, qids))
+    before = (tdtw.dtw_diag.cluster_launches, tdtw.dtw_ds.cluster_launches)
+    k3 = tdtw.dtw_diag(*args, r)
+    hi, lo = tdtw.dtw_ds(*args, r)
+    torch.cuda.synchronize(dev)
+    assert (tdtw.dtw_diag.cluster_launches,
+            tdtw.dtw_ds.cluster_launches) == (before[0] + 1, before[1] + 1)
+    want = tdtw.dtw_diag_plain(*args, r)
+    assert torch.isfinite(want).all() and (want < tdtw.BIG).all()
+    assert torch.equal(k3, want)
+    want_hi, want_lo = tdtw.dtw_ds_diag_plain(*args, r)
+    assert torch.equal(hi, want_hi) and torch.equal(lo, want_lo)
+    k4 = tdtw.dtw_rows(*args, r).cpu().numpy().astype(np.float64)
+    rows = tdtw.dtw_banded_plain(*args, r).cpu().numpy().astype(np.float64)
+    band = np.array([vf.guard_threshold(w, L, 1e-2) for w in rows])
+    assert np.all(np.abs(k4 - rows) <= band)
+    assert np.all(np.abs(k4 - k3.cpu().numpy().astype(np.float64)) <= band)
+
+
+def test_dtw_rows_workspace_strides_over_rows(dev):
+    """K4's block form with its carries in the global workspace: sized for
+    the blocks resident at once, which stride over more rows than that."""
+    import ctypes
+    from kvmatch_tpu_torch import kernels
+    from kvmatch_tpu_torch import verify as vf
+    from kvmatch_tpu_torch.ops import dtw as tdtw
+    B, L, r = 300, 9_801, 9_800
+    n = ctypes.c_longlong(0)
+    assert kernels.lib().kvm_dtw_rows_workspace(B, L, 2, r,
+                                                ctypes.byref(n)) == 0
+    per_block = 3 * 1024 * -(-(2 * r + 1) // 1024)  # 3 carries of 1024 runs
+    grid = n.value // per_block
+    assert 0 < grid < B and n.value == grid * per_block
+    a, qm, qids = _znormed_case(B, L, 2, seed=11)
+    args = tuple(torch.as_tensor(x, device=dev) for x in (a, qm, qids))
+    got = tdtw.dtw_rows(*args, r).cpu().numpy().astype(np.float64)
+    want = tdtw.dtw_banded_plain(*args, r).cpu().numpy().astype(np.float64)
+    band = np.array([vf.guard_threshold(w, L, 1e-2) for w in want])
+    assert np.all(np.abs(got - want) <= band)
