@@ -35,8 +35,12 @@ JSON line tagged with the card's name and power limit and its seconds
                 RSM-ED README demo;
    exact_dtw -- n=1e6 RSM-DTW (L=1024, rho=51) and cNSM-DTW (L=1024,
                 rho=51; L=8192, rho=409) answer sets against the oracle,
-                each with K3 and with the K4 variant;
-   wide_band -- bands past one block (r > 13,311): K3 and DS bit for bit
+                each with K3 and with the K4 variant (4 self-queries a
+                shape);
+   wide_band -- K3 and DS in their global form (r > 106,495) on 2 rows
+                at (L, r) = (106,600, 106,599), bit for bit against their
+                plain versions, with the times of all four; bands past one
+                block (r > 13,311): K3 and DS bit for bit
                 against their plain versions, K4 within the guard band, at
                 (L, r) = (13,313, 13,312) and (26,625, 26,624) (clusters
                 of 2 and 3 blocks); then RSM-DTW and cNSM-DTW at n=17,000,
@@ -58,7 +62,25 @@ JSON line tagged with the card's name and power limit and its seconds
                 engine's policy) against routed per query, in turns;
 7. profile   -- host spans of the cNSM-ED engine's phases and a
                 torch.profiler device trace of one batch: kernel time by
-                name, idle share.
+                name, idle share;
+8. build_full -- the full device build (index/device_build.py) at n=1e8
+                (spill mode) and at n=1e7 with its pieces kept on the
+                card, then copied to the host; the device bucket pass with
+                host grouping (index/build.py, the engines' default) at
+                n=1e8 beside the host build; every index's pieces tile the
+                window starts in pieces of at most the cap, its keys
+                ascend; the chunked bucket pass equals one pass over the
+                whole resident series, bit for bit;
+9. stream    -- device_data="stream" over the n=1e8 full index: the 8
+                cNSM-ED north-star queries as a batch and each alone, equal
+                to a resident engine's answers (host phase 1 both); at
+                n=1e6 the four engines streamed (one of them in several
+                staged groups) against the oracle, and device_data="host"
+                on the RSM-ED README demo and one RSM-DTW query with no
+                device memory allocated; launch counts of the streamed
+                engines' queries alone, each counted from 0 just before the
+                streamed engine runs and read just after (K2, K3 and DS
+                must each launch).
 
 Then the kernel table ({"kernels": [...]}), the nvidia-smi name/power line
 and, last, {"ok": true, "device": {...}}.  The env line carries each
@@ -100,13 +122,30 @@ K3_BITWISE_CASES = ((1024, 51, 256), (1024, 409, 256), (1024, 1100, 256),
 # first of a cluster of 3 blocks (r = 26,624, 65 warps).  K4's carries are
 # in its global workspace at both.
 WIDE_BAND_CASES = ((13_313, 13_312, 2), (26_625, 26_624, 2))
-# The engines on such a band: (engine, n, L, rho, eps).  A query of more
+# The engines on such a band: (engine, n, L, rho, eps, queries).  A query of
+# more
 # than 12,024 points needs more than the default 30 plan segments (44 at
 # L = 16,384: segments of 1-16 units of 25 points); K1 packs at most 30, so
 # these plans take host phase 1 over a host-built index.
 WIDE_ENGINE_SHAPES = (("rsm_dtw", 17_000, 16_384, 13_500, EPS_RSM),
                       ("cnsm_dtw", 17_000, 16_384, 13_500, EPS))
 WIDE_MAX_SEGMENTS = 64
+# K3's and DS's global form: the first band past a cluster of 8 blocks
+# (ops/dtw.py:K3_MAX_R = 106,495), as (L, r, rows).
+GLOBAL_CASE = (106_600, 106_599, 2)
+# build_full: the full device build at N_MAIN (spill mode, above
+# index/device_build.py:SPILL_N) and at N_KEEP with its pieces kept on the
+# card.
+N_KEEP = 10_000_000
+# stream at n=1e6 (the exact phases' series and their self-queries): each
+# engine streamed, as (engine, L, rho, eps); the first with its staging
+# budget lowered to STREAM_SMALL_STAGE points so that it stages several
+# groups.  RSM-ED takes RSM-DTW's eps.
+STREAM_SMALL_SHAPES = (("rsm_ed", 1024, 0, EPS_RSM),
+                       ("cnsm_ed", 1024, 0, EPS),
+                       ("rsm_dtw", L_RSM_DTW, RHO_RSM, EPS_RSM),
+                       ("cnsm_dtw", 1024, 51, EPS))
+STREAM_SMALL_STAGE = 1 << 14
 
 # The least time the card could take for a kernel's work (bound_ms): the
 # larger of its bytes (each input read once, each output written once) over
@@ -508,13 +547,38 @@ def fft_error(data_dev, queries, device, m_region: int = 8192,
 
 
 # ------------------------------------------------------------- phase 4 ----
-def exact_small(device, n: int = 1_000_000, seed: int = 20260816,
-                cnsm_lengths=(1024, 8192), cnsm_queries: int = 4,
-                demo_offset: int = 123456, demo_length: int = 8192) -> dict:
+def oracle_key(name: str, L: int, rho: int, eps: float) -> tuple:
+    return (name, int(L), int(rho), float(eps))
+
+
+def oracle_sets(name: str, data, queries, eps: float, rho: int,
+                device) -> list:
+    """The port's float64 oracle's answer set of each query (on the card)."""
+    from kvmatch_tpu_torch import oracle
+    out = []
+    for q in queries:
+        if name == "rsm_ed":
+            w = oracle.rsm_ed(data, q, eps, device=device)
+        elif name == "cnsm_ed":
+            w = oracle.nsm_ed(data, q, eps, alpha=ALPHA, beta=BETA,
+                              device=device)
+        elif name == "rsm_dtw":
+            w = oracle.rsm_dtw(data, q, eps, rho, device=device)
+        else:
+            w = oracle.cnsm_dtw(data, q, eps, rho, ALPHA, BETA, device=device)
+        out.append(set(w[0].tolist()))
+    return out
+
+
+def exact_small(device, oracles: dict, n: int = 1_000_000,
+                seed: int = 20260816, cnsm_lengths=(1024, 8192),
+                cnsm_queries: int = 4, demo_offset: int = 123456,
+                demo_length: int = 8192) -> dict:
     """Answer sets at n=1e6 EQUAL the port's float64 brute-force oracle
     (run on the card): cNSM-ED self-queries through query_batch_device, and
     the RSM-ED README demo with phase 2 forced onto the device (its
-    scattered candidates go through K2)."""
+    scattered candidates go through K2).  The oracle's sets go into
+    ``oracles`` (``oracle_key``) for the streamed engines."""
     from kvmatch_tpu_torch import (IndexConfig, NormQueryEngine, QueryConfig,
                                    QueryEngine, generate_series, oracle)
     from kvmatch_tpu_torch.index.device_build import build_index_device_stats
@@ -533,9 +597,11 @@ def exact_small(device, n: int = 1_000_000, seed: int = 20260816,
         offs, qs = self_queries(data, cnsm_queries, length, seed=1)
         res = norm.query_batch_device(qs, EPS, alpha=ALPHA, beta=BETA)
         answers[length] = []
+        sets = oracles.setdefault(oracle_key("cnsm_ed", length, 0, EPS), [])
         for o, q, r in zip(offs, qs, res):
             want, _ = oracle.nsm_ed(data, q, EPS, alpha=ALPHA, beta=BETA,
                                     device=device)
+            sets.append(set(want.tolist()))
             if set(r.offsets.tolist()) != set(want.tolist()):
                 raise AssertionError(f"cNSM-ED n={n} L={length} offset {o}: "
                                      f"answer set differs from the oracle")
@@ -549,6 +615,7 @@ def exact_small(device, n: int = 1_000_000, seed: int = 20260816,
     q = data[demo_offset:demo_offset + demo_length]
     r = raw.query(q, 10.0)
     want, _ = oracle.rsm_ed(data, q, 10.0, device=device)
+    oracles["demo"] = set(want.tolist())
     if set(r.offsets.tolist()) != set(want.tolist()):
         raise AssertionError("RSM-ED README demo: answer set differs from "
                              "the oracle")
@@ -560,12 +627,14 @@ def exact_small(device, n: int = 1_000_000, seed: int = 20260816,
 
 
 def exact_dtw(device, shapes=DTW_EXACT_SHAPES, seed: int = 20260816,
-              n_queries: int = 4, max_segments: int | None = None) -> dict:
+              n_queries: int = 4, max_segments: int | None = None,
+              oracles: dict | None = None) -> dict:
     """DTW answer sets EQUAL the port's float64 oracle (on the card), each
     shape run twice through ``query_batch``: with K3 (``dtw_diag``) and
     with the K4 variant (``dtw_rows``) as the f32 DP.  Phase 1 is the dense
     probe (K1) over the stats-only index, or, with ``max_segments`` (plans
-    longer than K1's 30 segments), host phase 1 over a host-built index."""
+    longer than K1's 30 segments), host phase 1 over a host-built index.
+    The oracle's sets go into ``oracles`` (``oracle_key``) when given."""
     from kvmatch_tpu_torch import (IndexConfig, NormQueryEngineDtw,
                                    QueryConfig, QueryEngineDtw,
                                    generate_series, oracle)
@@ -597,6 +666,9 @@ def exact_dtw(device, shapes=DTW_EXACT_SHAPES, seed: int = 20260816,
         row = dict(engine=name, n=n, L=L, rho=rho, eps=eps,
                    oracle_s=time.perf_counter() - t0,
                    answers=[int(w[0].size) for w in want])
+        if oracles is not None:
+            oracles[oracle_key(name, L, rho, eps)] = [set(w[0].tolist())
+                                                      for w in want]
         eng = (NormQueryEngineDtw if norm else QueryEngineDtw)(
             data, index=index, icfg=icfg, qcfg=qcfg, device_data=dev)
         for variant in ("diag", "rows"):
@@ -619,6 +691,56 @@ def exact_dtw(device, shapes=DTW_EXACT_SHAPES, seed: int = 20260816,
     return dict(shapes=out, equal=True)
 
 
+def global_form(data_dev, device, case=GLOBAL_CASE) -> dict:
+    """K3 and DS in their global form (r > K3_MAX_R), one launch each on
+    ``case``'s (L, r, rows) of z-normed windows against two z-normed
+    windows as queries: bit for bit against dtw_diag_plain and
+    dtw_ds_diag_plain, the ms of the checked launch and of the plain
+    version, and the bound of the work."""
+    import numpy as np
+    import torch
+    from kvmatch_tpu_torch.ops import dtw as td
+    L, r, batch = case
+    rng = np.random.default_rng(10)
+    args = (znormed_windows(data_dev, device, rng, L, batch),
+            znormed_windows(data_dev, device, rng, L, 2),
+            torch.as_tensor(np.arange(batch) % 2, dtype=torch.int32,
+                            device=device), r)
+    if td.k3_form(args[0], r) != "global":
+        raise AssertionError(f"L={L} r={r} does not take the global form")
+    io = batch * L * 4 + 2 * L * 4 + batch * 4
+    cells = batch * band_cells(L, r)
+    out = dict(L=L, r=r, rows=batch)
+    for fn, plain, work in ((td.dtw_diag, td.dtw_diag_plain,
+                             bound(io, DP_OPS * cells)),
+                            (td.dtw_ds, td.dtw_ds_diag_plain,
+                             bound(io + batch * 4, DS_OPS * cells))):
+        before = fn.global_launches
+        torch.cuda.synchronize(device)
+        t0 = time.perf_counter()
+        got = fn(*args)
+        torch.cuda.synchronize(device)
+        ms = (time.perf_counter() - t0) * 1e3
+        if fn.global_launches - before != 1:
+            raise AssertionError(f"{fn.__name__} L={L} r={r}: no launch in "
+                                 f"the global form")
+        t0 = time.perf_counter()
+        want = plain(*args)
+        torch.cuda.synchronize(device)
+        plain_ms = (time.perf_counter() - t0) * 1e3
+        got, want = ((got, want) if fn is td.dtw_ds else ((got,), (want,)))
+        differ = sum(int((g != w).sum()) for g, w in zip(got, want))
+        if differ:
+            raise AssertionError(f"{fn.__name__} L={L} r={r}: {differ} "
+                                 f"values differ from {plain.__name__}")
+        if not bool((want[0] < td.BIG).all()):
+            raise AssertionError(f"{plain.__name__} L={L} r={r}: a row "
+                                 f"found no path")
+        out[fn.__name__] = dict(bit_equal=True, ms=ms, plain_ms=plain_ms,
+                                d2=want[0].tolist(), **work)
+    return out
+
+
 def wide_band(data_dev, device, cases=WIDE_BAND_CASES,
               shapes=WIDE_ENGINE_SHAPES) -> dict:
     """Bands past one block of K3 (r > K3_BLOCK_MAX_R), on z-normed windows
@@ -628,13 +750,17 @@ def wide_band(data_dev, device, cases=WIDE_BAND_CASES,
     guard_threshold(d, L, 1e-2) of dtw_banded_plain and of K3; the times
     of all three.  Then the DTW engines at ``shapes`` through ``exact_dtw``
     (answer sets equal to the oracle with K3 and with K4) and the clustered
-    launches of K3 and DS they made."""
+    launches of K3 and DS they made.  First the global form past a cluster
+    (``global_form``), with the global-form launches of the whole phase
+    beside the clustered ones."""
     import numpy as np
     import torch
     from kvmatch_tpu_torch import verify
     from kvmatch_tpu_torch.ops import dtw as td
     rng = np.random.default_rng(9)
     clustered = (td.dtw_diag, td.dtw_ds)
+    global_before = [fn.global_launches for fn in clustered]
+    glob = global_form(data_dev, device)
     out = {}
     for L, r, batch in cases:
         args = (znormed_windows(data_dev, device, rng, L, batch),
@@ -690,9 +816,11 @@ def wide_band(data_dev, device, cases=WIDE_BAND_CASES,
     if launches["dtw_diag"] < 1:
         raise AssertionError("the wide-band engines made no clustered K3 "
                              "launch")
-    return dict(kernels=out, engines=engines["shapes"],
+    return dict(global_form=glob, kernels=out, engines=engines["shapes"],
                 engines_equal=engines["equal"],
                 engine_cluster_launches=launches,
+                global_launches={fn.__name__: fn.global_launches - b
+                                 for fn, b in zip(clustered, global_before)},
                 engine_k4_launches=td.dtw_rows.launches - rows_before)
 
 
@@ -966,6 +1094,263 @@ def profile_batch(eng, queries) -> dict:
         device_ms_by_name=[[k, v[0], v[1]] for k, v in top])
 
 
+# ------------------------------------------------------------- phase 8 ----
+def check_full_index(index, n: int, cap: int) -> dict:
+    """Every scale of a full index: its pieces are disjoint, hold 1 to
+    ``cap`` offsets each and together cover the window starts
+    [0, n - w + 1) exactly; its row keys ascend; cum_offsets[-1] and
+    row_ptr[-1] count those starts and pieces.  Returns the pieces a
+    scale."""
+    import numpy as np
+    out = {}
+    for w, sc in index.items():
+        left, right, _ = sc.pos_sorted()
+        size = right - left + 1
+        m = n - w + 1
+        if not (left.size and left[0] == 0 and right[-1] == m - 1
+                and bool((size >= 1).all()) and int(size.max()) <= cap
+                and bool((left[1:] == right[:-1] + 1).all())):
+            raise AssertionError(f"w={w}: the pieces do not tile [0, {m}) "
+                                 f"in pieces of at most {cap} offsets")
+        if not bool((np.diff(sc.keys) > 0).all()):
+            raise AssertionError(f"w={w}: row keys do not ascend")
+        if int(sc.cum_offsets[-1]) != m or int(sc.row_ptr[-1]) != left.size:
+            raise AssertionError(f"w={w}: cum_offsets[-1] = "
+                                 f"{int(sc.cum_offsets[-1])}, not {m}")
+        out[w] = int(left.size)
+    return out
+
+
+def build_full(data8, dev8, device):
+    """The full index family on the card: build_index_device at N_MAIN
+    (spill mode), at N_KEEP with its pieces kept on the card and then
+    copied by materialize_host, and build_index_device_buckets (the device
+    bucket pass with host grouping, the engines' default) at N_MAIN beside
+    build_index_host, its yardstick, each index checked by
+    ``check_full_index``; then the chunked device bucket pass against
+    build_buckets over the whole resident series, bit for bit.  A piece of
+    the device build holds at most maximum_diff - 1 offsets (the run cap of
+    its stages); the host grouping's merge re-splits unions at
+    maximum_diff (index/build.py:_group_and_merge).  Returns (the summary,
+    the N_MAIN full device index)."""
+    import torch
+    from kvmatch_tpu_torch import IndexConfig
+    from kvmatch_tpu_torch.index.build import (build_index_device_buckets,
+                                               build_index_host,
+                                               compute_buckets_device)
+    from kvmatch_tpu_torch.index.device_build import (SPILL_N,
+                                                      build_index_device)
+    from kvmatch_tpu_torch.ops.sliding import build_buckets
+    icfg = IndexConfig()
+    cap = icfg.maximum_diff - 1
+    n = data8.size
+    out = dict(n=n, spill_n=SPILL_N, cap=cap, host_cap=cap + 1)
+    st: dict = {}
+    full8 = build_index_device(data8, icfg, stats=st, data_dev=dev8)
+    if not st["spilled"]:
+        raise AssertionError(f"n={n} did not take the spill mode")
+    out["device"] = dict(st, pieces=check_full_index(full8, n, cap))
+    st = {}
+    keep = build_index_device(data8[:N_KEEP], icfg, stats=st,
+                              data_dev=dev8[:N_KEEP])
+    if not all(sc.dev_pos_view is not None and sc.dev_pos_view[0].is_cuda
+               and sc._left is None for sc in keep.values()):
+        raise AssertionError("keep_device left no scale's pieces on the card")
+    t0 = time.perf_counter()
+    for sc in keep.values():
+        sc.materialize_host()
+    st["materialize_host_s"] = time.perf_counter() - t0
+    out["device_keep"] = dict(st, n=N_KEEP,
+                              pieces=check_full_index(keep, N_KEEP, cap))
+    del keep
+    st = {}
+    idx = build_index_device_buckets(data8, icfg, stats=st, device=device)
+    out["device_buckets"] = dict(st, pieces=check_full_index(idx, n,
+                                                             cap + 1))
+    del idx
+    st = {}
+    idx = build_index_host(data8, icfg, stats=st)
+    out["host"] = dict(st, pieces=check_full_index(idx, n, cap + 1))
+    del idx
+    chunked = compute_buckets_device(data8, icfg, device=device)
+    whole = build_buckets(dev8, tuple(icfg.scales), icfg.pos_of_d)
+    differ = {w: int((torch.as_tensor(chunked[w], device=device)
+                      != whole[w]).sum()) for w in icfg.scales}
+    if any(differ.values()):
+        raise AssertionError(f"chunked bucket pass differs from the whole "
+                             f"series' pass: {differ}")
+    del chunked, whole
+    out.update(build_chunk=icfg.build_chunk, chunks_equal_whole=True)
+    return out, full8
+
+
+# ------------------------------------------------------------- phase 9 ----
+def same_answers(got, want, what: str) -> float:
+    """Answer sets of ``got`` equal ``want``'s query by query; returns the
+    largest distance difference, which must be within 1e-9."""
+    err = 0.0
+    for g, w in zip(got, want):
+        if set(g.offsets.tolist()) != set(w.offsets.tolist()):
+            raise AssertionError(f"{what}: answer sets differ")
+        dg = dict(zip(g.offsets.tolist(), g.distances.tolist()))
+        err = max([err] + [abs(dg[o] - d) for o, d in
+                           zip(w.offsets.tolist(), w.distances.tolist())])
+    if err > 1e-9:
+        raise AssertionError(f"{what}: distances differ by {err}")
+    return err
+
+
+def counted(kernels, launches: dict, fn):
+    """Run ``fn`` with each kernel's launch count set to 0 just before it,
+    and add the counts read just after it to ``launches``."""
+    for k in kernels:
+        k.launches = 0
+    out = fn()
+    for k in kernels:
+        launches[k.__name__] = launches.get(k.__name__, 0) + k.launches
+    return out
+
+
+def stream_main(data8, dev8, full8, offs8, q8, device, kernels,
+                launches: dict) -> dict:
+    """The cNSM-ED north star with device_data="stream" over the N_MAIN
+    full device index: host phase 1, the candidate runs staged to the card.
+    The 8 queries as one batch and each alone; both must equal a resident
+    engine's batch over the same index, with host phase 1 too, and find
+    every self-query.  Reports q/s, the staged groups and bytes and the
+    seconds of host staging, the copy to the card and the verification.
+    The streamed engine's launches of ``kernels`` go into ``launches``."""
+    import torch
+    from kvmatch_tpu_torch import IndexConfig, NormQueryEngine, QueryConfig
+    icfg, qcfg = IndexConfig(), QueryConfig()
+    kw = dict(alpha=ALPHA, beta=BETA)
+    resident = NormQueryEngine(data8, index=full8, icfg=icfg, qcfg=qcfg,
+                               device_data=dev8)
+    t0 = time.perf_counter()
+    want = resident.query_batch(q8, EPS, **kw)
+    torch.cuda.synchronize(device)
+    resident_s = time.perf_counter() - t0
+    del resident
+    streamed = NormQueryEngine(data8, index=full8, icfg=icfg, qcfg=qcfg,
+                               device_data="stream", device=device)
+    streamed.stream_counts = {}
+    t0 = time.perf_counter()
+    got = counted(kernels, launches,
+                  lambda: streamed.query_batch(q8, EPS, **kw))
+    torch.cuda.synchronize(device)
+    batch_s = time.perf_counter() - t0
+    batch_counts = dict(streamed.stream_counts)
+    err = same_answers(got, want, "streamed cNSM-ED batch")
+    lat, single_counts, singles = [], [], []
+    for q in q8:
+        streamed.stream_counts = {}
+        t0 = time.perf_counter()
+        singles.append(counted(kernels, launches,
+                               lambda: streamed.query(q, EPS, **kw)))
+        torch.cuda.synchronize(device)
+        lat.append((time.perf_counter() - t0) * 1e3)
+        single_counts.append(dict(streamed.stream_counts))
+    err = max(err, same_answers(singles, want, "streamed cNSM-ED singles"))
+    found = sum(int(o) in r.offsets.tolist() for o, r in zip(offs8, got))
+    if found != len(q8):
+        raise AssertionError(f"streamed self-queries found {found}/{len(q8)}")
+    return dict(
+        n=data8.size, L=q8.shape[1], n_queries=len(q8), self_found=found,
+        answers=[int(r.offsets.size) for r in got], max_dist_diff=err,
+        resident_batch_s=resident_s, batch_s=batch_s,
+        batch_qps=len(q8) / batch_s, batch_stream=batch_counts,
+        p1_ms_per_query=statistics.fmean(r.stats.t_phase1_ms for r in got),
+        p2_ms_per_query=statistics.fmean(r.stats.t_phase2_ms for r in got),
+        single_latency_ms=lat, single_qps=len(q8) / (sum(lat) / 1e3),
+        single_stream=single_counts)
+
+
+def stream_small(device, oracles: dict, kernels, launches: dict,
+                 n: int = 1_000_000, seed: int = 20260816) -> dict:
+    """At n=1e6 (the exact phases' series) over its full device index:
+    the four engines streamed on 4 self-queries each, answer sets equal to
+    the oracle (the exact phases' where they computed it), the first engine
+    with STREAM_MAX_STAGE lowered on the instance so that it stages at least
+    2 groups; then device_data="host" on the RSM-ED README demo and on the
+    RSM-DTW query with the fewest answers, with torch.cuda.memory_allocated
+    unchanged across them.  The streamed engines' launches of ``kernels``
+    go into ``launches``."""
+    import torch
+    from kvmatch_tpu_torch import (IndexConfig, NormQueryEngine,
+                                   NormQueryEngineDtw, QueryConfig,
+                                   QueryEngine, QueryEngineDtw,
+                                   generate_series)
+    from kvmatch_tpu_torch.index.device_build import build_index_device
+    icfg = IndexConfig()
+    data = generate_series(n, seed=seed)
+    index = build_index_device(data, icfg, device=device)
+    qcfg = QueryConfig(host_verify_max_points=0)  # phase 2 on the card
+    classes = dict(rsm_ed=QueryEngine, cnsm_ed=NormQueryEngine,
+                   rsm_dtw=QueryEngineDtw, cnsm_dtw=NormQueryEngineDtw)
+    rows = []
+    for i, (name, L, rho, eps) in enumerate(STREAM_SMALL_SHAPES):
+        kw = dict(rho=rho) if "dtw" in name else {}
+        if name.startswith("cnsm"):
+            kw.update(alpha=ALPHA, beta=BETA)
+        offs, qs = self_queries(data, 4, L, seed=1)
+        key = oracle_key(name, L, rho, eps)
+        if key not in oracles:
+            oracles[key] = oracle_sets(name, data, qs, eps, rho, device)
+        want = oracles[key]
+        eng = classes[name](data, index=index, icfg=icfg, qcfg=qcfg,
+                            device_data="stream", device=device)
+        if i == 0:
+            eng.STREAM_MAX_STAGE = STREAM_SMALL_STAGE
+        t0 = time.perf_counter()
+        res = counted(kernels, launches,
+                      lambda: eng.query_batch(qs, eps, **kw))
+        torch.cuda.synchronize(device)
+        row = dict(engine=name, L=L, rho=rho, eps=eps,
+                   batch_s=time.perf_counter() - t0,
+                   answers=[int(r.offsets.size) for r in res],
+                   stream=dict(eng.stream_counts))
+        for o, r, w in zip(offs, res, want):
+            if set(r.offsets.tolist()) != w:
+                raise AssertionError(f"streamed {name} n={n} offset {o}: "
+                                     f"answer set differs from the oracle")
+            if int(o) not in r.offsets.tolist():
+                raise AssertionError(f"streamed {name} self-query {o} not "
+                                     f"found")
+        if i == 0 and eng.stream_counts["groups"] < 2:
+            raise AssertionError(f"streamed {name}: a lowered staging budget "
+                                 f"staged one group")
+        rows.append(row)
+    torch.cuda.synchronize(device)
+    mem = torch.cuda.memory_allocated(device)
+    host = {}
+    q = data[123_456:123_456 + 8192]
+    if "demo" not in oracles:
+        (oracles["demo"],) = oracle_sets("rsm_ed", data, [q], 10.0, 0, device)
+    r = QueryEngine(data, index=index, icfg=icfg,
+                    device_data="host").query(q, 10.0)
+    if set(r.offsets.tolist()) != oracles["demo"]:
+        raise AssertionError("host-only RSM-ED README demo: answer set "
+                             "differs from the oracle")
+    host["rsm_ed_demo"] = dict(answers=int(r.offsets.size),
+                               host_checked=r.stats.n_host_checked)
+    _, L, rho, eps = STREAM_SMALL_SHAPES[2]
+    offs, qs = self_queries(data, 4, L, seed=1)
+    want = oracles[oracle_key("rsm_dtw", L, rho, eps)]
+    k = min(range(len(qs)), key=lambda j: len(want[j]))
+    r = QueryEngineDtw(data, index=index, icfg=icfg,
+                       device_data="host").query(qs[k], eps, rho=rho)
+    if set(r.offsets.tolist()) != want[k] or int(offs[k]) not in want[k]:
+        raise AssertionError("host-only RSM-DTW: answer set differs from the "
+                             "oracle")
+    host["rsm_dtw"] = dict(offset=int(offs[k]), answers=int(r.offsets.size),
+                           host_checked=r.stats.n_host_checked)
+    torch.cuda.synchronize(device)
+    if torch.cuda.memory_allocated(device) != mem:
+        raise AssertionError("host-only queries allocated device memory")
+    return dict(n=n, engines=rows, host_only=host,
+                host_only_device_bytes_delta=0)
+
+
 def kernel_registers(so) -> dict:
     """Registers, and local memory (spills) in bytes, of each kernel of the
     library, from ``cuobjdump -res-usage``; empty where the toolkit has no
@@ -1086,9 +1471,10 @@ def main() -> int:
     k1, k1d, k1r, k2, kd = (kern[k] for k in (
         "k1", "k1_dtw_plans", "k1_raw_plans", "k2", "dtw"))
     phase("fft", lambda: fft_error(dev8, q8, device))
-    phase("exact", lambda: exact_small(device))
+    oracles: dict = {}  # the n=1e6 oracle's sets, for the streamed engines
+    phase("exact", lambda: exact_small(device, oracles))
     dtw_rows.launches = 0
-    phase("exact_dtw", lambda: exact_dtw(device))
+    phase("exact_dtw", lambda: exact_dtw(device, oracles=oracles))
     rows_launches = dtw_rows.launches
     wide = phase("wide_band", lambda: wide_band(dev8, device))
 
@@ -1141,6 +1527,27 @@ def main() -> int:
                                  f"path")
     phase("routing", lambda: routing_ab(eng8, offs8, q8), n=N_MAIN, L=L_MAIN)
     phase("profile", lambda: profile_batch(eng8, q8), n=N_MAIN, L=L_MAIN)
+
+    # This slice's path: the full device build, then the streamed engines.
+    full: dict = {}
+
+    def run_build_full():
+        res, full["index"] = build_full(data8, dev8, device)
+        return res
+    phase("build_full", run_build_full)
+    # Only the streamed engines' queries count: the resident yardstick and
+    # the oracle run outside ``counted``.
+    path_kernels = (probe_flags, window_ed, dtw_diag, dtw_rows, dtw_ds)
+    stream_launches = {fn.__name__: 0 for fn in path_kernels}
+    phase("stream", lambda: dict(
+        main=stream_main(data8, dev8, full.pop("index"), offs8, q8, device,
+                         path_kernels, stream_launches),
+        small=stream_small(device, oracles, path_kernels, stream_launches)))
+    emit(dict(phase="stream_launches", card=card, launches=stream_launches))
+    for name in ("window_ed", "dtw_diag", "dtw_ds"):
+        if stream_launches[name] < 1:
+            raise AssertionError(f"kernel {name} was not launched on the "
+                                 f"streamed path")
     loaded = sorted(m for m in sys.modules
                     if m.split(".")[0] in ("jax", "kvmatch_tpu"))
     if loaded:
@@ -1167,7 +1574,7 @@ def main() -> int:
                           for case, v in wide["kernels"].items()}), work,
             per_batch[name])
 
-    emit({"kernels": [
+    rows = [
         with_bound(dict(
             name="probe_flags", route="cuda",
             source="kvmatch_tpu_torch/csrc/probe.cu",
@@ -1225,7 +1632,22 @@ def main() -> int:
              tolerance="|hi + lo - d64| <= 8 eps32 (d64 + 1); bit-equal "
                        "to dtw_ds_diag_plain (K3_BITWISE_CASES)",
              plain_ms=kd["raw"]["dtw_ds"]["plain_ms"]),
-    ]})
+    ]
+    # Each path's launches, counted from 0 over that path alone.
+    paths = dict(main=launches, main_dtw=dtw_launches,
+                 exact_dtw=dict(dtw_rows=rows_launches),
+                 stream=stream_launches)
+    glob = wide["global_form"]
+    for row in rows:
+        row["launches_by_path"] = {p: c[row["name"]] for p, c in paths.items()
+                                   if row["name"] in c}
+        if row["name"] in glob:
+            g = glob[row["name"]]
+            row["global_form"] = dict(
+                L=glob["L"], r=glob["r"], rows=glob["rows"], ms=g["ms"],
+                plain_ms=g["plain_ms"], bound_ms=g["bound_ms"],
+                bound_by=g["bound_by"])
+    emit({"kernels": rows})
     print(card, flush=True)
     emit({"ok": True, "device": {"platform": "gpu", "kind": kind,
                                  "count": torch.cuda.device_count()}})

@@ -13,7 +13,8 @@
 //   Only lanes with s + r - k even hold a cell on diagonal s, and they read
 //   only lanes of the same class.  One warp per row, the band in registers
 //   (see the K3 section for its bound and design); a band wider than one
-//   block holds spans the blocks of a thread-block cluster.
+//   block holds spans the blocks of a thread-block cluster, and a band wider
+//   than a cluster holds takes the global form (carries in device memory).
 // * dtw_rows  (K4) replaces kvmatch_tpu/ops/dtw_pallas.py:_dtw_kernel: the
 //   row prefix-scan form D[k] = C[k] + min_{j<=k}(M[j] - C[j-1]) with
 //   M[k] = min(P[k], P[k+1]), C = cumsum(d).  One warp per row with the
@@ -354,6 +355,92 @@ dtw_diag_kernel(const float* __restrict__ a, const float* __restrict__ qm,
       }
     out[row] = res;
     if (DS) out_lo[row] = res_l;
+  }
+}
+
+// The GLOBAL form, for bands wider than a cluster of 8 blocks holds
+// (r > 106,495, ops/dtw.py:K3_MAX_R): one block of KVM_DTW_THREADS threads a
+// row, its two anti-diagonal carries in a global workspace (the blocks
+// resident at once stride over the rows).  Only the lanes of one parity live
+// in a carry: carry c, rewritten on the diagonals s with s & 1 == c, holds
+// the lanes k = P + 2x, P = (c + r) & 1, at slot x + 1, with a BIG slot on
+// each side (S = r + 3 slots; DS adds two carries of lo halves).  On
+// diagonal s the block's threads stride over the lanes that hold a cell of
+// the matrix, and each cell does dtw_diag_plain's (dtw_ds_diag_plain's)
+// operations in place: D_{s-1}[k - 1] and D_{s-1}[k + 1] are slots x + P' and
+// x + P' + 1 of the other carry (P' its parity), D_{s-2}[k] is this slot.
+// A cell rewrites only its own slot and reads the other carry, which this
+// diagonal never writes, so one __syncthreads() a diagonal orders them.
+// Lanes outside the matrix keep what they held: a lane leaves the matrix
+// only for good, the lanes that would read its stale value on the next
+// diagonals lie outside the matrix too, and a lane not yet inside it still
+// holds its first value, BIG.  So the form is bit-equal to the plain
+// versions.  Not a fast form: every carry read and write goes through the
+// L2 cache, and a row runs on one SM.
+template <bool DS>
+__global__ void __launch_bounds__(KVM_DTW_THREADS)
+dtw_diag_global_kernel(const float* __restrict__ a,
+                       const float* __restrict__ qm,
+                       const int* __restrict__ qids, int B, int L, int Q,
+                       int r, float* ws, float* __restrict__ out,
+                       float* __restrict__ out_lo) {
+  const int S = r + 3;
+  const int W = 2 * r + 1;
+  float* base = ws + (long long)blockIdx.x * (DS ? 4 : 2) * S;
+  const int seed = (r >> 1) + 1;  // lane r of carry 0
+  for (int b = blockIdx.x; b < B; b += gridDim.x) {
+    const int qid = qids[b];
+    if (qid < 0 || qid >= Q) {
+      if (threadIdx.x == 0) {
+        out[b] = NAN;
+        if (DS) out_lo[b] = NAN;
+      }
+      continue;  // uniform over the block
+    }
+    const float* arow = a + (long long)b * L;
+    const float* qrow = qm + (long long)qid * L;
+    for (int x = threadIdx.x; x < 2 * S; x += blockDim.x) {
+      base[x] = x == seed ? 0.0f : KVM_BIG;  // D_{-2}[r] = 0 seeds (0, 0)
+      if (DS) base[2 * S + x] = 0.0f;
+    }
+    __syncthreads();
+    for (int s = 0; s < 2 * L - 1; ++s) {
+      const int c = s & 1;
+      const int p = (s + r) & 1;
+      float* cur = base + c * S;
+      const float* prev = base + (1 - c) * S + p;
+      // The lanes k = p + 2x of this diagonal that hold a cell (i, j):
+      // i = (s + r - k) / 2 and j = s - i in [0, L).
+      const int k_lo = max(max(0, r - s), s + r - 2 * (L - 1));
+      const int k_hi = min(min(W - 1, s + r), 2 * (L - 1) + r - s);
+      const int x_lo = (k_lo - p + 1) >> 1;
+      const int x_hi = (k_hi - p) >> 1;
+      const int i0 = (s + r - p) >> 1;  // i of slot x is i0 - x
+      for (int x = x_lo + (int)threadIdx.x; x <= x_hi; x += blockDim.x) {
+        const int i = i0 - x;
+        const float df = arow[i] - qrow[s - i];
+        if constexpr (DS) {
+          float* curl = base + (2 + c) * S;
+          const float* prevl = base + (3 - c) * S + p;
+          float mh, ml, vh, vl;
+          ds_min(prev[x], prevl[x], prev[x + 1], prevl[x + 1], mh, ml);
+          ds_min(mh, ml, cur[x + 1], curl[x + 1], mh, ml);
+          ds_two_sum(mh, ml, df * df, 0.0f, vh, vl);
+          const bool ok = vh < KVM_BIG;
+          cur[x + 1] = ok ? vh : KVM_BIG;
+          curl[x + 1] = ok ? vl : 0.0f;
+        } else {
+          const float mn = fminf(fminf(prev[x], prev[x + 1]), cur[x + 1]);
+          cur[x + 1] = fminf(df * df + mn, KVM_BIG);
+        }
+      }
+      __syncthreads();
+    }
+    if (threadIdx.x == 0) {  // cell (L - 1, L - 1): lane r of carry 0
+      out[b] = base[seed];
+      if (DS) out_lo[b] = base[2 * S + seed];
+    }
+    __syncthreads();  // the carries are rewritten for the next row
   }
 }
 
@@ -707,18 +794,38 @@ static int warp_chunk(int W) {
 // more take NB = ceil(G / 32) blocks of a cluster, at most
 // KVM_K3_MAX_CLUSTER (the portable cluster size), with G rounded up to a
 // multiple of NB (the extra warps hold lanes past the band, which stay
-// BIG): r <= 106,495 (ops/dtw.py:K3_MAX_R).
+// BIG): r <= 106,495 (ops/dtw.py:K3_MAX_R).  A wider band (NB > 8) takes
+// the global form.
 #define KVM_K3_MAX_CLUSTER 8
-static int k3_shape(int r, int* C, int* G, int* NB) {
+static void k3_shape(int r, int* C, int* G, int* NB) {
   const int W = 2 * r + 1;
   *NB = 1;
   *G = W <= 32 * 30 ? 1 : (W + 32 * 26 - 1) / (32 * 26);
   if (*G > KVM_K3_MAX_WARPS_PER_ROW) {
     *NB = (*G + KVM_K3_MAX_WARPS_PER_ROW - 1) / KVM_K3_MAX_WARPS_PER_ROW;
-    if (*NB > KVM_K3_MAX_CLUSTER) return (int)cudaErrorInvalidValue;
     *G = (*G + *NB - 1) / *NB * *NB;
   }
   *C = *G > 1 ? 26 : warp_chunk(W);
+}
+
+// The global form's grid (the blocks resident at once, at most B) and the
+// floats of its workspace; 0 floats when the band takes another form.
+template <bool DS>
+static int diag_global_plan(int B, int r, int* grid, long long* floats) {
+  int C = 0, G = 0, NB = 0;
+  k3_shape(r, &C, &G, &NB);
+  *grid = 0;
+  *floats = 0;
+  if (NB <= KVM_K3_MAX_CLUSTER) return 0;
+  int optin = 0, sms = 0, per_sm = 0;
+  int err = device_limits(&optin, &sms);
+  if (err) return err;
+  err = (int)cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+      &per_sm, dtw_diag_global_kernel<DS>, KVM_DTW_THREADS, 0);
+  if (err) return err;
+  if (per_sm < 1) return (int)cudaErrorInvalidConfiguration;
+  *grid = (int)(B < (long long)per_sm * sms ? B : (long long)per_sm * sms);
+  *floats = (long long)*grid * (DS ? 4 : 2) * (r + 3);
   return 0;
 }
 
@@ -797,36 +904,68 @@ static int dispatch_diag(int C, int G, int NB, const float* a,
   return (int)cudaErrorInvalidValue;
 }
 
-// K3 (out_lo == nullptr) or DS (hi to out, lo to out_lo).
+// K3 (out_lo == nullptr) or DS (hi to out, lo to out_lo).  The global form
+// needs a workspace of the floats kvm_dtw_diag_workspace / _ds_workspace
+// report.
 template <bool DS>
 static int run_diag(const void* a, const void* qm, const void* qids, int B,
-                    int L, int Q, int r, void* out, void* out_lo,
-                    void* stream) {
+                    int L, int Q, int r, void* out, void* out_lo, void* ws,
+                    long long ws_floats, void* stream) {
   if (bad_args(B, L, Q, r)) return (int)cudaErrorInvalidValue;
   int C = 0, G = 0, NB = 0;
-  const int err = k3_shape(r, &C, &G, &NB);
-  if (err) return err;
+  k3_shape(r, &C, &G, &NB);
   const float* fa = (const float*)a;
   const float* fq = (const float*)qm;
   const int* fi = (const int*)qids;
   float* o = (float*)out;
   float* ol = (float*)out_lo;
   cudaStream_t s = (cudaStream_t)stream;
+  if (NB > KVM_K3_MAX_CLUSTER) {
+    int grid = 0;
+    long long need = 0;
+    const int err = diag_global_plan<DS>(B, r, &grid, &need);
+    if (err) return err;
+    if (ws == nullptr || ws_floats < need) return (int)cudaErrorInvalidValue;
+    dtw_diag_global_kernel<DS><<<grid, KVM_DTW_THREADS, 0, s>>>(
+        fa, fq, fi, B, L, Q, r, (float*)ws, o, ol);
+    return (int)cudaGetLastError();
+  }
   return (r & 1)
       ? dispatch_diag<1, DS>(C, G, NB, fa, fq, fi, B, L, Q, r, o, ol, s)
       : dispatch_diag<0, DS>(C, G, NB, fa, fq, fi, B, L, Q, r, o, ol, s);
 }
 
+template <bool DS>
+static int diag_workspace(int B, int L, int Q, int r, long long* floats) {
+  if (bad_args(B, L, Q, r)) return (int)cudaErrorInvalidValue;
+  int grid = 0;
+  return diag_global_plan<DS>(B, r, &grid, floats);
+}
+
+// Floats of workspace kvm_dtw_diag / kvm_dtw_ds need (0: none).
+extern "C" int kvm_dtw_diag_workspace(int B, int L, int Q, int r,
+                                      long long* floats) {
+  return diag_workspace<false>(B, L, Q, r, floats);
+}
+
+extern "C" int kvm_dtw_ds_workspace(int B, int L, int Q, int r,
+                                    long long* floats) {
+  return diag_workspace<true>(B, L, Q, r, floats);
+}
+
 extern "C" int kvm_dtw_diag(const void* a, const void* qm, const void* qids,
-                            int B, int L, int Q, int r, void* out,
-                            void* stream) {
-  return run_diag<false>(a, qm, qids, B, L, Q, r, out, nullptr, stream);
+                            int B, int L, int Q, int r, void* out, void* ws,
+                            long long ws_floats, void* stream) {
+  return run_diag<false>(a, qm, qids, B, L, Q, r, out, nullptr, ws, ws_floats,
+                         stream);
 }
 
 extern "C" int kvm_dtw_ds(const void* a, const void* qm, const void* qids,
                           int B, int L, int Q, int r, void* out_hi,
-                          void* out_lo, void* stream) {
-  return run_diag<true>(a, qm, qids, B, L, Q, r, out_hi, out_lo, stream);
+                          void* out_lo, void* ws, long long ws_floats,
+                          void* stream) {
+  return run_diag<true>(a, qm, qids, B, L, Q, r, out_hi, out_lo, ws,
+                        ws_floats, stream);
 }
 
 // K4's launch: the one-warp form (C > 0) when a warp holds the band, else

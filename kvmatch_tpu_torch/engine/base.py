@@ -9,7 +9,13 @@ runs on tensors of an explicit device, the current CUDA device unless the
 caller passes ``device="cpu"``:
 
 * ``__init__``: f64 host shadow + f32 device tensor of the series; an index
-  built on the host when none is given.
+  built with the device bucket pass (index/build.py:
+  build_index_device_buckets) when none is given.  ``device_data="stream"``
+  keeps no series on the device (a series larger than device memory): phase
+  1 runs on the host over a prebuilt index and phase 2 stages the candidate
+  runs of each batch to the device (``_verify_multi_streamed``).
+  ``device_data="host"`` (``host_only``) uses no device at all: small loads
+  take the exact f64 host route, larger ones raise.
 * ``data_envelope_dev``: the series' Sakoe-Chiba envelope for the DTW
   cascade, cached per band radius (``_run_chunked`` drives that cascade's
   stages over unpadded chunks).
@@ -26,8 +32,7 @@ caller passes ``device="cpu"``:
 
 Subclasses provide the hooks ``_plan_inputs`` and ``_cost_batch_multi``
 (planning), ``_scan``, ``_combine``, ``_intersect_native`` and ``_scan_join``
-(host phase 1) and ``_verify_multi`` (phase 2).  Streamed and host-only modes (``device_data='stream'|
-'host'``) are not ported yet (ROADMAP queue-1 item 11).
+(host phase 1) and ``_verify_multi`` (phase 2).
 """
 
 from __future__ import annotations
@@ -44,7 +49,7 @@ from .. import backend, native
 from .. import verify as vf
 from ..config import (DEFAULT_INDEX_CONFIG, DEFAULT_QUERY_CONFIG, IndexConfig,
                       QueryConfig)
-from ..index.build import build_index_host
+from ..index.build import build_index_device_buckets
 from ..index.structure import Index, IndexScale
 from ..ops.probe import FLAG
 from ..ops.regions import coalesce_intervals, pack_regions
@@ -54,7 +59,7 @@ from ..parallel.query import (FLY_FILL, dense_probe_flags, fly_pad_for,
                               pack_segments_batch)
 from ..plan import (QuerySegment, determine_query_plan,
                     determine_query_plans_batched)
-from ..state import series_to_device
+from ..state import host_series, series_to_device
 from ..utils import intervals as iv
 from ..utils.sparse_prefix import sparse_prefixes
 
@@ -124,7 +129,15 @@ class _Ctx:
 
 
 class BaseEngine:
-    """Series (f64 on host + f32 on ``device``) and the index."""
+    """Series (f64 on host + f32 on ``device``) and the index.
+
+    ``device_data``: the series' f32 tensor when the caller holds it on a
+    device already; ``"stream"`` to keep no series on the device (phase 2
+    stages candidate runs per batch; an index must be given, and f32 host
+    data stays f32: no f64 copy of a series larger than device memory); or
+    ``"host"`` for no device at all (``host_only``: the exact f64 host
+    route for small candidate loads, larger loads raise).  The reference
+    for the modes is kvmatch_tpu/engine/base.py:107-145."""
 
     use_dtw_cost_model = False
     FLAG_BLOCK = FLAG
@@ -134,28 +147,41 @@ class BaseEngine:
     def __init__(self, data: np.ndarray, index: Index | None = None,
                  icfg: IndexConfig = DEFAULT_INDEX_CONFIG,
                  qcfg: QueryConfig = DEFAULT_QUERY_CONFIG,
-                 device_data: torch.Tensor | None = None, device=None):
-        if isinstance(device_data, str):
-            raise ValueError(f"device_data={device_data!r}: streamed and "
-                             f"host-only modes are not ported")
-        if device_data is not None:
-            device = device_data.device
-        self.device = backend.resolve_device(device)
-        if device_data is None:
-            self.data, device_data = series_to_device(data, self.device)
-        else:
-            self.data = np.ascontiguousarray(np.asarray(data, np.float64))
-            if (device_data.dtype != torch.float32
-                    or tuple(device_data.shape) != (self.data.size,)
-                    or not device_data.is_contiguous()):
-                raise ValueError("device_data must be a contiguous float32 "
-                                 "tensor of the series' length")
-        self.data_dev = device_data
-        self.n = self.data.size
+                 device_data: torch.Tensor | str | None = None, device=None):
+        mode = device_data if isinstance(device_data, str) else None
+        if mode not in (None, "stream", "host"):
+            raise ValueError(f"device_data={device_data!r}: pass the series' "
+                             f"tensor, 'stream' or 'host'")
+        self.host_only = mode == "host"
         self.icfg = icfg
         self.qcfg = qcfg
+        if mode is not None:
+            if index is None:
+                raise ValueError(
+                    f"device_data={mode!r} requires a prebuilt index (build "
+                    f"it with index.device_build.build_index_device or "
+                    f"index.build.build_index_device_buckets)")
+            self.device = None if self.host_only else \
+                backend.resolve_device(device)
+            self.data = host_series(data, keep_f32=True)
+            self.data_dev = None
+        else:
+            if device_data is not None:
+                device = device_data.device
+            self.device = backend.resolve_device(device)
+            if device_data is None:
+                self.data, device_data = series_to_device(data, self.device)
+            else:
+                self.data = host_series(data)
+                if (device_data.dtype != torch.float32
+                        or tuple(device_data.shape) != (self.data.size,)
+                        or not device_data.is_contiguous()):
+                    raise ValueError("device_data must be a contiguous "
+                                     "float32 tensor of the series' length")
+            self.data_dev = device_data
+        self.n = self.data.size
         self.index = index if index is not None else \
-            build_index_host(self.data, icfg)
+            build_index_device_buckets(self.data, icfg, device=self.device)
 
     # ------------------------------------------------------------ helpers
     def _dev(self, a, dtype) -> torch.Tensor:
@@ -506,6 +532,157 @@ class BaseEngine:
             return self._verify_gather(cand_ivs, ctxs)
         return self._verify_regions(cand_ivs, ctxs, region)
 
+    # ------------------------------------------------------- streamed phase 2
+    #: Staged points per verification group: 1 GB of f32 on the device and
+    #: 2 GB of f64 on the host.  Groups beyond it are verified one by one.
+    STREAM_MAX_STAGE = 1 << 28
+
+    def _verify_multi_streamed(self, cand_ivs, ctxs):
+        """Phase 2 for a series larger than device memory
+        (device_data="stream"); port of kvmatch_tpu/engine/base.py:
+        _verify_multi_streamed.
+
+        The candidate intervals of all queries are coalesced into runs; each
+        run is staged with halos (rho for the DTW envelopes, a region-width
+        tail for the packed-region route) into a compact host buffer, copied
+        to the device once per group (a pinned f32 buffer, non_blocking on
+        the current stream), and verified by a sub-engine of the same class
+        on the parent's device, in local coordinates: the whole device
+        cascade runs unchanged, because every read a valid candidate makes
+        stays inside its own staged run.  Halos past the series' edges
+        replicate the boundary point, which reproduces the clamped global
+        envelope exactly.  Groups are cut under STREAM_MAX_STAGE staged
+        points.  ``stream_counts`` holds the last call's groups, staged
+        points and bytes, and the seconds of host staging, the copy to the
+        device and the verification."""
+        L = ctxs[0].length
+        if self.host_only:
+            total = sum(int(np.sum(r - l + 1)) for l, r in cand_ivs if l.size)
+            raise RuntimeError(
+                f"host-only engine: candidate load ({total} offsets x L={L}) "
+                f"exceeds host_verify_max_points="
+                f"{self.qcfg.host_verify_max_points} and the host prefilter "
+                f"tier; phase 2 would need the device (device_data='stream')")
+        rho = int(ctxs[0].params.get("rho", 0) or 0)
+        halo = rho
+        # Gap/tail >= any region width _region_plan can pick (next_pow2(L)),
+        # so per-query region packing never crosses staged-run boundaries and
+        # region-row tail reads stay inside the buffer (masked columns).
+        G = 1 << int(np.ceil(np.log2(max(L, 2 * self.REGION_M))))
+        tail = L - 1 + G + halo
+        counts = dict(groups=0, staged_points=0, staged_bytes=0,
+                      host_stage_s=0.0, h2d_s=0.0, verify_s=0.0)
+        self.stream_counts = counts
+        nz = [(l, r) for l, r in cand_ivs if l.size]
+        if not nz:
+            return [_EMPTY for _ in ctxs]
+        alll = np.concatenate([l for l, _ in nz])
+        allr = np.concatenate([r for _, r in nz])
+        order = np.argsort(alll, kind="stable")
+        alll, allr = alll[order], np.maximum.accumulate(allr[order])
+        new = np.empty(alll.size, bool)
+        new[0] = True
+        np.greater(alll[1:], allr[:-1] + G, out=new[1:])
+        starts = np.flatnonzero(new)
+        run_lo = alll[starts]
+        run_hi = allr[np.concatenate((starts[1:] - 1, [alll.size - 1]))]
+        stg_lo = run_lo - halo                      # virtual (may be < 0)
+        ext = (run_hi - stg_lo + 1) + tail          # staged length per run
+
+        # Split runs into groups under the staging budget (a single run wider
+        # than the budget still forms its own group).
+        bounds = [0]
+        acc = 0
+        for i, e in enumerate(ext):
+            if acc and acc + e > self.STREAM_MAX_STAGE:
+                bounds.append(i)
+                acc = 0
+            acc += int(e)
+        bounds.append(ext.size)
+
+        results = [[] for _ in ctxs]
+        acc_dev = [0] * len(ctxs)
+        acc_host = [0] * len(ctxs)
+        stages: dict = {}
+        for g0, g1 in zip(bounds[:-1], bounds[1:]):
+            t0 = time.perf_counter()
+            g_stg_lo = stg_lo[g0:g1]
+            g_ext = ext[g0:g1]
+            loc0 = np.concatenate(([0], np.cumsum(g_ext)[:-1]))
+            buf = np.empty(int(g_ext.sum()), np.float64)
+            for i in range(g_ext.size):
+                a = int(g_stg_lo[i])
+                b = a + int(g_ext[i])
+                dst = buf[int(loc0[i]): int(loc0[i]) + (b - a)]
+                s, e = max(a, 0), min(b, self.n)
+                dst[s - a: s - a + (e - s)] = self.data[s:e]
+                if s > a:
+                    dst[: s - a] = self.data[0]
+                if b > e:
+                    dst[e - a:] = self.data[self.n - 1]
+            host32 = torch.empty(buf.size, dtype=torch.float32,
+                                 pin_memory=self.device.type == "cuda")
+            host32.numpy()[:] = buf
+            t1 = time.perf_counter()
+            dev32 = host32.to(self.device, non_blocking=True)
+            if self.device.type == "cuda":
+                torch.cuda.synchronize(self.device)
+            t2 = time.perf_counter()
+            sub = self._stream_sub(buf, dev32)
+            lo_g, hi_g = int(run_lo[g0]), int(run_hi[g1 - 1])
+            local_ivs = []
+            for l, r in cand_ivs:
+                sel = (l >= lo_g) & (l <= hi_g) if l.size else np.zeros(0, bool)
+                li, ri = l[sel], r[sel]
+                ridx = np.searchsorted(run_lo[g0:g1], li, side="right") - 1
+                local_ivs.append((li - g_stg_lo[ridx] + loc0[ridx],
+                                  ri - g_stg_lo[ridx] + loc0[ridx]))
+            sub_res = sub._verify_multi(local_ivs, ctxs)
+            counts["verify_s"] += time.perf_counter() - t2
+            counts["host_stage_s"] += t1 - t0
+            counts["h2d_s"] += t2 - t1
+            counts["groups"] += 1
+            counts["staged_points"] += buf.size
+            counts["staged_bytes"] += 4 * buf.size
+            for k, v in getattr(sub, "stage_counts", {}).items():
+                stages[k] = (stages.get(k, False) or v) if isinstance(v, bool) \
+                    else stages.get(k, 0) + v
+            for qi, (lo_offs, dists) in enumerate(sub_res):
+                acc_dev[qi] += ctxs[qi].stats.n_device_checked
+                acc_host[qi] += ctxs[qi].stats.n_host_rechecked
+                if lo_offs.size:
+                    ridx = np.searchsorted(loc0, lo_offs, side="right") - 1
+                    results[qi].append((lo_offs - loc0[ridx] + g_stg_lo[ridx],
+                                        dists))
+        if stages:
+            self.stage_counts = stages
+        out = []
+        for qi, parts in enumerate(results):
+            ctxs[qi].stats.n_device_checked = acc_dev[qi]
+            ctxs[qi].stats.n_host_rechecked = acc_host[qi]
+            if parts:
+                out.append((np.concatenate([p[0] for p in parts]),
+                            np.concatenate([p[1] for p in parts])))
+            else:
+                out.append(_EMPTY)
+        return out
+
+    def _stream_sub(self, buf: np.ndarray, dev32: torch.Tensor):
+        """An engine of this class over one staged group (host f64 ``buf``,
+        its f32 copy ``dev32`` on the parent's device), built without
+        ``__init__``: it holds every attribute the phase-2 routes read, and
+        no index (phase 1 has run)."""
+        sub = object.__new__(type(self))
+        sub.icfg = self.icfg
+        sub.qcfg = self.qcfg
+        sub.host_only = False
+        sub.device = self.device
+        sub.data = buf
+        sub.data_dev = dev32
+        sub.n = buf.size
+        sub.index = {}
+        return sub
+
     # ------------------------------------------------------------------ phase 1
     def _phase1(self, segments: List[QuerySegment], ctx: _Ctx
                 ) -> Tuple[Dict[str, np.ndarray], int]:
@@ -517,6 +694,14 @@ class BaseEngine:
         last_estimate = float("inf")
         cost_a = qcfg.phase2_cost_a_dtw if self.use_dtw_cost_model else qcfg.phase2_cost_a
         cost_b = qcfg.phase2_cost_b_dtw if self.use_dtw_cost_model else qcfg.phase2_cost_b
+        if self.host_only:
+            # The per-offset slopes are calibrated for the device verify;
+            # the host-only route verifies through the sparse-prefix
+            # prefilters and exact f64 kernels at roughly host_cost_scale
+            # times the per-offset cost, so early termination probes
+            # further before handing a flood to the slow route (phase 2 is
+            # exact either way).
+            cost_b *= qcfg.host_cost_scale
         est2_now = float("inf")  # phase-2 estimate of the CURRENT cs
         for i, seg in enumerate(segments):
             # Marginal-scan termination (see QueryConfig): the NEXT scan's
@@ -604,6 +789,7 @@ class BaseEngine:
                         cost_b * n_offsets / 1e5 * ctx.length +
                         qcfg.phase2_cost_intercept)
                 if (qcfg.phase2_cost_region is not None
+                        and self.data_dev is not None
                         and not self.use_dtw_cost_model):
                     # Clustered candidates take the region route (see
                     # QueryConfig.phase2_cost_region): flat per-offset rate,
@@ -634,7 +820,11 @@ class BaseEngine:
     def _dense_route(self, segments) -> bool:
         """True when phase 1 should run as the device dense probe: even the
         most selective plan segment is dense enough that host interval
-        algebra would churn through 1e8-interval intermediates."""
+        algebra would churn through 1e8-interval intermediates.  Never
+        without a resident series (streamed and host-only modes): phase 1
+        then stays on the host."""
+        if self.data_dev is None:
+            return False
         cutoff = self.qcfg.dense_probe_min_count
         return (cutoff is not None and bool(segments)
                 and min(s.count for s in segments) > cutoff)
@@ -833,7 +1023,11 @@ class BaseEngine:
         """Batched querying with phase 1 on the device for every query (the
         flag probe, DENSE_PROBE_GROUP queries per pass), then the engine's
         batched verification.  ``top_k`` is kept for API compatibility.
-        ``stats.n_candidates`` is the probe's exact candidate count."""
+        ``stats.n_candidates`` is the probe's exact candidate count.  With
+        no resident series to probe (streamed and host-only modes) this is
+        ``query_batch``: host phase 1, as the JAX package routes it."""
+        if self.data_dev is None:
+            return self.query_batch(queries, epsilon, **params)
         queries = np.atleast_2d(np.asarray(queries, np.float64))
         nq, L = queries.shape
         eps = np.broadcast_to(np.asarray(epsilon, np.float64), (nq,))

@@ -48,10 +48,57 @@ class NormQueryEngineDtw(NormQueryEngine):
                 unit_sums(env_hi, self.icfg.unit), self._cost_batch(ctx))
 
     # ---------------------------------------------------------------- phase 2
+    def _host_zdtw_prefilter_tier(self, cand_ivs, ctxs):
+        """Host-only mid-size loads: the run-local constraint prefilter and
+        the z-space PAA envelope bound prune the load to what the exact f64
+        pipeline can verify; None when the load is outside the tier or too
+        many candidates survive (kvmatch_tpu/engine/norm_dtw.py:200)."""
+        L = ctxs[0].length
+        pre = self._host_prefilter_prefix(cand_ivs, L, want_sq=True)
+        if pre is None:
+            return None
+        surv = []
+        for (l, r), c in zip(cand_ivs, ctxs):
+            offs = iv.expand_offsets({"left": l, "right": r})
+            c.stats.n_host_checked = int(offs.size)
+            offs = self._constraint_prefilter(offs, c, prefix=pre)
+            zq = (c.query - c.params["_mu_q"]) / c.params["_sd_q"]
+            blk = paa_env_blocks(*envelope(zq, c.params["rho"]), L)
+            if blk is not None and offs.size:
+                offs = self._paa_z_prefilter(offs, c, c.eps2, env=blk,
+                                             prefix=pre)
+            surv.append(offs)
+        if sum(o.size for o in surv) * L > self.qcfg.host_confirm_max_points:
+            return None
+        return [self._host_confirm_sorted(o, c) for o, c in zip(surv, ctxs)]
+
+    def _host_confirm_sorted(self, offs: np.ndarray, ctx: _Ctx):
+        """The exact pipeline ``_confirm_dtw`` (window stats, constraints,
+        the early-abandoning f64 z-DP) of a host-only engine, by offset."""
+        o, d = self._confirm_dtw(offs, ctx)
+        order = np.argsort(o)
+        return o[order], d[order]
+
     def _verify_multi(self, cand_ivs, ctxs):
         """Fused multi-query cNSM-DTW: exact host constraint prefilter, then
-        the z-normalized cascade with a query row per candidate."""
+        the z-normalized cascade with a query row per candidate.  A
+        host-only engine takes the exact host pipeline (a tiny load) or the
+        host prefilter tier; with no resident series the batch is
+        streamed."""
         L = ctxs[0].length
+        if self.host_only:
+            if self._host_verify_ok(cand_ivs, L):
+                out = []
+                for (l, r), c in zip(cand_ivs, ctxs):
+                    offs = iv.expand_offsets({"left": l, "right": r})
+                    c.stats.n_host_checked = int(offs.size)
+                    out.append(self._host_confirm_sorted(offs, c))
+                return out
+            tier = self._host_zdtw_prefilter_tier(cand_ivs, ctxs)
+            if tier is not None:
+                return tier
+        if self.data_dev is None:
+            return self._verify_multi_streamed(cand_ivs, ctxs)
         rho = ctxs[0].params["rho"]
         threshs = self._guarded_threshs(ctxs)
         self.stage_counts = dict(candidates=candidate_count(cand_ivs))

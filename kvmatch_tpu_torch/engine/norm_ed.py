@@ -264,10 +264,12 @@ class NormQueryEngine(BaseEngine):
 
     # ---------------------------------------------------------------- phase 2
     def _cumsums(self):
-        """Cached f64 prefix sums of data and data^2."""
+        """Cached f64 prefix sums of data and data^2 (in f64 also for a
+        streamed engine's f32 series)."""
         if not hasattr(self, "_c1"):
-            self._c1 = np.concatenate(([0.0], np.cumsum(self.data)))
-            self._c2 = np.concatenate(([0.0], np.cumsum(self.data * self.data)))
+            x = self.data.astype(np.float64, copy=False)
+            self._c1 = np.concatenate(([0.0], np.cumsum(x)))
+            self._c2 = np.concatenate(([0.0], np.cumsum(x * x)))
         return self._c1, self._c2
 
     def _paa_z_prefilter(self, offsets: np.ndarray, ctx: _Ctx,
@@ -334,9 +336,30 @@ class NormQueryEngine(BaseEngine):
                (std >= sd_q / alpha * (1 - 1e-9) - g) & (std > 0)
         return offsets[keep]
 
+    def _host_znorm_prefilter_tier(self, cand_ivs, ctxs):
+        """Host-only mid-size loads: the run-local constraint and z-PAA
+        prefilters prune the load to what the exact f64 z-norm kernel can
+        verify; None when the load is outside the tier or too many
+        candidates survive (kvmatch_tpu/engine/norm_ed.py:435)."""
+        L = ctxs[0].length
+        pre = self._host_prefilter_prefix(cand_ivs, L, want_sq=True)
+        if pre is None:
+            return None
+        surv = []
+        for (l, r), c in zip(cand_ivs, ctxs):
+            offs = iv.expand_offsets({"left": l, "right": r})
+            c.stats.n_host_checked = int(offs.size)
+            offs = self._constraint_prefilter(offs, c, prefix=pre)
+            surv.append(self._paa_z_prefilter(offs, c, c.eps2, prefix=pre))
+        if sum(o.size for o in surv) * L > self.qcfg.host_confirm_max_points:
+            return None
+        return [self._confirm_znorm_exact(o, c) for o, c in zip(surv, ctxs)]
+
     def _verify_multi(self, cand_ivs, ctxs):
         """Multi-query z-norm verification: the exact f64 host kernel for a
-        tiny load, else the device routes of BaseEngine._verify_routed."""
+        tiny load; on a host-only engine the host prefilter tier; with no
+        resident series the streamed route; else the device routes of
+        BaseEngine._verify_routed."""
         L = ctxs[0].length
         if self._host_verify_ok(cand_ivs, L):
             # Tiny load: prefilters from prefix sums + the exact f64 host
@@ -355,6 +378,12 @@ class NormQueryEngine(BaseEngine):
                         c, c.eps2, prefix=prefix)
                 out.append(self._confirm_znorm_exact(offs, c))
             return out
+        if self.host_only:
+            tier = self._host_znorm_prefilter_tier(cand_ivs, ctxs)
+            if tier is not None:
+                return tier
+        if self.data_dev is None:
+            return self._verify_multi_streamed(cand_ivs, ctxs)
         return self._verify_routed(cand_ivs, ctxs)
 
     def _qhats(self, ctxs) -> torch.Tensor:

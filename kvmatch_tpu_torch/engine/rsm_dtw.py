@@ -12,8 +12,9 @@ the cascade on the port's tensors:
     -> host f64 DP of the candidates inside the ``verify.ds_guard`` border.
 
 The helpers below (``paa_env_blocks``, ``lb_dp_near``, ``assemble``) are
-shared with the cNSM-DTW engine.  Host-only and streamed modes are not
-ported (``BaseEngine.__init__`` raises on them).
+shared with the cNSM-DTW engine.  A host-only engine verifies on the host
+(``_host_verify_dtw``, ``_host_dtw_prefilter_tier``); a streamed one stages
+each batch's candidate runs to the device (BaseEngine._verify_multi_streamed).
 """
 
 from __future__ import annotations
@@ -136,10 +137,70 @@ class QueryEngineDtw(QueryEngine):
 
         return self._chunked_confirm(border, piece)
 
+    def _host_verify_dtw(self, offsets: np.ndarray, ctx: _Ctx):
+        """Exact host verification of a host-only engine: the f64
+        query-envelope LB_Keogh prefilter, then the early-abandoning f64
+        banded DP, no device at all (kvmatch_tpu/engine/rsm_dtw.py:43)."""
+        ctx.stats.n_host_checked = int(offsets.size)
+        if offsets.size == 0:
+            return _EMPTY
+        rho = ctx.params["rho"]
+        lo, hi = envelope(ctx.query, rho)
+        cols = np.arange(ctx.length)
+
+        def piece(p):
+            x = self.data[p[:, None] + cols[None, :]].astype(
+                np.float64, copy=False)
+            exc = np.maximum(np.maximum(x - hi[None, :], lo[None, :] - x), 0.0)
+            lb = np.einsum("ij,ij->i", exc, exc)
+            keep = lb <= ctx.eps2 * (1.0 + 1e-9) + 1e-9
+            d2 = np.full(p.size, np.inf)
+            if keep.any():
+                d2[keep] = dtw_banded_batch_f64(x[keep], ctx.query, rho,
+                                                ub=ctx.eps2)
+            ans = d2 <= ctx.eps2
+            return p[ans], np.sqrt(d2[ans])
+
+        return self._chunked_confirm(offsets, piece)
+
+    def _host_dtw_prefilter_tier(self, cand_ivs, ctxs):
+        """Host-only mid-size loads: the run-local PAA envelope bound (valid
+        for banded DTW, PaaUcrDtwQueryExecutor.java:413) prunes the load to
+        what the exact f64 route can verify; None when the load is outside
+        the tier or too many candidates survive
+        (kvmatch_tpu/engine/rsm_dtw.py:72)."""
+        L = ctxs[0].length
+        pre = self._host_prefilter_prefix(cand_ivs, L, want_sq=False)
+        if pre is None:
+            return None
+        surv = []
+        for (l, r), c in zip(cand_ivs, ctxs):
+            offs = iv.expand_offsets({"left": l, "right": r})
+            blk = paa_env_blocks(*envelope(c.query, c.params["rho"]), L)
+            if blk is not None and offs.size:
+                offs = self._paa_prefilter(offs, c, float(c.eps2), env=blk,
+                                           prefix=pre[0])
+            surv.append(offs)
+        if sum(o.size for o in surv) * L > self.qcfg.host_confirm_max_points:
+            return None
+        return [self._host_verify_dtw(o, c) for o, c in zip(surv, ctxs)]
+
     def _verify_multi(self, cand_ivs, ctxs):
         """Fused multi-query DTW verification: one cascade for the batch,
-        with a query row per candidate."""
+        with a query row per candidate.  A host-only engine takes the exact
+        host route (a tiny load) or the host prefilter tier; with no
+        resident series the batch is streamed."""
         L = ctxs[0].length
+        if self.host_only:
+            if self._host_verify_ok(cand_ivs, L):
+                return [self._host_verify_dtw(
+                    iv.expand_offsets({"left": l, "right": r}), c)
+                    for (l, r), c in zip(cand_ivs, ctxs)]
+            tier = self._host_dtw_prefilter_tier(cand_ivs, ctxs)
+            if tier is not None:
+                return tier
+        if self.data_dev is None:
+            return self._verify_multi_streamed(cand_ivs, ctxs)
         rho = ctxs[0].params["rho"]
         threshs = self._guarded_threshs(ctxs)
         self.stage_counts = dict(candidates=candidate_count(cand_ivs))

@@ -146,7 +146,9 @@ class QueryEngine(BaseEngine):
             c1 = prefix
         else:
             if not hasattr(self, "_c1_paa"):
-                self._c1_paa = np.concatenate(([0.0], np.cumsum(self.data)))
+                # f64 sums also of a streamed engine's f32 series
+                self._c1_paa = np.concatenate(
+                    ([0.0], np.cumsum(self.data, dtype=np.float64)))
             c1 = self._c1_paa
         if env is None:
             qb = ctx.params.get("_q_blk")
@@ -167,9 +169,29 @@ class QueryEngine(BaseEngine):
             lb[s: s + CHUNK] = c * np.einsum("ij,ij->i", d, d)
         return offsets[lb <= thresh * (1.0 + 1e-9) + 1e-9]
 
+    def _host_ed_prefilter_tier(self, cand_ivs, ctxs):
+        """Host-only mid-size loads: the run-local PAA lower bound prunes
+        the load to what the exact f64 kernel can verify; None when the load
+        is outside the tier (QueryConfig.host_prefilter_max_offsets) or too
+        many candidates survive (kvmatch_tpu/engine/rsm_ed.py:191)."""
+        L = ctxs[0].length
+        pre = self._host_prefilter_prefix(cand_ivs, L, want_sq=False)
+        if pre is None:
+            return None
+        surv = []
+        for (l, r), c in zip(cand_ivs, ctxs):
+            offs = iv.expand_offsets({"left": l, "right": r})
+            c.stats.n_host_checked = int(offs.size)
+            surv.append(self._paa_prefilter(offs, c, c.eps2, prefix=pre[0]))
+        if sum(o.size for o in surv) * L > self.qcfg.host_confirm_max_points:
+            return None
+        return [self._confirm_ed(o, c) for o, c in zip(surv, ctxs)]
+
     def _verify_multi(self, cand_ivs, ctxs):
         """Multi-query verification: the exact f64 host kernel for a tiny
-        load, else the device routes of BaseEngine._verify_routed."""
+        load; on a host-only engine the host prefilter tier; with no
+        resident series the streamed route; else the device routes of
+        BaseEngine._verify_routed."""
         L = ctxs[0].length
         if self._host_verify_ok(cand_ivs, L):
             # Tiny load: PAA prefilter + the exact f64 host kernel, no device
@@ -187,6 +209,12 @@ class QueryEngine(BaseEngine):
                     offs = self._paa_prefilter(offs, c, c.eps2, prefix=prefix)
                 out.append(self._confirm_ed(offs, c))
             return out
+        if self.host_only:
+            tier = self._host_ed_prefilter_tier(cand_ivs, ctxs)
+            if tier is not None:
+                return tier
+        if self.data_dev is None:
+            return self._verify_multi_streamed(cand_ivs, ctxs)
         return self._verify_routed(cand_ivs, ctxs)
 
     def _verify_regions(self, cand_ivs, ctxs, region):

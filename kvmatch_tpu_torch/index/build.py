@@ -1,16 +1,17 @@
-"""KV-index construction on the host: the fused C bucket pass and the
-vectorized row grouping and merge.
+"""KV-index construction: a bucket pass, then vectorized host grouping.
 
-A copy of the host route of kvmatch_tpu/index/build.py
-(``build_index_tpu(backend="host")``, here ``build_index_host``), the
-reference's IndexBuilder (IndexBuilder.java:47-350) redesigned: one float64
-prefix-sum pass gives the mean-bucket ids of every scale, and run-length
-encoding, row grouping and the variable-width merge policy are O(n) passes
-in C with NumPy fallbacks.  The merge policy (IndexBuilder.java:308-346) and
-the 256-offset interval cap (IndexNode.java:31, IndexBuilder.java:268) are
-reproduced, so the index equals the JAX package's host build.  Positions are
-0-based window starts (the reference stores 1-based `loc`,
-IndexBuilder.java:259).
+A copy of kvmatch_tpu/index/build.py, the reference's IndexBuilder
+(IndexBuilder.java:47-350) redesigned: one pass gives the mean-bucket ids of
+every scale, and run-length encoding, row grouping and the variable-width
+merge policy are O(n) passes in C with NumPy fallbacks.  The bucket pass runs
+on the host in float64 (``compute_buckets_host``, ``build_index_host``) or
+on the device in f32 (``compute_buckets_device``,
+``build_index_device_buckets``: the JAX package's ``compute_buckets_tpu`` and
+``build_index_tpu``, and the engines' default index).  The merge policy
+(IndexBuilder.java:308-346) and the 256-offset interval cap (IndexNode.java:31,
+IndexBuilder.java:268) are reproduced, so each index equals the JAX
+package's from the same pass.  Positions are 0-based window starts (the
+reference stores 1-based `loc`, IndexBuilder.java:259).
 """
 
 from __future__ import annotations
@@ -20,7 +21,9 @@ import time
 from typing import Dict, Optional
 
 import numpy as np
+import torch
 
+from ..backend import resolve_device
 from ..config import DEFAULT_INDEX_CONFIG, IndexConfig
 from ..utils import rounding
 from .structure import Index, IndexScale
@@ -244,6 +247,88 @@ def build_index_host(data, cfg: IndexConfig = DEFAULT_INDEX_CONFIG,
     n = data.size
     t0 = time.perf_counter()
     index = build_index_from_buckets(compute_buckets_host(data, cfg), n, cfg)
+    if stats is not None:
+        total = time.perf_counter() - t0
+        stats.update(build_seconds=total,
+                     mpts_per_second=n * len(cfg.scales) / max(total, 1e-9) / 1e6)
+    return index
+
+
+def compute_buckets_device(data, cfg: IndexConfig = DEFAULT_INDEX_CONFIG,
+                           chunk: Optional[int] = None,
+                           stats: Optional[dict] = None,
+                           device=None) -> Dict[int, np.ndarray]:
+    """Device doubling-kernel bucket pass (ops/sliding.build_buckets, f32 on
+    ``device``, the current CUDA device unless ``device="cpu"``), chunked
+    with w_max - 1 right halos; port of
+    kvmatch_tpu/index/build.py:compute_buckets_tpu.
+
+    The halo discipline mirrors the MapReduce mapper's region-left extension
+    (BuildIndexMapReduce.java:215-226): chunk c covers window starts
+    [c*chunk, (c+1)*chunk) and reads w_max-1 extra points on the right.
+    Bucket ids equal the JAX pass's bit for bit.  ``stats`` gets the
+    seconds of the upload, the device pass and the copy back."""
+    from ..ops.sliding import build_buckets
+
+    data = np.asarray(data)
+    n = data.size
+    scales = tuple(cfg.scales)
+    w_max = max(scales)
+    chunk = chunk or cfg.build_chunk
+    dev = resolve_device(device)
+
+    def sync():
+        if dev.type == "cuda":
+            torch.cuda.synchronize(dev)
+
+    upload_s = exec_s = d2h_s = 0.0
+    parts: Dict[int, list] = {w: [] for w in scales}
+    for start in range(0, max(n - w_max + 1, 1), chunk):
+        stop = min(start + chunk + w_max - 1, n)
+        t0 = time.perf_counter()
+        piece = torch.as_tensor(data[start:stop], dtype=torch.float32,
+                                device=dev)
+        sync()
+        t1 = time.perf_counter()
+        out = build_buckets(piece, scales, cfg.pos_of_d)
+        sync()
+        t2 = time.perf_counter()
+        out = {w: v.cpu().numpy() for w, v in out.items()}
+        t3 = time.perf_counter()
+        upload_s += t1 - t0
+        exec_s += t2 - t1
+        d2h_s += t3 - t2
+        for w in scales:
+            # Window starts owned by this chunk: [start, min(start+chunk, n-w+1)).
+            owned = min(start + chunk, n - w + 1) - start
+            if owned > 0:
+                parts[w].append(out[w][:owned])
+        if stop == n:
+            break
+    if stats is not None:
+        stats["device_seconds"] = stats.get("device_seconds", 0.0) + exec_s
+        stats["upload_seconds"] = upload_s
+        stats["d2h_seconds"] = d2h_s
+    return {w: (np.concatenate(v) if len(v) > 1 else v[0])
+            for w, v in parts.items()}
+
+
+def build_index_device_buckets(data, cfg: IndexConfig = DEFAULT_INDEX_CONFIG,
+                               chunk: Optional[int] = None,
+                               stats: Optional[dict] = None,
+                               device=None) -> Index:
+    """Device bucket pass + host grouping; port of
+    kvmatch_tpu/index/build.py:build_index_tpu.
+
+    Runs ``compute_buckets_device`` on ``device`` (the current CUDA device
+    unless ``device="cpu"``); ``build_index_host`` is the same index from
+    the fused C pass on the CPU.  ``stats`` receives the build seconds and
+    Mpts/s, and the pass's seconds."""
+    data = np.asarray(data)
+    n = data.size
+    t0 = time.perf_counter()
+    buckets = compute_buckets_device(data, cfg, chunk, stats, device)
+    index = build_index_from_buckets(buckets, n, cfg)
     if stats is not None:
         total = time.perf_counter() - t0
         stats.update(build_seconds=total,

@@ -1,8 +1,8 @@
 """KV-index array layout: one ``IndexScale`` per window width in Sigma.
 
-A copy of kvmatch_tpu/index/structure.py without the device-resident
-interval view of the JAX package's full device build (ROADMAP queue-1
-item 10).  Array (CSR) re-design of the reference's row-oriented index
+A copy of kvmatch_tpu/index/structure.py, its device-resident interval view
+held as torch tensors on the build's device (index/device_build.py).  Array
+(CSR) re-design of the reference's row-oriented index
 (entity/IndexNode.java:29-159, operator/file/IndexFileOperator.java:127-164):
 
   keys      f64[R]     sorted ascending; key = lower edge of the mean range a row
@@ -32,14 +32,21 @@ class IndexScale:
     n: int
     keys: np.ndarray          # f64[R]
     row_ptr: np.ndarray       # i64[R+1]
-    left: np.ndarray          # i64[P], None for a stats-only scale
-    right: np.ndarray         # i64[P], None for a stats-only scale
+    left: np.ndarray          # i64[P] (None: stats-only, or lazy; see below)
+    right: np.ndarray         # i64[P]
     cum_intervals: np.ndarray  # i64[R]
     cum_offsets: np.ndarray   # i64[R]
     # Strict upper bound on every window mean in this scale (upper edge of the
     # highest occupied bucket) — closes the last row's mean range, which the
     # reference leaves open-ended (MeanIntervalUtils.java:109 returns +10000).
     mean_upper_bound: float = float("inf")
+
+    # Device-resident position-sorted interval view from the full device
+    # build (index/device_build.py): (p_left, p_right, p_row, n_pieces),
+    # int32 tensors of at least n_pieces entries, position-ordered.  When
+    # set, ``left``/``right`` may be constructed as None and are
+    # materialized on the host at first access.
+    dev_pos_view: tuple = None
 
     # Serving-mode scale (index/device_build.build_index_device_stats):
     # planner statistics only, NO intervals anywhere.  Host interval access
@@ -56,14 +63,62 @@ class IndexScale:
     # position-sorted view amortizes (BaseEngine._use_pos_view).
     gather_work: int = 0
 
+    def materialize_host(self) -> None:
+        """Pull the device interval view to the host and build the row-CSR
+        arrays (counting sort by row id; stability keeps position order).
+        Also seeds the position-sorted view, which the device view is."""
+        if self._left is not None or self.dev_pos_view is None:
+            return
+        p_l, p_r, p_row, np_pieces = self.dev_pos_view
+        # Slice on the device before the copy: the arrays are padded to
+        # n - min(scales) + 1 entries, np_pieces a fraction of that.
+        self.set_pos_arrays(*(t[:np_pieces].cpu().numpy()
+                              for t in (p_l, p_r, p_row)))
+
+    def set_pos_arrays(self, p_l, p_r, p_row) -> None:
+        """Install host interval arrays from a position-sorted piece view
+        (int32 or int64), building the row-CSR copies."""
+        from .. import native
+        p_l = np.asarray(p_l)
+        p_r = np.asarray(p_r)
+        p_row = np.asarray(p_row)
+        if p_l.dtype == np.int32 and p_row.size and self.num_rows:
+            # Device-built int32 pieces: one fused C pass (widen + counting
+            # scatter) instead of 3 astype passes + group_rows + 2 copies.
+            ip = native.install_pieces(p_l, p_r, p_row, self.num_rows)
+            if ip is not None:
+                l64, r64, row64, ol, orr = ip
+                self._pos_sorted = (l64, r64, row64)
+                self._left = ol
+                self._right = orr
+                return
+        p_l = p_l.astype(np.int64)
+        p_r = p_r.astype(np.int64)
+        p_row = p_row.astype(np.int64)
+        self._pos_sorted = (p_l, p_r, p_row)
+        grp = native.group_rows(p_row.astype(np.int32), p_l, p_r) \
+            if p_row.size else None
+        if grp is not None:
+            _, _, l_sorted, r_sorted = grp
+            self._left = l_sorted.copy()
+            self._right = r_sorted.copy()
+        else:
+            order = np.argsort(p_row, kind="stable")
+            self._left = p_l[order]
+            self._right = p_r[order]
+
     def pos_sorted(self) -> Tuple[np.ndarray, np.ndarray, np.ndarray]:
         """Position-sorted view (left, right, row_of_interval) of ALL intervals.
 
         Costly to materialize (O(T log R) C k-way merge over the row lists)
         and 24 bytes/interval to hold, so callers must only reach for it
         when per-row access cannot serve the scan; see
-        BaseEngine.POS_VIEW_MIN."""
+        BaseEngine.POS_VIEW_MIN.  Free when the device build's view is
+        present (its pieces come out position-ordered)."""
         if self._pos_sorted is None:
+            if self.dev_pos_view is not None:
+                self.materialize_host()
+                return self._pos_sorted
             from .. import native
             mr = native.merge_rows(self.row_ptr[:-1], self.row_ptr[1:],
                                    self.left, self.right)
@@ -81,7 +136,7 @@ class IndexScale:
 
     @property
     def has_pos_sorted(self) -> bool:
-        return self._pos_sorted is not None
+        return self._pos_sorted is not None or self.dev_pos_view is not None
 
     @property
     def num_rows(self) -> int:
@@ -90,6 +145,18 @@ class IndexScale:
     @property
     def num_intervals(self) -> int:
         return int(self.row_ptr[-1]) if self.row_ptr.size else 0
+
+    def memory_bytes(self) -> int:
+        """Bytes of the scale's arrays; counting never pulls the device
+        view."""
+        meta = sum(a.nbytes for a in (self.keys, self.row_ptr,
+                                      self.cum_intervals, self.cum_offsets))
+        if self.stats_only:
+            return meta  # no intervals exist anywhere
+        if self._left is not None:
+            return meta + self._left.nbytes + self._right.nbytes
+        # device-resident intervals: int32 left/right (+row) per piece
+        return meta + 12 * self.num_intervals
 
     def counts_between_batch(self, begin_round: np.ndarray, end_round: np.ndarray
                              ) -> Tuple[np.ndarray, np.ndarray]:
@@ -125,19 +192,26 @@ class IndexScale:
         return np.arange(i0, i1)
 
 
-def _interval_field(name: str):
-    """left/right read through a property: a stats-only scale holds none,
-    and host phase 1 must not run on it."""
+def _lazy_interval_field(name: str):
+    """left/right read through a property: a device-built scale stores them
+    as None and materializes host copies at first access (the interval copy
+    and the row-CSR counting sort happen only if a host path needs them); a
+    stats-only scale holds none, and host phase 1 must not run on it."""
     priv = "_" + name
 
     def get(self):
         v = getattr(self, priv)
-        if v is None and self.stats_only:
-            raise RuntimeError(
-                "stats-only index scale (build_index_device_stats) holds "
-                "no intervals: serve phase 1 through the device dense "
-                "probe (QueryConfig.dense_probe_min_count) or rebuild "
-                "with index.build.build_index_host")
+        if v is None:
+            if self.stats_only:
+                raise RuntimeError(
+                    "stats-only index scale (build_index_device_stats) holds "
+                    "no intervals: serve phase 1 through the device dense "
+                    "probe (QueryConfig.dense_probe_min_count) or rebuild "
+                    "with index.device_build.build_index_device or "
+                    "index.build.build_index_device_buckets")
+            if self.dev_pos_view is not None:
+                self.materialize_host()
+                v = getattr(self, priv)
         return v
 
     def set_(self, v):
@@ -146,8 +220,12 @@ def _interval_field(name: str):
     return property(get, set_)
 
 
-IndexScale.left = _interval_field("left")
-IndexScale.right = _interval_field("right")
+IndexScale.left = _lazy_interval_field("left")
+IndexScale.right = _lazy_interval_field("right")
 
 
 Index = Dict[int, IndexScale]
+
+
+def total_memory_bytes(index: Index) -> int:
+    return sum(s.memory_bytes() for s in index.values())

@@ -115,18 +115,18 @@ def lib() -> ctypes.CDLL:
             P, P, I, I,                 # offsets (int64), qids (int32), B, znorm
             P, P, P,                    # d2, mean, std
             P]                          # stream
-        for name, extra in (("kvm_dtw_diag", [P]), ("kvm_dtw_ds", [P, P]),
-                            ("kvm_dtw_rows", [P, P, L])):
-            fn = getattr(cdll, name)
+        for name, n_out in (("dtw_diag", 1), ("dtw_ds", 2), ("dtw_rows", 1)):
+            fn = getattr(cdll, f"kvm_{name}")
             fn.restype = I
             fn.argtypes = [P, P, P,     # rows (B, L), queries (Q, L), qids
                            I, I, I, I,  # B, L, Q, r (<= L - 1)
-                           *extra,      # outputs (B,) f32; K4: + workspace
-                           P]           # and its floats; stream
-        cdll.kvm_dtw_rows_workspace.restype = I
-        cdll.kvm_dtw_rows_workspace.argtypes = [
-            I, I, I, I,                 # B, L, Q, r
-            ctypes.POINTER(L)]          # out: floats of K4's workspace
+                           *[P] * n_out,  # outputs (B,) f32
+                           P, L,        # workspace and its floats
+                           P]           # stream
+            ws = getattr(cdll, f"kvm_{name}_workspace")
+            ws.restype = I
+            ws.argtypes = [I, I, I, I,  # B, L, Q, r
+                           ctypes.POINTER(L)]  # out: floats of the workspace
         _State.lib = cdll
     return _State.lib
 

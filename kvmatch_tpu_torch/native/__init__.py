@@ -91,6 +91,10 @@ def _build() -> ctypes.CDLL | None:
         ctypes.c_long, _I32, _I64, _I64,
         ctypes.c_int64, ctypes.c_int64, _I64,
         _I64, _I64, _I64, _I64]
+    lib.install_pieces.restype = ctypes.c_long
+    lib.install_pieces.argtypes = [
+        ctypes.c_long, _I32, _I32, _I32, ctypes.c_int64, _I64,
+        _I64, _I64, _I64, _I64, _I64]
     lib.merge_rows.restype = ctypes.c_long
     lib.merge_rows.argtypes = [
         ctypes.c_long, P, P, P, P, P, P, P, P, P, P]
@@ -509,3 +513,32 @@ def group_rows(ivl_bucket, left, right):
     R = lib.group_rows(n, b, _c64(left), _c64(right),
                        bmin, rng, cnt, ubucket, row_start, ol, orr)
     return ubucket[:R].copy(), row_start[:R + 1].copy(), ol[:n], orr[:n]
+
+
+def install_pieces(p_l32, p_r32, p_row32, n_rows: int):
+    """Fused install of a device-built int32 position-sorted piece view: one
+    streaming C pass widens to the persistent int64 pos-sorted copies AND
+    counting-scatters the row-CSR interval copies.  ``p_row32`` must hold
+    ascending group ids in [0, n_rows) (the device builder's layout).
+    Returns persistent arrays (p_l, p_r, p_row, left_rowsorted,
+    right_rowsorted) or None when native is unavailable."""
+    lib = get_lib()
+    if lib is None:
+        return None
+    n = int(np.asarray(p_l32).size)
+    l32 = np.ascontiguousarray(p_l32, np.int32)
+    r32 = np.ascontiguousarray(p_r32, np.int32)
+    row32 = np.ascontiguousarray(p_row32, np.int32)
+    # Ids are ascending by contract: an O(1) endpoint check guards the C
+    # counting scatter against out-of-bounds row ids.
+    if n == 0 or int(row32[0]) < 0 or int(row32[-1]) >= int(n_rows):
+        return None
+    cnt = np.zeros(int(n_rows), np.int64)
+    l64 = np.empty(n, np.int64)
+    r64 = np.empty(n, np.int64)
+    row64 = np.empty(n, np.int64)
+    ol = np.empty(n, np.int64)
+    orr = np.empty(n, np.int64)
+    lib.install_pieces(n, l32, r32, row32, int(n_rows), cnt,
+                       l64, r64, row64, ol, orr)
+    return l64, r64, row64, ol, orr

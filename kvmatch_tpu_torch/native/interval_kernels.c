@@ -581,3 +581,31 @@ long group_rows(long n, const int32_t *b, const int64_t *l, const int64_t *r,
     }
     return R;
 }
+
+/* Fused install of a device-built (int32) position-sorted piece view: one
+ * streaming pass widens to the int64 pos-sorted copies AND counting-scatters
+ * the row-sorted CSR interval copies (instead of three astype passes,
+ * group_rows and two output copies).  row32 values must lie in [0, range)
+ * (the device builder's ascending group ids); cnt is a caller-zeroed scratch
+ * of `range` entries.  Returns R (#non-empty rows). */
+long install_pieces(long n, const int32_t *l32, const int32_t *r32,
+                    const int32_t *row32, int64_t range, int64_t *cnt,
+                    int64_t *l64, int64_t *r64, int64_t *row64,
+                    int64_t *ol, int64_t *orr)
+{
+    for (long i = 0; i < n; i++) cnt[row32[i]]++;
+    long R = 0, acc = 0;
+    for (int64_t k = 0; k < range; k++) {
+        long c = cnt[k];
+        if (c) R++;
+        cnt[k] = acc;                /* becomes the write cursor */
+        acc += c;
+    }
+    for (long i = 0; i < n; i++) {
+        int64_t L = l32[i], Rr = r32[i], ro = row32[i];
+        l64[i] = L; r64[i] = Rr; row64[i] = ro;
+        long p = cnt[ro]++;
+        ol[p] = L; orr[p] = Rr;
+    }
+    return R;
+}

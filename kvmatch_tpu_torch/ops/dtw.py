@@ -50,8 +50,9 @@ DTW_STATE = {"variant": "diag"}
 #: lanes a thread (csrc/dtw.cu:k3_shape).  Wider bands span the blocks of a
 #: thread-block cluster.
 K3_BLOCK_MAX_R = (32 * 32 * 26 - 1) // 2
-#: Widest band K3 and DS run: a cluster of at most 8 such blocks.  A row of
-#: L <= K3_MAX_R + 1 points takes any radius (r is clamped to L - 1).
+#: Widest band the cluster form holds: a cluster of at most 8 such blocks.
+#: Wider bands take the global form (one block a row, the carries in a
+#: global workspace), so K3 and DS take any band.
 K3_MAX_R = (8 * 32 * 32 * 26 - 1) // 2
 #: Widest band K4's one-warp form holds (32 threads of up to 30 lanes);
 #: wider bands take its block form.
@@ -106,6 +107,34 @@ def dtw_banded_plain(a: torch.Tensor, qm: torch.Tensor, qids: torch.Tensor,
     return P[:, r]
 
 
+def _diagonals(a, qm, qids, r):
+    """The anti-diagonal walk shared by the two diag plain versions: yields
+    (s, c, sl, df) for s = 0 .. 2L-2, where the lanes k = p + 2t of diagonal
+    s (p = (s + r) & 1, t = 0, 1, ...) sit at the strided slice ``sl(o)`` of
+    a (B, W + 2) carry, shifted by ``o`` lanes (k + o + 1), c = s & 1 is the
+    carry the diagonal rewrites, and df = a[i] - q[j] per lane with
+    i = (s + r - k) / 2 and j = s - i.  The rows are reversed and padded with
+    +inf past both ends, so a lane outside the matrix gets df = inf or NaN
+    without a mask (the caller maps that to BIG), as the kernel's sentinels
+    do."""
+    B, L = a.shape
+    r = min(r, L - 1)
+    W = 2 * r + 1
+    arev = F.pad(a.flip(1), (W, W), value=float("inf"))
+    q = F.pad(qm[qids.long()], (W, W), value=float("inf"))
+    nt = ((W + 1) // 2, W // 2)  # lanes of parity 0 and 1
+    for s in range(2 * L - 1):
+        p = (s + r) & 1
+        n = nt[p]
+        i0 = (s + r - p) >> 1     # lane t holds i = i0 - t, j = s - i0 + t
+        ai, qj = W + L - 1 - i0, W + s - i0
+        df = arev[:, ai:ai + n] - q[:, qj:qj + n]
+
+        def sl(o, p=p, n=n):
+            return slice(p + o + 1, p + o + 1 + 2 * n, 2)
+        yield s, s & 1, sl, df
+
+
 def dtw_diag_plain(a: torch.Tensor, qm: torch.Tensor, qids: torch.Tensor,
                    r: int) -> torch.Tensor:
     """Plain version of K3 in its own form: the f32 walk over the 2L-1
@@ -116,24 +145,18 @@ def dtw_diag_plain(a: torch.Tensor, qm: torch.Tensor, qids: torch.Tensor,
     BIG outside the matrix.  The same f32 operations as the kernel, so the
     two are equal bit for bit; its sums run in another order than
     ``dtw_banded_plain``'s row form, within the guard band of it."""
-    B, L, r, W, _ = _row_inputs(a, qm, qids, r)
-    q = qm[qids.long()]
-    dev = a.device
-    carry = [torch.full((B, W + 2), BIG, dtype=a.dtype, device=dev)
+    B, L = a.shape
+    r = min(r, L - 1)
+    carry = [torch.full((B, 2 * r + 3), BIG, dtype=a.dtype, device=a.device)
              for _ in range(2)]
     carry[0][:, r + 1] = 0.0  # D_{-2}: the seed of cell (0, 0)
-    lanes = [torch.arange(p, W, 2, device=dev) for p in (0, 1)]
-    for s in range(2 * L - 1):
-        k = lanes[(s + r) & 1]
-        i = (s + r - k) >> 1
-        j = s - i
-        valid = (i >= 0) & (i < L) & (j >= 0) & (j < L)
-        df = a[:, i.clamp(0, L - 1)] - q[:, j.clamp(0, L - 1)]
-        cur, prev = carry[s & 1], carry[1 - (s & 1)]
-        m = torch.minimum(torch.minimum(prev[:, k], prev[:, k + 2]),
-                          cur[:, k + 1])
-        cur[:, k + 1] = torch.where(valid, torch.clamp_max(df * df + m, BIG),
-                                    BIG)
+    big = torch.tensor(BIG, dtype=a.dtype, device=a.device)
+    for s, c, sl, df in _diagonals(a, qm, qids, r):
+        cur, prev = carry[c], carry[1 - c]
+        m = torch.minimum(torch.minimum(prev[:, sl(-1)], prev[:, sl(1)]),
+                          cur[:, sl(0)])
+        # fmin: a lane outside the matrix has df*df + m = inf or NaN -> BIG
+        cur[:, sl(0)] = torch.fmin(df * df + m, big)
     return carry[(2 * L - 2) & 1][:, r + 1]
 
 
@@ -270,40 +293,34 @@ def dtw_ds_diag_plain(a: torch.Tensor, qm: torch.Tensor, qids: torch.Tensor,
     D_{s-1}[k+1]), D_{s-2}[k]), (d, 0)), capped to (BIG, 0) where
     !(vh < BIG) and outside the matrix: the kernel's pair operations, so
     the two are equal bit for bit.  Returns (hi, lo), each (B,) f32."""
-    B, L, r, W, _ = _row_inputs(a, qm, qids, r)
-    q = qm[qids.long()]
+    B, L = a.shape
+    r = min(r, L - 1)
     dev = a.device
-    hi = [torch.full((B, W + 2), BIG, dtype=a.dtype, device=dev)
+    hi = [torch.full((B, 2 * r + 3), BIG, dtype=a.dtype, device=dev)
           for _ in range(2)]
-    lo = [torch.zeros((B, W + 2), dtype=a.dtype, device=dev)
+    lo = [torch.zeros((B, 2 * r + 3), dtype=a.dtype, device=dev)
           for _ in range(2)]
     hi[0][:, r + 1] = 0.0  # D_{-2}: the seed of cell (0, 0)
-    lanes = [torch.arange(p, W, 2, device=dev) for p in (0, 1)]
     zero = torch.zeros((), dtype=a.dtype, device=dev)
-    for s in range(2 * L - 1):
-        k = lanes[(s + r) & 1]
-        i = (s + r - k) >> 1
-        j = s - i
-        valid = (i >= 0) & (i < L) & (j >= 0) & (j < L)
-        df = a[:, i.clamp(0, L - 1)] - q[:, j.clamp(0, L - 1)]
-        c, p = s & 1, 1 - (s & 1)
-        mh, ml = _ds_min(hi[p][:, k], lo[p][:, k], hi[p][:, k + 2],
-                         lo[p][:, k + 2])
-        mh, ml = _ds_min(mh, ml, hi[c][:, k + 1], lo[c][:, k + 1])
+    for s, c, sl, df in _diagonals(a, qm, qids, r):
+        p = 1 - c
+        mh, ml = _ds_min(hi[p][:, sl(-1)], lo[p][:, sl(-1)], hi[p][:, sl(1)],
+                         lo[p][:, sl(1)])
+        mh, ml = _ds_min(mh, ml, hi[c][:, sl(0)], lo[c][:, sl(0)])
+        # a lane outside the matrix has vh = inf or NaN: not < BIG
         vh, vl = _ds_two_sum(mh, ml, df * df, zero)
-        ok = valid & (vh < BIG)
-        hi[c][:, k + 1] = torch.where(ok, vh, BIG)
-        lo[c][:, k + 1] = torch.where(ok, vl, 0.0)
+        ok = vh < BIG
+        hi[c][:, sl(0)] = torch.where(ok, vh, BIG)
+        lo[c][:, sl(0)] = torch.where(ok, vl, 0.0)
     last = (2 * L - 2) & 1
     return hi[last][:, r + 1], lo[last][:, r + 1]
 
 
 # ------------------------------------------------------------ the kernels
-def _launch(name: str, a, qm, qids, r: int, n_out: int,
-            workspace: bool = False):
-    """Validate, allocate and launch one DP kernel of csrc/dtw.cu
-    (``workspace``: with the global workspace K4's block form asks for,
-    kvm_dtw_rows_workspace)."""
+def _launch(name: str, a, qm, qids, r: int, n_out: int):
+    """Validate, allocate and launch one DP kernel of csrc/dtw.cu, with the
+    global workspace its form asks for (``kvm_<name>_workspace``: K3's and
+    DS's global form, K4's block form past the shared-memory limit)."""
     dev = a.device
     B = a.shape[0] if a.dim() == 2 else 0
     ok = (a.dtype == torch.float32 and a.dim() == 2 and a.is_contiguous()
@@ -324,41 +341,44 @@ def _launch(name: str, a, qm, qids, r: int, n_out: int,
     lib = kernels.lib()
     outs = [torch.empty(B, dtype=torch.float32, device=dev)
             for _ in range(n_out)]
-    args = [a.data_ptr(), qm.data_ptr(), qids.data_ptr(), B, L, Q, r,
-            *(o.data_ptr() for o in outs)]
-    if workspace:
-        n = ctypes.c_longlong(0)
-        code = lib.kvm_dtw_rows_workspace(B, L, Q, r, ctypes.byref(n))
-        if code:
-            return code, outs
-        # Freed when this returns: the caching allocator hands it out again
-        # only to work queued after the launch on the same stream.
-        ws = torch.empty(n.value, dtype=torch.float32, device=dev)
-        args += [ws.data_ptr() if n.value else None, n.value]
+    n = ctypes.c_longlong(0)
+    code = getattr(lib, f"kvm_{name}_workspace")(B, L, Q, r, ctypes.byref(n))
+    if code:
+        return code, outs
+    # Freed when this returns: the caching allocator hands it out again only
+    # to work queued after the launch on the same stream.
+    ws = torch.empty(n.value, dtype=torch.float32, device=dev)
     stream = torch.cuda.current_stream(dev).cuda_stream
-    code = getattr(lib, f"kvm_{name}")(*args, stream)
+    code = getattr(lib, f"kvm_{name}")(
+        a.data_ptr(), qm.data_ptr(), qids.data_ptr(), B, L, Q, r,
+        *(o.data_ptr() for o in outs), ws.data_ptr() if n.value else None,
+        n.value, stream)
     return code, outs
 
 
-def _k3_cluster(name: str, a, r: int) -> bool:
-    """Raise past K3_MAX_R; True when the band takes K3's cluster form."""
+def k3_form(a, r: int) -> str:
+    """The form K3 and DS take for rows ``a`` (B, L) and radius ``r``
+    (clamped to L - 1): "block" (one warp, or the warps of one block, a
+    row), "cluster" (a thread-block cluster of at most 8 blocks a row, r <=
+    K3_MAX_R) or "global" (one block a row, carries in device memory)."""
     if a.dim() == 2:
         r = min(r, a.shape[1] - 1)
-    if r > K3_MAX_R:
-        raise ValueError(f"{name}: band radius {r} beyond K3_MAX_R="
-                         f"{K3_MAX_R} (a cluster of 8 blocks)")
-    return r > K3_BLOCK_MAX_R
+    if r <= K3_BLOCK_MAX_R:
+        return "block"
+    return "cluster" if r <= K3_MAX_R else "global"
 
 
 def dtw_diag(a, qm, qids, r: int) -> torch.Tensor:
     """Banded DTW (B,) f32: kernel K3 for CUDA tensors, the plain version
-    for CPU tensors.  K3 equals ``dtw_diag_plain`` bit for bit."""
+    for CPU tensors.  K3 equals ``dtw_diag_plain`` bit for bit in each of
+    its forms (``k3_form``)."""
     if backend.route(a) == "plain":
         return dtw_banded_plain(a, qm, qids, r)
-    cluster = _k3_cluster("dtw_diag", a, r)
+    form = k3_form(a, r)
     code, (out,) = _launch("dtw_diag", a, qm, qids, r, 1)
     dtw_diag.launches += 1
-    dtw_diag.cluster_launches += cluster
+    dtw_diag.cluster_launches += form == "cluster"
+    dtw_diag.global_launches += form == "global"
     kernels.check(code, "dtw_diag")
     return out
 
@@ -372,7 +392,7 @@ def dtw_rows(a, qm, qids, r: int) -> torch.Tensor:
     (any band)."""
     if backend.route(a) == "plain":
         return dtw_banded_plain(a, qm, qids, r)
-    code, (out,) = _launch("dtw_rows", a, qm, qids, r, 1, workspace=True)
+    code, (out,) = _launch("dtw_rows", a, qm, qids, r, 1)
     dtw_rows.launches += 1
     kernels.check(code, "dtw_rows")
     return out
@@ -381,21 +401,22 @@ def dtw_rows(a, qm, qids, r: int) -> torch.Tensor:
 def dtw_ds(a, qm, qids, r: int):
     """Double-single banded DTW, (hi, lo) each (B,) f32: the DS kernel for
     CUDA tensors, the plain version for CPU tensors.  The DS kernel is K3's
-    walk on pairs (the same band limit, K3_MAX_R) and equals
-    ``dtw_ds_diag_plain`` bit for bit."""
+    walk on pairs (K3's forms, ``k3_form``) and equals ``dtw_ds_diag_plain``
+    bit for bit."""
     if backend.route(a) == "plain":
         return dtw_banded_ds_plain(a, qm, qids, r)
-    cluster = _k3_cluster("dtw_ds", a, r)
+    form = k3_form(a, r)
     code, (hi, lo) = _launch("dtw_ds", a, qm, qids, r, 2)
     dtw_ds.launches += 1
-    dtw_ds.cluster_launches += cluster
+    dtw_ds.cluster_launches += form == "cluster"
+    dtw_ds.global_launches += form == "global"
     kernels.check(code, "dtw_ds")
     return hi, lo
 
 
-dtw_diag.launches = dtw_diag.cluster_launches = 0
+dtw_diag.launches = dtw_diag.cluster_launches = dtw_diag.global_launches = 0
 dtw_rows.launches = 0
-dtw_ds.launches = dtw_ds.cluster_launches = 0
+dtw_ds.launches = dtw_ds.cluster_launches = dtw_ds.global_launches = 0
 
 
 def _dtw_f32(x, qm, qids, r: int) -> torch.Tensor:

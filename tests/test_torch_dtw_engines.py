@@ -151,9 +151,18 @@ def test_skip_lb_route_matches_cascade_route(setup, cls, kw):
 
 
 def test_engines_refuse_streamed_modes(setup):
-    with pytest.raises(ValueError, match="not ported"):
+    """The streamed and host-only modes need a prebuilt index (host phase 1
+    runs over its intervals), and no other mode string is taken."""
+    for mode in ("stream", "host"):
+        with pytest.raises(ValueError, match="requires a prebuilt index"):
+            QueryEngineDtw(setup["data"], index=None, device_data=mode,
+                           device="cpu")
+    with pytest.raises(ValueError, match="'stream' or 'host'"):
         QueryEngineDtw(setup["data"], index=setup["index"],
-                       device_data="stream", device="cpu")
+                       device_data="streamed", device="cpu")
+    eng = QueryEngineDtw(setup["data"], index=setup["index"],
+                         device_data="stream", device="cpu")
+    assert eng.data_dev is None and not eng.host_only
 
 
 def test_stage_chunks_change_no_answer(setup, monkeypatch):

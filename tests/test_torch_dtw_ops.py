@@ -108,11 +108,17 @@ def test_rows_plain_matches_jax_f64_and_row_form(L, r, common):
 
 def test_k4_chunk_and_band_limits():
     """K4's lanes a thread (the least C = 2 mod 4 with 32 C >= W, as K3's
-    one-warp form) and the band limits of K3's block and cluster forms."""
+    one-warp form) and the band limits of K3's block, cluster and global
+    forms (r clamped to L - 1)."""
     got = [td.k4_chunk(w) for w in (1, 64, 65, 192, 193, 819, 960)]
     assert got == [2, 2, 6, 6, 10, 26, 30]
     assert td.K4_WARP_LANES == 32 * 30
     assert (td.K3_BLOCK_MAX_R, td.K3_MAX_R) == (13_311, 106_495)
+    rows = torch.empty((1, 106_497))
+    assert [td.k3_form(rows, r) for r in (0, 13_311, 13_312, 106_495,
+                                          106_496, 10**9)] == \
+        ["block", "block", "cluster", "cluster", "global", "global"]
+    assert td.k3_form(torch.empty((1, 13_312)), 10**9) == "block"
 
 
 # the shapes above, a wide band beyond one warp's lanes, and common mode

@@ -159,11 +159,17 @@ def test_host_index_build_equals_jax(n, seed, max_diff):
         np.testing.assert_array_equal(buckets[w], b)
 
 
-@pytest.mark.parametrize("kind", ["host", "stats_only"])
+@pytest.mark.parametrize("kind", ["host", "stats_only", "device"])
 def test_index_from_arrays_carries_a_jax_index(series, kind):
+    """A JAX index crosses into the port: host-built, stats-only, or the
+    full device build with its pieces left on the device (read through its
+    lazy interval fields)."""
     data, icfg, jindex = series
     if kind == "stats_only":
         jindex = jdb.build_index_device_stats(data, icfg)
+    elif kind == "device":
+        jindex = jdb.build_index_device(data, icfg, keep_device=True)
+        assert jindex[100]._left is None
     got = index_from_arrays(jindex)
     _same_scales(got, jindex, SCALE_FIELDS[:2] + SCALE_FIELDS[4:]
                  if kind == "stats_only" else SCALE_FIELDS)
@@ -284,3 +290,49 @@ def test_native_equals_jax(fn):
     for g, w in zip(got, jnative.merge_rows(row_ptr[:-1], row_ptr[1:], left,
                                             right)):
         np.testing.assert_array_equal(g, w)
+
+
+@pytest.mark.parametrize("fn", ["_merge_scan", "_numpy_twin_scale",
+                                "tune_glibc_malloc", "install_pieces"])
+def test_device_build_host_functions_equal_jax(fn, monkeypatch):
+    """The host half of the full device build (its row merge and NumPy
+    twin), the allocator tuning and the piece install copied into the port
+    give what the JAX package's give."""
+    from kvmatch_tpu.utils import hostmem as jhostmem
+    from kvmatch_tpu_torch.index import device_build as tdb
+    from kvmatch_tpu_torch.utils import hostmem as thostmem
+    rng = np.random.default_rng(6)
+    if fn == "tune_glibc_malloc":
+        # the opt-out, then the call on a fresh flag: both report the same
+        for mod in (jhostmem, thostmem):
+            monkeypatch.setattr(mod, "_APPLIED", False)
+        monkeypatch.setenv("KVMATCH_NO_MALLOC_TUNE", "1")
+        assert thostmem.tune_glibc_malloc() is jhostmem.tune_glibc_malloc() \
+            is False
+        monkeypatch.delenv("KVMATCH_NO_MALLOC_TUNE")
+        assert thostmem.tune_glibc_malloc() == jhostmem.tune_glibc_malloc()
+        return
+    if fn == "install_pieces":
+        p_l = np.sort(rng.choice(100_000, 500, replace=False)).astype(np.int32)
+        p_r = p_l + rng.integers(0, 5, 500).astype(np.int32)
+        p_row = np.sort(rng.integers(0, 40, 500)).astype(np.int32)
+        for g, w in zip(tnative.install_pieces(p_l, p_r, p_row, 40),
+                        jnative.install_pieces(p_l, p_r, p_row, 40)):
+            np.testing.assert_array_equal(g, w)
+        return
+    b = np.repeat(rng.integers(-40, 40, 400), rng.integers(1, 700, 400))
+    for cap, cf, sf in ((255, 1.2, 0.8), (63, 2.0, 0.9)):
+        if fn == "_numpy_twin_scale":
+            got = tdb._numpy_twin_scale(b, cap, cf, sf)
+            want = jdb._numpy_twin_scale(b, cap, cf, sf)
+        else:
+            R = 300
+            counts = rng.integers(1, 60, R)
+            offs = counts * rng.integers(1, 200, R)
+            joins = rng.integers(0, 20, (R, jdb.DMAX))
+            got = tdb._merge_scan(counts, offs, joins, cf, sf, cap)
+            want = jdb._merge_scan(counts, offs, joins, cf, sf, cap)
+            assert got[1] == want[1]
+            got, want = got[:1], want[:1]
+        for g, w in zip(got, want):
+            np.testing.assert_array_equal(g, w)

@@ -10,11 +10,13 @@ the port is installed:
 Tolerances: K1 (dense probe) counts and flags exactly equal -- the kernel is
 compiled without multiply-add contraction and repeats the plain version's
 f32 operations in order.  K3 and DS equal their anti-diagonal plain versions
-(dtw_diag_plain, dtw_ds_diag_plain) bit for bit, in the one-warp, one-block
-and cluster forms; K4 equals dtw_rows_plain bit for bit on rows one warp
-holds.  K2 (window distances): |d2 - d2_plain| <= 1e-5 L +
-1e-5 d2 and mean/std within 1e-5 of the window's max |x| (summation order
-differs; see tests/test_torch_ed.py).  Engine answers EQUAL the oracle.
+(dtw_diag_plain, dtw_ds_diag_plain) bit for bit, in the one-warp, one-block,
+cluster and global forms; K4 equals dtw_rows_plain bit for bit on rows one
+warp holds.  K2 (window distances): |d2 - d2_plain| <= 1e-5 L + 1e-5 d2 and
+mean/std within 1e-5 of the window's max |x| (summation order differs; see
+tests/test_torch_ed.py).  Engine answers EQUAL the oracle, and streamed
+answers the resident engine's; the full device build on the card equals its
+CPU run.
 """
 
 import numpy as np
@@ -236,6 +238,67 @@ def test_engines_on_the_card_equal_oracle(dev):
     assert probe_flags.launches > k1 and ted.window_ed.launches > k2
 
 
+# ------------------------------------------ full device build, streaming
+SCALE_FIELDS = ("keys", "row_ptr", "left", "right", "cum_intervals",
+                "cum_offsets")
+
+
+def test_full_build_on_the_card_equals_cpu(dev, monkeypatch):
+    """build_index_device on the card, its pieces kept there or spilled
+    scale by scale, equals its CPU run; so does the chunked device bucket
+    pass (the elementwise f32 sums are the same on both)."""
+    from kvmatch_tpu_torch.index import device_build
+    from kvmatch_tpu_torch.index.build import compute_buckets_device
+    from kvmatch_tpu_torch.index.device_build import build_index_device
+    data = generate_series(300_000, seed=12)
+    want = build_index_device(data, device="cpu", keep_device=False)
+    for spill in (False, True):
+        monkeypatch.setattr(device_build, "SPILL_N", 1 if spill else 10**9)
+        got = build_index_device(data, device=dev)
+        for w, e in want.items():
+            g = got[w]
+            assert (g.dev_pos_view is None) == spill
+            if not spill:
+                assert g.dev_pos_view[0].is_cuda and g._left is None
+            for f in SCALE_FIELDS:
+                np.testing.assert_array_equal(getattr(g, f), getattr(e, f))
+            for x, y in zip(g.pos_sorted(), e.pos_sorted()):
+                np.testing.assert_array_equal(x, y)
+    icfg = IndexConfig()
+    cpu = compute_buckets_device(data, icfg, chunk=70_000, device="cpu")
+    card = compute_buckets_device(data, icfg, chunk=70_000, device=dev)
+    for w in icfg.scales:
+        np.testing.assert_array_equal(card[w], cpu[w])
+
+
+@pytest.mark.parametrize("engine", ["cnsm_ed", "rsm_dtw"])
+def test_streamed_query_on_the_card_equals_resident(dev, engine):
+    """device_data="stream" on the card: host phase 1 over the full device
+    index, candidate runs staged to the card; the answers equal a resident
+    engine's over the same index, distances within 1e-9."""
+    from kvmatch_tpu_torch.engine.rsm_dtw import QueryEngineDtw
+    from kvmatch_tpu_torch.index.device_build import build_index_device
+    data = generate_series(200_000, seed=7)
+    index = build_index_device(data, device=dev)
+    qcfg = QueryConfig(host_verify_max_points=0)
+    cls, kw = {"cnsm_ed": (NormQueryEngine, dict(alpha=1.5, beta=10.0)),
+               "rsm_dtw": (QueryEngineDtw, dict(rho=20))}[engine]
+    resident = cls(data, index=index, qcfg=qcfg, device=dev)
+    streamed = cls(data, index=index, qcfg=qcfg, device_data="stream",
+                   device=dev)
+    assert streamed.data_dev is None and streamed.device.type == "cuda"
+    for off, L, eps in [(1234, 1024, 5.0), (0, 512, 4.0),
+                        (200_000 - 512, 512, 4.0)]:
+        q = data[off:off + L]
+        a = resident.query(q, eps, **kw)
+        b = streamed.query(q, eps, **kw)
+        assert streamed.stream_counts["groups"] >= 1
+        assert set(a.offsets.tolist()) == set(b.offsets.tolist())
+        assert off in b.offsets.tolist()
+        np.testing.assert_allclose(np.sort(a.distances), np.sort(b.distances),
+                                   rtol=0, atol=1e-9)
+
+
 # ------------------------------------------------------------ DTW kernels
 # K3 (dtw_diag) and K4 (dtw_rows) differ from their plain version only in
 # f32 summation order: |d - d_plain| <= verify.guard_threshold(d_plain, L,
@@ -351,14 +414,26 @@ def test_dtw_ds_equals_diag_plain_bitwise(dev, B, L, r):
 
 
 def test_dtw_diag_rejects_bands_beyond_its_rows(dev):
-    """Past K3_MAX_R = 106,495 (a cluster of 8 blocks) K3 and DS raise."""
+    """Past K3_MAX_R = 106,495 (the widest band of a cluster of 8 blocks,
+    where K3 and DS once raised) both take the global form, one launch
+    each, and equal dtw_diag_plain / dtw_ds_diag_plain bit for bit."""
     from kvmatch_tpu_torch.ops import dtw as tdtw
     assert tdtw.K3_MAX_R == 106_495
     L = tdtw.K3_MAX_R + 2
-    a = torch.zeros((1, L), device=dev)
-    for fn in (tdtw.dtw_diag, tdtw.dtw_ds):
-        with pytest.raises(ValueError, match="K3_MAX_R"):
-            fn(a, a, torch.zeros(1, dtype=torch.int32, device=dev), L - 1)
+    a, qm, qids = _znormed_case(2, L, 2, seed=L)
+    args = tuple(torch.as_tensor(x, device=dev) for x in (a, qm, qids))
+    assert tdtw.k3_form(args[0], L - 1) == "global"
+    before = (tdtw.dtw_diag.global_launches, tdtw.dtw_ds.global_launches)
+    k3 = tdtw.dtw_diag(*args, L - 1)
+    hi, lo = tdtw.dtw_ds(*args, L - 1)
+    torch.cuda.synchronize(dev)
+    assert (tdtw.dtw_diag.global_launches,
+            tdtw.dtw_ds.global_launches) == (before[0] + 1, before[1] + 1)
+    want = tdtw.dtw_diag_plain(*args, L - 1)
+    assert torch.isfinite(want).all() and (want < tdtw.BIG).all()
+    assert torch.equal(k3, want)
+    want_hi, want_lo = tdtw.dtw_ds_diag_plain(*args, L - 1)
+    assert torch.equal(hi, want_hi) and torch.equal(lo, want_lo)
 
 
 @pytest.mark.parametrize("B,L,r", [

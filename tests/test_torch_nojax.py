@@ -3,7 +3,9 @@ query on the CPU leaves ``jax`` and every module of the JAX package
 ``kvmatch_tpu`` out of ``sys.modules`` (checked in a fresh interpreter,
 since this test process imports both for the parity tests).  One probe runs
 the ED engines, one the DTW engines; every entry point is asked for the CPU
-explicitly, as the card is the port's default.  A static check finds no
+explicitly, as the card is the port's default; a third builds the full
+device index and the device-bucket index and serves them streamed and
+host-only.  A static check finds no
 import of ``kvmatch_tpu`` in the port's sources or in chip_smoke.py."""
 
 import ast
@@ -81,7 +83,37 @@ for skip in (0, 1 << 30):  # with and without the LB stage
 """ + VERDICT
 
 
-@pytest.mark.parametrize("probe", [PROBE, DTW_PROBE], ids=["ed", "dtw"])
+STREAM_PROBE = r"""
+import sys
+preloaded = "jax" in sys.modules
+import numpy as np
+import torch
+torch.set_num_threads(1)
+from kvmatch_tpu_torch import (QueryConfig, QueryEngine, QueryEngineDtw,
+                               generate_series, oracle)
+from kvmatch_tpu_torch.index.build import build_index_device_buckets
+from kvmatch_tpu_torch.index.device_build import build_index_device
+data = generate_series(8_000, seed=3)
+full = build_index_device(data, device="cpu")
+buckets = build_index_device_buckets(data, device="cpu")
+q = data[1000:1200]
+want = set(oracle.rsm_ed(data, q, 2.0, device="cpu")[0].tolist())
+for index in (full, buckets):
+    a = QueryEngine(data, index=index, device_data="stream", device="cpu",
+                    qcfg=QueryConfig(host_verify_max_points=0)).query(q, 2.0)
+    b = QueryEngine(data, index=index, device_data="host").query(q, 2.0)
+    assert set(a.offsets.tolist()) == set(b.offsets.tolist()) == want
+c = QueryEngineDtw(data, index=full, device_data="stream", device="cpu",
+                   qcfg=QueryConfig(host_verify_max_points=0)).query(
+                       q, 3.0, rho=10)
+assert set(c.offsets.tolist()) == set(
+    oracle.rsm_dtw(data, q, 3.0, 10, device="cpu")[0].tolist())
+assert 1000 in c.offsets.tolist()
+""" + VERDICT
+
+
+@pytest.mark.parametrize("probe", [PROBE, DTW_PROBE, STREAM_PROBE],
+                         ids=["ed", "dtw", "stream"])
 def test_port_runs_without_jax(probe):
     env = dict(os.environ, PYTHONPATH=str(REPO))
     out = subprocess.run([sys.executable, "-c", probe], cwd=REPO, env=env,
