@@ -53,8 +53,9 @@ JSON line tagged with the card's name and power limit and its seconds
                 (the latency path); launch counts of K1 and K2 over both;
    main_dtw  -- cNSM-DTW at n=1e8, L=8192, rho=409 on the same series,
                 index and the 8 queries (MAIN_DTW_QUERIES): one warm batch,
-                2 timed batches with their stage counts and kernel
-                launches, one more with host spans of the cascade; then
+                MAIN_DTW_REPS timed batches with their stage counts and
+                kernel launches, one more with host spans of the cascade;
+                then
                 RSM-DTW (L=1024, rho=51, eps=6)
                 on the same offsets, each query alone through engine.query;
                 launch counts of K1, K3, K4 and DS;
@@ -80,7 +81,31 @@ JSON line tagged with the card's name and power limit and its seconds
                 device memory allocated; launch counts of the streamed
                 engines' queries alone, each counted from 0 just before the
                 streamed engine runs and read just after (K2, K3 and DS
-                must each launch).
+                must each launch);
+10. persist  -- the n=1e8 device-bucket index saved and loaded with
+                IndexNpzStore and IndexFileStore (the reference layout, at
+                FILE_STORE_N points), every array equal; the cNSM-ED north
+                star over the loaded index equal to the saved one's (and
+                query_batch_device); the n=1e7 keep_device index saves equal
+                to its host form; a stats-only index raises on save;
+11. append   -- StreamingIndexBuilder over the n=1e8 series in 100 chunks,
+                build() after 99 and 100, each equal to build_index_host
+                over the prefix bit for bit;
+12. cli      -- python -m kvmatch_tpu_torch.cli as subprocesses: at n=1e8
+                generate-data, build-index, and query --index on a selective
+                cNSM-ED north-star offset (K2) and an RSM-DTW single (K3,
+                DS), equal to the in-process engine; at n=1e6 the four
+                engines and four twins against the CLI's oracle, workload
+                (missed=0) and export-queries; fit_cost_model for both
+                families (each query alone) and the north star under
+                QueryConfig.h100_tuned equal to the default;
+13. baselines -- UcrScanner at n=1e8 (scan_nsm_ed on the 8 north-star
+                queries, scan_ed on the RSM-ED README demo, scan_dtw on the
+                RSM-DTW singles) and the scalar twins (the selective cNSM-ED
+                queries, the RSM-DTW singles), each equal to the index
+                engine, with both times (medians of 3 after a warm run).
+                The launches of the cli, baselines and append paths are
+                counted as the stream phase's are.
 
 Then the kernel table ({"kernels": [...]}), the nvidia-smi name/power line
 and, last, {"ok": true, "device": {...}}.  The env line carries each
@@ -111,6 +136,10 @@ L_RSM_DTW, RHO_RSM, EPS_RSM = 1024, 51, 6.0  # bench.py:257-265
 # cNSM-DTW batches of main_dtw send all 8 north-star queries (five of them
 # flood: 2.8M-9.4M candidates).  n and L are not cut.
 MAIN_DTW_QUERIES = 8
+# Timed cNSM-DTW batches of main_dtw, between its warm batch and its spanned
+# one.  A depth cut from 2: with 2 the script ran 1,243 s, past its limit
+# (64.7 and 68.5 s a batch; NVIDIA H100 80GB HBM3, 700.00 W; PERF.md §4).
+MAIN_DTW_REPS = 1
 # K3 bit for bit against its twin, as (L, r, rows): one warp per row at
 # r = 51 and r = 409 (the main path's instantiation, C = 26), several warps
 # at r = 1100 (clamped to L - 1), and a few rows at the main path's shape.
@@ -146,6 +175,12 @@ STREAM_SMALL_SHAPES = (("rsm_ed", 1024, 0, EPS_RSM),
                        ("rsm_dtw", L_RSM_DTW, RHO_RSM, EPS_RSM),
                        ("cnsm_dtw", 1024, 51, EPS))
 STREAM_SMALL_STAGE = 1 << 14
+# persist: the reference-layout IndexFileStore round trip at this many
+# points.  A depth cut: its loader decodes codec groups one by one in Python;
+# at n=1e8 (1.5e8 pieces) the load took 455.6 s on the card's host, at n=1e7
+# 38.8 s in a run of 1,243 s, past the script's limit (NVIDIA H100 80GB
+# HBM3, 700.00 W; PERF.md §4).
+FILE_STORE_N = 1_000_000
 
 # The least time the card could take for a kernel's work (bound_ms): the
 # larger of its bytes (each input read once, each output written once) over
@@ -909,7 +944,7 @@ def spanned(pairs, device, fn):
                 delattr(owner, name)
 
 
-def main_dtw(eng, offs, queries, reps: int = 2) -> dict:
+def main_dtw(eng, offs, queries, reps: int = MAIN_DTW_REPS) -> dict:
     """cNSM-DTW serving batches: one warm batch, then ``reps`` timed ones
     through ``query_batch``, each with its stage counts and kernel launches,
     then one more batch with the host spans of DTW_SPANS, timed apart (its
@@ -1040,14 +1075,17 @@ def profile_batch(eng, queries) -> dict:
     """Where the time goes in one serving batch.
 
     Host spans: each engine method of SPANS, timed by ``spanned`` on one
-    batch after three unspanned ones.  Device trace: ``torch.profiler``
-    over one more, unspanned batch; the idle share is 1 - |union of the device-event
-    intervals inside the batch| / the batch's wall time, both on the
-    profiler's clock (``device_sum_ms`` sums the same events, overlaps
-    counted twice).  Kernel time by name sums event durations."""
+    batch after three unspanned ones.  Device trace: utils/profiling.trace
+    (torch.profiler, its Chrome trace written under build/profile and
+    deleted) over one more, unspanned batch; the idle share is 1 - |union
+    of the device-event intervals inside the batch| / the batch's wall
+    time, both on the profiler's clock (``device_sum_ms`` sums the same
+    events, overlaps counted twice).  Kernel time by name sums event durations."""
+    import shutil
     import torch
     from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile, record_function
+    from torch.profiler import record_function
+    from kvmatch_tpu_torch.utils.profiling import trace
     device = eng.device
 
     def batch():
@@ -1059,10 +1097,12 @@ def profile_batch(eng, queries) -> dict:
     _, spans = spanned([(eng, name) for name in SPANS], device, batch)
     spanned_ms = (time.perf_counter() - t0) * 1e3
 
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
+    log_dir = work_dir("profile")
+    with trace(log_dir) as prof:
         with record_function("serving_batch"):
             batch()
+    trace_bytes = prof.trace_file.stat().st_size
+    shutil.rmtree(log_dir)
     events = prof.events()
     (outer,) = [e for e in events if e.name == "serving_batch"
                 and e.device_type == DeviceType.CPU]
@@ -1091,6 +1131,7 @@ def profile_batch(eng, queries) -> dict:
         traced_batch_ms=(b1 - b0) / 1e3, device_busy_ms=busy / 1e3,
         device_sum_ms=sum(e.time_range.elapsed_us() for e in dev) / 1e3,
         idle_share=1.0 - busy / (b1 - b0), n_device_events=len(dev),
+        chrome_trace_bytes=trace_bytes,
         device_ms_by_name=[[k, v[0], v[1]] for k, v in top])
 
 
@@ -1132,7 +1173,7 @@ def build_full(data8, dev8, device):
     the device build holds at most maximum_diff - 1 offsets (the run cap of
     its stages); the host grouping's merge re-splits unions at
     maximum_diff (index/build.py:_group_and_merge).  Returns (the summary,
-    the N_MAIN full device index)."""
+    the N_MAIN full device index, device-bucket index and host index)."""
     import torch
     from kvmatch_tpu_torch import IndexConfig
     from kvmatch_tpu_torch.index.build import (build_index_device_buckets,
@@ -1164,14 +1205,13 @@ def build_full(data8, dev8, device):
                               pieces=check_full_index(keep, N_KEEP, cap))
     del keep
     st = {}
-    idx = build_index_device_buckets(data8, icfg, stats=st, device=device)
-    out["device_buckets"] = dict(st, pieces=check_full_index(idx, n,
+    buckets8 = build_index_device_buckets(data8, icfg, stats=st,
+                                          device=device)
+    out["device_buckets"] = dict(st, pieces=check_full_index(buckets8, n,
                                                              cap + 1))
-    del idx
     st = {}
-    idx = build_index_host(data8, icfg, stats=st)
-    out["host"] = dict(st, pieces=check_full_index(idx, n, cap + 1))
-    del idx
+    host8 = build_index_host(data8, icfg, stats=st)
+    out["host"] = dict(st, pieces=check_full_index(host8, n, cap + 1))
     chunked = compute_buckets_device(data8, icfg, device=device)
     whole = build_buckets(dev8, tuple(icfg.scales), icfg.pos_of_d)
     differ = {w: int((torch.as_tensor(chunked[w], device=device)
@@ -1181,7 +1221,7 @@ def build_full(data8, dev8, device):
                              f"series' pass: {differ}")
     del chunked, whole
     out.update(build_chunk=icfg.build_chunk, chunks_equal_whole=True)
-    return out, full8
+    return out, full8, buckets8, host8
 
 
 # ------------------------------------------------------------- phase 9 ----
@@ -1349,6 +1389,599 @@ def stream_small(device, oracles: dict, kernels, launches: dict,
         raise AssertionError("host-only queries allocated device memory")
     return dict(n=n, engines=rows, host_only=host,
                 host_only_device_bytes_delta=0)
+
+
+# ------------------------------------------------------------ phase 10 ----
+INDEX_FIELDS = ("keys", "row_ptr", "left", "right", "cum_intervals",
+                "cum_offsets")
+
+
+def same_index(got, want, what: str, upper: bool = True) -> None:
+    """Every scale of ``got`` equals ``want``'s, array for array (and the
+    mean upper bound, which the reference file layout does not carry)."""
+    import numpy as np
+    if sorted(got) != sorted(want):
+        raise AssertionError(f"{what}: scales {sorted(got)} != {sorted(want)}")
+    for w in want:
+        g, e = got[w], want[w]
+        if (g.w, g.n) != (e.w, e.n) or (upper and g.mean_upper_bound
+                                        != e.mean_upper_bound):
+            raise AssertionError(f"{what}: w={w} metadata differs")
+        for f in INDEX_FIELDS:
+            if not np.array_equal(getattr(g, f), getattr(e, f)):
+                raise AssertionError(f"{what}: w={w} {f} differs")
+
+
+def disk_bytes(path: Path) -> int:
+    if path.is_dir():
+        return sum(p.stat().st_size for p in path.iterdir())
+    return path.stat().st_size
+
+
+def work_dir(name: str) -> Path:
+    import shutil
+    d = REPO / "build" / name
+    shutil.rmtree(d, ignore_errors=True)
+    d.mkdir(parents=True)
+    return d
+
+
+def persist(data8, dev8, buckets8, stats8, q8, device,
+            file_n: int = FILE_STORE_N) -> dict:
+    """Index persistence at n=1e8: the device-bucket index saved and loaded
+    with IndexNpzStore and with IndexFileStore (the reference's per-scale
+    layout; at ``file_n`` points), every array equal after the round trip;
+    the cNSM-ED north-star batch over the loaded npz index equal to the
+    batch over the saved one (host phase 1 over the full index, as a user
+    who loads an index serves it), and query_batch_device equal too; the
+    n=1e7 full device build with its pieces kept on the card saves equal to
+    its materialize_host form; a stats-only index raises on save.  Files
+    go under build/persist and are deleted at the end."""
+    import shutil
+    import torch
+    from kvmatch_tpu_torch import (IndexConfig, IndexFileStore,
+                                   IndexNpzStore, NormQueryEngine,
+                                   QueryConfig, build_index_device_buckets)
+    from kvmatch_tpu_torch.index.device_build import build_index_device
+    icfg = IndexConfig()
+    d = work_dir("persist")
+    out = dict(n=data8.size, pieces=sum(s.num_intervals
+                                        for s in buckets8.values()))
+    try:
+        npz = d / "index.npz"
+        t0 = time.perf_counter()
+        IndexNpzStore(npz).save(buckets8)
+        out["npz_save_s"] = time.perf_counter() - t0
+        out["npz_bytes"] = disk_bytes(npz)
+        t0 = time.perf_counter()
+        loaded = IndexNpzStore(npz).load()
+        out["npz_load_s"] = time.perf_counter() - t0
+        same_index(loaded, buckets8, "npz round trip")
+        npz.unlink()
+
+        if file_n == data8.size:
+            index_f = buckets8
+        else:  # a depth cut: the reference layout at a prefix
+            index_f = build_index_device_buckets(data8[:file_n], icfg,
+                                                 device=device)
+        t0 = time.perf_counter()
+        IndexFileStore(d / "files", n=file_n).save(index_f)
+        out["file_save_s"] = time.perf_counter() - t0
+        out["file_bytes"] = disk_bytes(d / "files")
+        t0 = time.perf_counter()
+        loaded_f = IndexFileStore(d / "files", n=file_n).load()
+        out["file_load_s"] = time.perf_counter() - t0
+        out["file_n"] = file_n
+        same_index(loaded_f, index_f, "file store round trip", upper=False)
+        del loaded_f, index_f
+        shutil.rmtree(d / "files")
+
+        kw = dict(alpha=ALPHA, beta=BETA)
+        answers = {}
+        for name, index in (("saved", buckets8), ("loaded", loaded)):
+            eng = NormQueryEngine(data8, index=index, icfg=icfg,
+                                  qcfg=QueryConfig(), device_data=dev8)
+            t0 = time.perf_counter()
+            answers[name] = eng.query_batch(q8, EPS, **kw)
+            torch.cuda.synchronize(device)
+            out[f"{name}_batch_s"] = time.perf_counter() - t0
+            if name == "loaded":
+                dev_res = eng.query_batch_device(q8, EPS, **kw)
+            del eng
+        out["max_dist_diff"] = max(
+            same_answers(answers["loaded"], answers["saved"],
+                         "north star over the loaded npz index"),
+            same_answers(dev_res, answers["saved"],
+                         "query_batch_device over the loaded npz index"))
+        out["answers"] = [int(r.offsets.size) for r in answers["saved"]]
+        del loaded, answers, dev_res
+
+        keep = build_index_device(data8[:N_KEEP], icfg,
+                                  data_dev=dev8[:N_KEEP])
+        host = build_index_device(data8[:N_KEEP], icfg, keep_device=False,
+                                  data_dev=dev8[:N_KEEP])
+        if not all(sc._left is None and sc.dev_pos_view is not None
+                   for sc in keep.values()):
+            raise AssertionError("keep_device left no scale's pieces on the "
+                                 "card")
+        t0 = time.perf_counter()
+        IndexNpzStore(d / "keep.npz").save(keep)
+        out["keep_save_s"] = time.perf_counter() - t0
+        same_index(IndexNpzStore(d / "keep.npz").load(), host,
+                   "keep_device index saved")
+        out["keep_equal_host_form"] = True
+        del keep, host
+
+        try:
+            IndexNpzStore(d / "stats.npz").save(stats8)
+        except ValueError as e:
+            out["stats_only_raises"] = str(e)[:60]
+        else:
+            raise AssertionError("saving a stats-only index did not raise")
+        if (d / "stats.npz").exists():
+            raise AssertionError("a stats-only save wrote a file")
+    finally:
+        shutil.rmtree(d, ignore_errors=True)
+    return out
+
+
+# ------------------------------------------------------------ phase 11 ----
+def append_build(data8, host8, host8_s: float, chunks: int = 100) -> dict:
+    """StreamingIndexBuilder over the n=1e8 series in ``chunks`` appends;
+    build() after the last but one and after the last, each equal to
+    build_index_host over the same prefix, bit for bit (keys, row_ptr,
+    left, right and both cum arrays): over the whole series that is
+    ``host8``, build_full's host build (``host8_s`` seconds).  Append
+    Mpts/s, the refresh seconds and the host build's seconds beside
+    them."""
+    from kvmatch_tpu_torch import (IndexConfig, StreamingIndexBuilder,
+                                   build_index_host)
+    icfg = IndexConfig()
+    n = data8.size
+    step = n // chunks
+    b = StreamingIndexBuilder(icfg)
+    append_s, out = 0.0, dict(n=n, chunks=chunks, chunk=step)
+    for i in range(chunks):
+        t0 = time.perf_counter()
+        b.append(data8[i * step:(i + 1) * step])
+        append_s += time.perf_counter() - t0
+        if i >= chunks - 2:
+            t0 = time.perf_counter()
+            got = b.build()
+            refresh_s = time.perf_counter() - t0
+            prefix = (i + 1) * step
+            if prefix == n:
+                want, host_s = host8, host8_s
+            else:
+                st: dict = {}
+                want = build_index_host(data8[:prefix], icfg, stats=st)
+                host_s = st["build_seconds"]
+            same_index(got, want, f"append build after {i + 1} chunks")
+            out[f"after_{i + 1}"] = dict(
+                n=prefix, refresh_s=refresh_s, host_build_s=host_s,
+                equal=True, pieces=sum(s.num_intervals for s in got.values()))
+            del got, want
+    out.update(append_s=append_s, append_mpts_per_s=n / append_s / 1e6)
+    return out
+
+
+# ------------------------------------------------------------ phase 12 ----
+def run_cli(args, cwd: Path, timeout: int = 600, threads: int | None = None):
+    """``python -m kvmatch_tpu_torch.cli args`` as a user runs it, with
+    ``threads`` intra-op threads (OMP_NUM_THREADS) when given; returns
+    (stdout lines, launch counts from --count-launches or None, seconds)."""
+    import os
+    env = dict(os.environ, PYTHONPATH=str(REPO))
+    if threads is not None:
+        env["OMP_NUM_THREADS"] = str(threads)
+    t0 = time.perf_counter()
+    p = subprocess.run([sys.executable, "-m", "kvmatch_tpu_torch.cli",
+                        *map(str, args)], cwd=cwd, env=env,
+                       capture_output=True, text=True, timeout=timeout)
+    secs = time.perf_counter() - t0
+    if p.returncode != 0:
+        raise AssertionError(f"cli {args[:2]} exited {p.returncode}: "
+                             f"{p.stderr[-2000:]}")
+    launches = None
+    for line in p.stderr.splitlines():
+        if line.startswith("{"):
+            launches = json.loads(line)
+    return p.stdout.splitlines(), launches, secs
+
+
+def answer_lines(lines, one_based: bool = False) -> dict:
+    """{0-based offset: distance} of a query's or the oracle's answer
+    lines."""
+    out = {}
+    for line in lines:
+        head, sep, tail = line.partition(",")
+        if sep and head.strip().isdigit():
+            out[int(head) - (1 if one_based else 0)] = float(tail)
+    return out
+
+
+def dedup(answers: dict, length: int) -> set:
+    import numpy as np
+    from kvmatch_tpu_torch.oracle import dedup_overlapping
+    offs = np.array(sorted(answers), np.int64)
+    dists = np.array([answers[o] for o in offs])
+    return set(dedup_overlapping(offs, dists, length)[0].tolist())
+
+
+# The n=1e6 CLI set: (engine, L, rho, eps), one self-query each; each engine
+# and its twin against the CLI's oracle.
+CLI_SMALL_SHAPES = (("rsm-ed", 1024, 0, EPS_RSM), ("cnsm-ed", 1024, 0, EPS),
+                    ("rsm-dtw", L_RSM_DTW, RHO_RSM, EPS_RSM),
+                    ("cnsm-dtw", 1024, 51, EPS))
+# Processes of the n=1e6 set run at once (beside the n=1e8 part's).
+CLI_SMALL_WORKERS = 6
+# The DTW family's cost-model fit: these RSM-DTW singles of main_dtw, each
+# alone, four rows for the fit's three unknowns (15,744, 55,424 and 3,968
+# candidates and a flood).  The other four singles take 3.6-18.5 s each
+# (NVIDIA H100 80GB HBM3, 700.00 W; PERF.md §5).
+CLI_FIT_DTW_SINGLES = (0, 1, 2, 4)
+
+
+def cli_small(d: Path, dev_arg: list, n: int, seed: int) -> dict:
+    """The n=``n`` part of the ``cli`` phase: the four engines and the
+    four twins against the CLI's own ``oracle`` output (dedup_overlapping
+    of both), ``workload`` with missed=0 in every bin, ``export-queries``
+    files equal to the series.  CLI_SMALL_WORKERS processes run side by
+    side, each with one intra-op thread, so that together they do not
+    oversubscribe the host's cores."""
+    from concurrent.futures import ThreadPoolExecutor
+    import numpy as np
+    from kvmatch_tpu_torch import generate_series
+    data = generate_series(n, seed=seed)
+    run_cli(["generate-data", n, "--seed", seed, "--out", "data-small"], d)
+    run_cli(["build-index", "data-small", "--out", "small.npz", *dev_arg], d)
+    jobs = []
+    for name, L, rho, eps in CLI_SMALL_SHAPES:
+        (o,), _ = self_queries(data, 1, L, seed=1)
+        extra = []
+        if "dtw" in name:
+            extra += ["--rho", rho]
+        if name.startswith("cnsm"):
+            extra += ["--alpha", ALPHA, "--beta", BETA]
+        for eng in (name, f"twin-{name}"):
+            jobs.append((eng, ["query", "data-small", "--index", "small.npz",
+                               "--engine", eng, "--offset", o, "--length", L,
+                               "--epsilon", eps, *extra, *dev_arg]))
+        measure = "DTW" if "dtw" in name else "ED"
+        problem = "RSM" if name.startswith("rsm") else "cNSM"
+        args = ["oracle", measure, problem, "data-small", o + 1, o + L, eps]
+        if problem == "cNSM":
+            args += [ALPHA, BETA]
+        jobs.append((f"oracle-{name}",
+                     [*args, "--rho", rho if rho else 0.05, *dev_arg]))
+    jobs.append(("workload", ["workload", "data-small", "--index",
+                              "small.npz", "--per-cell", 3, *dev_arg]))
+    jobs.append(("export", ["export-queries", "data-small", "--out",
+                            "queries", "--lengths", 256, 1024, "--count", 3]))
+    with ThreadPoolExecutor(CLI_SMALL_WORKERS) as pool:
+        res = dict(zip([j[0] for j in jobs],
+                       pool.map(lambda j: run_cli(j[1], d, threads=1),
+                                jobs)))
+    out = dict(n=n)
+    for name, L, rho, eps in CLI_SMALL_SHAPES:
+        want = set(answer_lines(res[f"oracle-{name}"][0], one_based=True))
+        for eng in (name, f"twin-{name}"):
+            got = answer_lines(res[eng][0])
+            if dedup(got, L) != want:
+                raise AssertionError(f"cli {eng} n={n}: answers differ from "
+                                     f"the cli oracle")
+            out[eng] = dict(answers=len(got), s=res[eng][2])
+        out[f"oracle-{name}"] = dict(answers=len(want),
+                                     s=res[f"oracle-{name}"][2])
+    lines, _, s = res["workload"]
+    bins = [x for x in lines if x.startswith("bin ")]
+    if not bins or any("missed=0" not in x for x in bins):
+        raise AssertionError(f"cli workload: {lines}")
+    out["workload"] = dict(lines=lines, s=s)
+    files = sorted((d / "queries").iterdir())
+    for f in files:
+        L, _, off = (int(x) for x in f.name.split("-")[1:])
+        if not np.array_equal(np.fromfile(f, ">f8"), data[off:off + L]):
+            raise AssertionError(f"export-queries {f.name} differs")
+    out["export_queries"] = len(files)
+    return out
+
+
+def cli_phase(data8, dev8, offs8, q8, rsm_offs, device, kernels,
+              launches: dict, fit_engines: dict, small_n: int = 1_000_000,
+              small_seed: int = 20260816) -> dict:
+    """The command line, as a user runs it (subprocesses in build/cli).
+
+    n=1e8: generate-data (equal to the in-process series), build-index
+    (npz, device bucket pass), then ``query --index`` on a selective cNSM-ED
+    north-star offset (the gather route: K2 must launch) and on an RSM-DTW
+    single (K3 and DS must launch), each chosen by running the in-process
+    engine over the same loaded index first; the CLI's answer lines must
+    equal the in-process engine's.  The CLI queries' launch counts
+    (``--count-launches``) go into ``launches``.  Beside generate-data and
+    build-index, in a thread, ``cli_small`` at n=``small_n``; the two
+    query processes run after it, one at a time.
+
+    Then fit_cost_model, each query alone, on the cNSM-ED north star
+    (``fit_engines["ed"]``, twice over) and on the CLI_FIT_DTW_SINGLES
+    RSM-DTW singles (``fit_engines["dtw"]``), and the north-star batch
+    under QueryConfig.h100_tuned equal to the default config's (host
+    phase 1 over the loaded full index, where the constants steer early
+    termination): default, tuned, tuned, default."""
+    import dataclasses
+    import shutil
+    from concurrent.futures import ThreadPoolExecutor
+    import numpy as np
+    import torch
+    from kvmatch_tpu_torch import (IndexConfig, IndexNpzStore,
+                                   NormQueryEngine, QueryConfig,
+                                   QueryEngineDtw, TimeSeriesFileStore, native)
+    from kvmatch_tpu_torch.utils.profiling import fit_cost_model
+    if native.get_lib() is None or native.get_baseline_lib() is None:
+        raise AssertionError("the native host libraries did not build (cc)")
+    icfg = IndexConfig()
+    d = work_dir("cli")
+    out = dict(n=data8.size)
+    dev_arg = ["--device", str(device)]
+    background = ThreadPoolExecutor(1)
+    small = background.submit(cli_small, d, dev_arg, small_n, small_seed)
+    try:
+        _, _, s = run_cli(["generate-data", data8.size, "--seed", 20260817,
+                           "--out", "data-big"], d)
+        out["generate_s"] = s
+        if not np.array_equal(TimeSeriesFileStore(d / "data-big").read_all(),
+                              data8):
+            raise AssertionError("generate-data wrote another series")
+        lines, _, s = run_cli(["build-index", "data-big", "--out", "big.npz",
+                               *dev_arg], d)
+        out.update(build_index_s=s, build_index_line=lines[-1][:160])
+        t0 = time.perf_counter()
+        index = IndexNpzStore(d / "big.npz").load()
+        out["npz_load_s"] = time.perf_counter() - t0
+
+        def counted_query(eng, q, eps, **kw):
+            for k in kernels:
+                k.launches = 0
+            t0 = time.perf_counter()
+            r = eng.query(q, eps, **kw)
+            torch.cuda.synchronize(device)
+            return r, (time.perf_counter() - t0) * 1e3, {
+                k.__name__: k.launches for k in kernels}
+
+        big, runs = {}, []
+        ceng = NormQueryEngine(data8, index=index, icfg=icfg,
+                               qcfg=QueryConfig(), device_data=dev8)
+        deng = QueryEngineDtw(data8, index=index, icfg=icfg,
+                              qcfg=QueryConfig(), device_data=dev8)
+        cases = (("cnsm-ed", ceng, offs8, L_MAIN, EPS,
+                  dict(alpha=ALPHA, beta=BETA), ("window_ed",)),
+                 ("rsm-dtw", deng, rsm_offs, L_RSM_DTW, EPS_RSM,
+                  dict(rho=RHO_RSM), ("dtw_diag", "dtw_ds")))
+        for name, eng, offs, L, eps, kw, need in cases:
+            tried = []
+            for o in offs:
+                r, ms, cnt = counted_query(eng, data8[o:o + L], eps, **kw)
+                tried.append(dict(offset=int(o), ms=ms, launches=cnt))
+                if all(cnt[k] > 0 for k in need):
+                    break
+            else:
+                raise AssertionError(f"no {name} offset launched {need}: "
+                                     f"{tried}")
+            args = ["query", "data-big", "--index", "big.npz", "--engine",
+                    name, "--offset", o, "--length", L, "--epsilon", eps,
+                    "--count-launches", *dev_arg]
+            for k, v in kw.items():
+                args += [f"--{k}", v]
+            big[name] = dict(offset=int(o), in_process=tried)
+            runs.append((name, args, r, need))
+        t0 = time.perf_counter()
+        out["small"] = small.result()
+        out["small_wait_s"] = time.perf_counter() - t0
+        for name, args, r, need in runs:
+            lines, cnt, s = run_cli(args, d)
+            for k, v in cnt.items():
+                launches[k] = launches.get(k, 0) + v
+            got = answer_lines(lines)
+            want = dict(zip(r.offsets.tolist(), r.distances.tolist()))
+            if got.keys() != want.keys() or any(
+                    abs(got[k] - want[k]) > 1e-9 for k in want):
+                raise AssertionError(f"cli query {name}: answer lines differ "
+                                     f"from the in-process engine's")
+            if any(cnt[k] < 1 for k in need):
+                raise AssertionError(f"cli query {name}: {need} not launched "
+                                     f"({cnt})")
+            big[name].update(answers=len(got), cli_s=s,
+                             cli_line=lines[-1][:160], launches=cnt)
+        out["big"] = big
+        (d / "data-big").unlink()
+        (d / "big.npz").unlink()
+
+        # The cost model fitted on the card, each query alone, and
+        # h100_tuned's answers.
+        rsm_q = np.stack([data8[rsm_offs[i]:rsm_offs[i] + L_RSM_DTW]
+                          for i in CLI_FIT_DTW_SINGLES])
+        fits = {}
+        for family, qs, eps, kw, repeats in (
+                ("ed", q8, EPS, dict(alpha=ALPHA, beta=BETA), 2),
+                ("dtw", rsm_q, EPS_RSM, dict(rho=RHO_RSM), 1)):
+            eng = fit_engines[family]
+            t0 = time.perf_counter()
+            qc = fit_cost_model(eng, qs, eps, repeats=repeats, **kw)
+            sfx = "_dtw" if eng.use_dtw_cost_model else ""
+            fits[family] = dict(a=getattr(qc, f"phase2_cost_a{sfx}"),
+                                b=getattr(qc, f"phase2_cost_b{sfx}"),
+                                intercept=qc.phase2_cost_intercept,
+                                fields=f"phase2_cost_a{sfx}, _b{sfx}",
+                                fitted_on=type(eng).__name__,
+                                queries=len(qs), repeats=repeats,
+                                s=time.perf_counter() - t0)
+        out["fit"] = fits
+        tuned = QueryConfig.h100_tuned()
+        out["h100_tuned"] = {k: v for k, v in
+                             dataclasses.asdict(tuned).items()
+                             if k.startswith("phase2_cost")}
+        kw = dict(alpha=ALPHA, beta=BETA)
+        engs = dict(default=ceng, tuned=NormQueryEngine(
+            data8, index=index, icfg=icfg, qcfg=tuned, device_data=dev8))
+        res, batch_s = {}, {"default": [], "tuned": []}
+        for name in ("default", "tuned", "tuned", "default"):
+            t0 = time.perf_counter()
+            res[name] = engs[name].query_batch(q8, EPS, **kw)
+            torch.cuda.synchronize(device)
+            batch_s[name].append(time.perf_counter() - t0)
+        want, got = res["default"], res["tuned"]
+        same_answers(got, want, "north star under h100_tuned")
+        out.update(tuned_equal=True, default_batch_s=batch_s["default"],
+                   tuned_batch_s=batch_s["tuned"],
+                   default_segments=[r.stats.n_segments_used for r in want],
+                   tuned_segments=[r.stats.n_segments_used for r in got])
+    finally:
+        background.shutdown(wait=True)
+        shutil.rmtree(d, ignore_errors=True)
+    return out
+
+
+# ------------------------------------------------------------ phase 13 ----
+# UcrScanner.scan_dtw and the RSM-DTW twin on the first this many RSM-DTW
+# singles (a depth cut: with all 8 singles this phase did not finish in
+# 1,800 s, and with 2 the script ran 1,243 s, past its limit, 6.5 and 5.5 s
+# a scan; NVIDIA H100 80GB HBM3, 700.00 W; PERF.md §4).
+BASELINE_DTW_SINGLES = 1
+# Each time of the baselines phase is the median of this many runs, after
+# one warm run of the engine, scanner or twin.
+BASELINE_REPS = 3
+
+
+def baselines(data8, dev8, q8, rsm_offs, eng8, raw8, reng8, index8, device,
+              kernels, launches: dict) -> dict:
+    """The index-free full scan and the scalar twins at n=1e8, each held to
+    the index engine's answer sets (the engines: the resident cNSM-ED,
+    RSM-ED and RSM-DTW engines over the stats-only index, dense phase 1).
+
+    UcrScanner (over an HbmStore of the series): scan_nsm_ed on the 8
+    cNSM-ED north-star queries, scan_ed
+    on the RSM-ED README demo query (offset 123,456, L=8192, eps=10) and
+    scan_dtw on the first BASELINE_DTW_SINGLES RSM-DTW singles; each scan's ms
+    beside the engine's ms for the same query (the index's speedup over a
+    full scan).  The twins (phase 2 in the scalar C loops) on the selective
+    cNSM-ED queries (those whose engine query launched K2, the gather
+    route) and on the same RSM-DTW singles, with their ms: the scalar
+    yardstick.  Every ms is the median of BASELINE_REPS runs: an engine
+    runs each query once untimed first, a scanner and a twin run one warm
+    call of each method first.  The engine's phase times and candidates
+    for the README demo stand beside its ms.  The scans' and twins'
+    launches go into ``launches``."""
+    import dataclasses
+    import torch
+    from kvmatch_tpu_torch import HbmStore, QueryConfig, UcrScanner, native
+    from kvmatch_tpu_torch.baselines import ScanStats
+    from kvmatch_tpu_torch.baseline_twin import (ScalarTwinDtw,
+                                                 ScalarTwinNormEd)
+    if native.get_baseline_lib() is None:
+        raise AssertionError("the scalar baseline library did not build (cc)")
+
+    def timed(fn, reps: int = BASELINE_REPS):
+        """(fn's last result, the median ms of ``reps`` runs, each ms)."""
+        ms = []
+        for _ in range(reps):
+            t0 = time.perf_counter()
+            r = fn()
+            torch.cuda.synchronize(device)
+            ms.append((time.perf_counter() - t0) * 1e3)
+        return r, statistics.median(ms), ms
+
+    def engine(eng, q, eps, **kw):
+        """The engine's answer set, median ms and stats (one untimed run
+        first), and the launches of one query."""
+        for k in kernels:
+            k.launches = 0
+        eng.query(q, eps, **kw)
+        cnt = {k.__name__: k.launches for k in kernels}
+        r, ms, _ = timed(lambda: eng.query(q, eps, **kw))
+        return set(r.offsets.tolist()), ms, cnt, r.stats
+
+    def counted_timed(fn):
+        return timed(lambda: counted(kernels, launches, fn))
+
+    def check(got, want, what):
+        if set(got.tolist()) != want:
+            raise AssertionError(f"{what}: answer set differs from the index "
+                                 f"engine's")
+        return len(want)
+
+    store = HbmStore(data8, device=device)  # the series' own copy on the card
+    scanner = UcrScanner(store.host, device_data=store.device)
+    out = dict(n=data8.size, reps=BASELINE_REPS)
+    norm_kw = dict(alpha=ALPHA, beta=BETA)
+    counted(kernels, launches, lambda: scanner.scan_nsm_ed(q8[0], EPS,
+                                                           **norm_kw))
+    rows, selective = [], []
+    for i, q in enumerate(q8):
+        want, ems, cnt, _ = engine(eng8, q, EPS, **norm_kw)
+        if cnt["window_ed"]:
+            selective.append(i)
+        (got, _), sms, sall = counted_timed(
+            lambda: scanner.scan_nsm_ed(q, EPS, **norm_kw))
+        rows.append(dict(answers=check(got, want, f"scan_nsm_ed query {i}"),
+                         scan_ms=sms, scan_ms_runs=sall, engine_ms=ems,
+                         speedup=sms / ems))
+    out["scan_nsm_ed"] = rows
+    q = data8[123_456:123_456 + L_MAIN]
+    want, ems, _, est = engine(raw8, q, 10.0)
+    counted(kernels, launches, lambda: scanner.scan_ed(q, 10.0))
+    (got, _), sms, sall = counted_timed(lambda: scanner.scan_ed(q, 10.0))
+    out["scan_ed"] = dict(answers=check(got, want, "scan_ed README demo"),
+                          scan_ms=sms, scan_ms_runs=sall, engine_ms=ems,
+                          speedup=sms / ems,
+                          engine_stats=dataclasses.asdict(est))
+    rsm_q = [data8[o:o + L_RSM_DTW] for o in rsm_offs[:BASELINE_DTW_SINGLES]]
+    counted(kernels, launches, lambda: scanner.scan_dtw(rsm_q[0], EPS_RSM,
+                                                        RHO_RSM))
+    dtw_want, rows = [], []
+    for i, q in enumerate(rsm_q):
+        want, ems, _, _ = engine(reng8, q, EPS_RSM, rho=RHO_RSM)
+        dtw_want.append((want, ems))
+        st = ScanStats()
+        (got, _), sms, sall = counted_timed(
+            lambda: scanner.scan_dtw(q, EPS_RSM, RHO_RSM, stats=st))
+        rows.append(dict(answers=check(got, want, f"scan_dtw single {i}"),
+                         scan_ms=sms, scan_ms_runs=sall, engine_ms=ems,
+                         speedup=sms / ems, stats=dataclasses.asdict(st)))
+    out["scan_dtw"] = rows
+    del scanner, store
+    if not selective:
+        raise AssertionError("no cNSM-ED north-star query took the gather "
+                             "route alone")
+
+    qcfg = QueryConfig(dense_probe_min_count=0)
+    twin = ScalarTwinNormEd(data8, index=index8, qcfg=qcfg, device_data=dev8)
+    counted(kernels, launches, lambda: twin.query(q8[selective[0]], EPS,
+                                                  **norm_kw))
+    rows = []
+    for i in selective:
+        want, ems, _, _ = engine(eng8, q8[i], EPS, **norm_kw)
+        r, tms, tall = counted_timed(lambda: twin.query(q8[i], EPS,
+                                                        **norm_kw))
+        rows.append(dict(query=i, answers=check(r.offsets, want,
+                                                f"twin cNSM-ED query {i}"),
+                         twin_ms=tms, twin_ms_runs=tall, engine_ms=ems,
+                         twin_over_engine=tms / ems,
+                         candidates=r.stats.n_candidates))
+    out["twin_cnsm_ed"] = rows
+    twin = ScalarTwinDtw(data8, index=index8, qcfg=qcfg, device_data=dev8)
+    counted(kernels, launches, lambda: twin.query(rsm_q[0], EPS_RSM,
+                                                  rho=RHO_RSM))
+    rows = []
+    for i, (q, (want, ems)) in enumerate(zip(rsm_q, dtw_want)):
+        r, tms, tall = counted_timed(lambda: twin.query(q, EPS_RSM,
+                                                        rho=RHO_RSM))
+        rows.append(dict(answers=check(r.offsets, want,
+                                       f"twin RSM-DTW single {i}"),
+                         twin_ms=tms, twin_ms_runs=tall, engine_ms=ems,
+                         twin_over_engine=tms / ems,
+                         candidates=r.stats.n_candidates))
+    out["twin_rsm_dtw"] = rows
+    return out
 
 
 def kernel_registers(so) -> dict:
@@ -1532,9 +2165,10 @@ def main() -> int:
     full: dict = {}
 
     def run_build_full():
-        res, full["index"] = build_full(data8, dev8, device)
+        res, full["index"], full["buckets"], full["host"] = build_full(
+            data8, dev8, device)
         return res
-    phase("build_full", run_build_full)
+    full_res = phase("build_full", run_build_full)
     # Only the streamed engines' queries count: the resident yardstick and
     # the oracle run outside ``counted``.
     path_kernels = (probe_flags, window_ed, dtw_diag, dtw_rows, dtw_ds)
@@ -1548,6 +2182,27 @@ def main() -> int:
         if stream_launches[name] < 1:
             raise AssertionError(f"kernel {name} was not launched on the "
                                  f"streamed path")
+    # This slice's paths: persistence, the append build, the command line
+    # and the baselines, each path's launches counted from 0 over it alone.
+    phase("persist", lambda: persist(data8, dev8, full.pop("buckets"), index8,
+                                     q8, device))
+    append_launches = {fn.__name__: 0 for fn in path_kernels}
+    phase("append", lambda: counted(path_kernels, append_launches,
+                                    lambda: append_build(
+                                        data8, full.pop("host"),
+                                        full_res["host"]["build_seconds"])))
+    cli_launches = {fn.__name__: 0 for fn in path_kernels}
+    phase("cli", lambda: cli_phase(data8, dev8, offs8, q8, offs8, device,
+                                   path_kernels, cli_launches,
+                                   fit_engines=dict(ed=eng8, dtw=reng8)))
+    base_launches = {fn.__name__: 0 for fn in path_kernels}
+    phase("baselines", lambda: baselines(data8, dev8, q8, offs8, eng8, raw8,
+                                         reng8, index8, device, path_kernels,
+                                         base_launches))
+    emit(dict(phase="slice_launches", card=card, cli=cli_launches,
+              baselines=base_launches, append=append_launches))
+    if base_launches["dtw_diag"] < 1:
+        raise AssertionError("K3 was not launched by UcrScanner.scan_dtw")
     loaded = sorted(m for m in sys.modules
                     if m.split(".")[0] in ("jax", "kvmatch_tpu"))
     if loaded:
@@ -1636,7 +2291,8 @@ def main() -> int:
     # Each path's launches, counted from 0 over that path alone.
     paths = dict(main=launches, main_dtw=dtw_launches,
                  exact_dtw=dict(dtw_rows=rows_launches),
-                 stream=stream_launches)
+                 stream=stream_launches, cli=cli_launches,
+                 baselines=base_launches, append=append_launches)
     glob = wide["global_form"]
     for row in rows:
         row["launches_by_path"] = {p: c[row["name"]] for p, c in paths.items()

@@ -7,6 +7,14 @@ Public surface:
                                    IndexConfig, QueryConfig, generate_series)
     from kvmatch_tpu_torch import oracle   # float64 brute force, on a device
     from kvmatch_tpu_torch import verify   # phase-2 guard bands
+    # persistence, the append build, the baselines:
+    from kvmatch_tpu_torch import (IndexNpzStore, IndexFileStore,
+                                   TimeSeriesFileStore, HbmStore,
+                                   StreamingIndexBuilder, UcrScanner, TWINS,
+                                   build_index_host,
+                                   build_index_device_buckets)
+
+    python -m kvmatch_tpu_torch.cli ...    # the command line (cli.py)
 
 The port runs the four engines' serving path: the index builds
 (index/device_build.py: the stats-only build and the full device build;
@@ -20,12 +28,17 @@ its row-form twin K4) and the double-single DP (csrc/dtw.cu).  A series
 larger than device memory is served with ``device_data="stream"`` (host
 phase 1, candidate runs staged to the device per batch), and
 ``device_data="host"`` answers small candidate loads with no device at all.
+Indexes are saved and loaded by storage/file.py (the reference's per-scale
+file layout, or one ``.npz``); index/streaming.py absorbs appends;
+baselines.py is the index-free UCR full scan and baseline_twin.py the
+engines with the reference's scalar phase 2 (native/baseline_scalar.c).
 
 The port stands alone: it imports nothing of ``kvmatch_tpu``.  It keeps its
 own copies of the host modules it needs, under the same relative paths
-(config, plan, verify, utils/{intervals, rounding, sparse_prefix, hostmem},
-the native host runtime, index/{structure, build}, data/generators and the
-host skeleton of engine/base), each held equal to its JAX original by
+(config, plan, verify, utils/{intervals, rounding, sparse_prefix, hostmem,
+codec, profiling}, the native host runtime, index/{structure, build,
+streaming}, storage, experiments, data/generators and the host skeleton of
+engine/base), each held equal to its JAX original by
 tests/test_torch_host_parity.py.
 
 Every entry point runs on the current CUDA device unless the caller passes
@@ -41,32 +54,32 @@ from .utils.hostmem import tune_glibc_malloc as _tune_malloc
 # Best-effort, opt-out via KVMATCH_NO_MALLOC_TUNE=1.
 _tune_malloc()
 
-__all__ = ["QueryEngine", "NormQueryEngine", "QueryEngineDtw",
-           "NormQueryEngineDtw", "IndexConfig", "QueryConfig",
-           "generate_series"]
+# Lazy exports, like kvmatch_tpu/__init__.py: importing the package builds
+# nothing.  name -> submodule holding it.
+_EXPORTS = {
+    "QueryEngine": "engine.rsm_ed",
+    "NormQueryEngine": "engine.norm_ed",
+    "QueryEngineDtw": "engine.rsm_dtw",
+    "NormQueryEngineDtw": "engine.norm_dtw",
+    "IndexConfig": "config",
+    "QueryConfig": "config",
+    "generate_series": "data.generators",
+    "build_index_host": "index.build",
+    "build_index_device_buckets": "index.build",
+    "StreamingIndexBuilder": "index.streaming",
+    "HbmStore": "storage.memory",
+    "IndexFileStore": "storage.file",
+    "IndexNpzStore": "storage.file",
+    "TimeSeriesFileStore": "storage.file",
+    "UcrScanner": "baselines",
+    "TWINS": "baseline_twin",
+}
+__all__ = list(_EXPORTS)
 
 
 def __getattr__(name):
-    # Lazy, like kvmatch_tpu/__init__.py: importing the package builds nothing.
-    if name == "QueryEngine":
-        from .engine.rsm_ed import QueryEngine
-        return QueryEngine
-    if name == "NormQueryEngine":
-        from .engine.norm_ed import NormQueryEngine
-        return NormQueryEngine
-    if name == "QueryEngineDtw":
-        from .engine.rsm_dtw import QueryEngineDtw
-        return QueryEngineDtw
-    if name == "NormQueryEngineDtw":
-        from .engine.norm_dtw import NormQueryEngineDtw
-        return NormQueryEngineDtw
-    if name == "IndexConfig":
-        from .config import IndexConfig
-        return IndexConfig
-    if name == "QueryConfig":
-        from .config import QueryConfig
-        return QueryConfig
-    if name == "generate_series":
-        from .data.generators import generate_series
-        return generate_series
-    raise AttributeError(name)
+    if name not in _EXPORTS:
+        raise AttributeError(name)
+    import importlib
+    return getattr(importlib.import_module(f"{__name__}.{_EXPORTS[name]}"),
+                   name)

@@ -9,9 +9,10 @@ the reference hard-codes as ``private static final`` is a config field
 IndexBuilder.java:52-53,136, MeanIntervalUtils.java:35-41, IndexNode.java:31,
 TimeSeriesNode.java:30).
 
-``QueryConfig.tpu_tuned`` holds cost-model constants fitted on a TPU; the
-port's defaults are the reference's, and no number fitted on a TPU is a
-default here.  A cost model fitted on the H100 is ROADMAP queue-1 item 14.
+``QueryConfig.tpu_tuned`` holds cost-model constants fitted on a TPU and
+``QueryConfig.h100_tuned`` those fitted on an NVIDIA H100 by
+utils/profiling.fit_cost_model; both are opt-in.  The port's defaults are
+the reference's, and no number fitted on a TPU is a default here.
 """
 
 
@@ -215,6 +216,31 @@ class QueryConfig:
         return cls(phase2_cost_a=0.01, phase2_cost_b=5e-4,
                    phase2_cost_a_dtw=0.02, phase2_cost_b_dtw=5e-4,
                    phase2_cost_intercept=30.0, **overrides)
+
+    @classmethod
+    def h100_tuned(cls, **overrides) -> "QueryConfig":
+        """Cost-model constants fitted on the card by
+        utils/profiling.fit_cost_model (each query alone) in chip_smoke.py's
+        ``cli`` phase on an NVIDIA H100 80GB HBM3 at its 700.00 W power
+        limit, in the run that PERF.md §6 names.
+
+        * ``phase2_cost_a``/``_b`` (read by RSM-ED): the fit on the 8
+          cNSM-ED north-star queries over the resident n=1e8 series
+          (L=8192, eps=4, alpha=1.2, beta=5; 16 rows), the cost of the ED
+          phase-2 routes that RSM-ED shares;
+        * ``phase2_cost_a_dtw``/``_b_dtw`` and the intercept (read by the
+          DTW engines and, as in the reference, by cNSM-ED): the fit on 4
+          RSM-DTW singles (L=1024, rho=51, eps=6).  The config has one
+          intercept; the north-star fit's was 2.26 ms.
+
+        Opt-in: no default changes.  The constants steer only phase 1's
+        early termination, so answer sets equal those under the default
+        config (chip_smoke.py checks it on the north-star batch)."""
+        return cls(phase2_cost_a=0.00026617086298018653,
+                   phase2_cost_b=8.171735489288366e-06,
+                   phase2_cost_a_dtw=0.0,
+                   phase2_cost_b_dtw=0.051457013855685914,
+                   phase2_cost_intercept=2.7196889382715, **overrides)
 
 
 DEFAULT_INDEX_CONFIG = IndexConfig()

@@ -5,9 +5,10 @@ intersections and joins that the reference runs as Java two-pointer merges
 (QueryEngine.java:279-305), the fused scan and row merge over the index, the
 exact float64 banded DTW of the host confirm, and the passes of the host
 index build.  A copy of the functions of kvmatch_tpu/native/__init__.py that
-the port calls, over its own copy of the C source (``interval_kernels.c``).
+the port calls, over its own copies of the C sources (``interval_kernels.c``,
+and ``baseline_scalar.c``, the scalar reference twin of baseline_twin.py).
 
-The library is compiled with the system C compiler into ``build/native/`` at
+Each library is compiled with the system C compiler into ``build/native/`` at
 the repository root, named by a hash of the source (an edited source
 rebuilds).  If the build fails, every wrapper returns None and the callers
 take their NumPy paths (utils/intervals.py, index/build.py,
@@ -25,23 +26,28 @@ from pathlib import Path
 import numpy as np
 
 _SRC = Path(__file__).with_name("interval_kernels.c")
+_SRC_BASE = Path(__file__).with_name("baseline_scalar.c")
 _CACHE = Path(__file__).resolve().parents[2] / "build" / "native"
 _LIB = None
 _TRIED = False
+_BASE_LIB = None
+_BASE_TRIED = False
 
 _I64 = np.ctypeslib.ndpointer(np.int64, flags="C_CONTIGUOUS")
 _F64 = np.ctypeslib.ndpointer(np.float64, flags="C_CONTIGUOUS")
 _I32 = np.ctypeslib.ndpointer(np.int32, flags="C_CONTIGUOUS")
 
 
-def _build() -> ctypes.CDLL | None:
-    tag = hashlib.sha1(_SRC.read_bytes()).hexdigest()[:12]
+def _compile_shared(src: Path) -> ctypes.CDLL | None:
+    """``src`` compiled by cc into ``build/native/`` (named by a hash of the
+    source) and loaded, or None when the compiler fails."""
+    tag = hashlib.sha1(src.read_bytes()).hexdigest()[:12]
     _CACHE.mkdir(parents=True, exist_ok=True)
-    so = _CACHE / f"interval_kernels_{tag}.so"
+    so = _CACHE / f"{src.stem}_{tag}.so"
     if not so.exists():
         tmp = so.with_suffix(f".{os.getpid()}.tmp")
         cmd = [os.environ.get("CC", "cc"), "-O3", "-march=native", "-shared",
-               "-fPIC", str(_SRC), "-o", str(tmp), "-lm"]
+               "-fPIC", str(src), "-o", str(tmp), "-lm"]
         try:
             subprocess.run(cmd, check=True, capture_output=True, timeout=120)
         except Exception:
@@ -51,7 +57,13 @@ def _build() -> ctypes.CDLL | None:
             except Exception:
                 return None
         os.replace(tmp, so)
-    lib = ctypes.CDLL(str(so))
+    return ctypes.CDLL(str(so))
+
+
+def _build() -> ctypes.CDLL | None:
+    lib = _compile_shared(_SRC)
+    if lib is None:
+        return None
     # The phase-1 hot wrappers take raw pointers (ndpointer validation costs
     # ~8% of phase 1 at 26 array args a call); the wrappers guarantee dtype
     # and contiguity via _c64/_cf.
@@ -123,6 +135,46 @@ def _build() -> ctypes.CDLL | None:
         ctypes.c_int,
         P, P, P, P, P, P, P, P]
     return lib
+
+
+def get_baseline_lib() -> ctypes.CDLL | None:
+    """The scalar reference-twin library (``baseline_scalar.c``, a copy of
+    kvmatch_tpu/native/baseline_scalar.c): the measured single-thread
+    baseline standing in for the Java reference (baseline_twin.py), or None
+    when the compiler fails or native is disabled (``KVMATCH_NO_NATIVE``)."""
+    global _BASE_LIB, _BASE_TRIED
+    if os.environ.get("KVMATCH_NO_NATIVE"):
+        return None
+    if not _BASE_TRIED:
+        _BASE_TRIED = True
+        try:
+            lib = _compile_shared(_SRC_BASE)
+        except Exception:
+            lib = None
+        if lib is not None:
+            lib.base_ed_scan.restype = ctypes.c_long
+            lib.base_ed_scan.argtypes = [
+                _F64, ctypes.c_long, _I64, _I64, ctypes.c_long,
+                _F64, ctypes.c_long, ctypes.c_double, _I64, _F64]
+            lib.base_nsm_scan.restype = ctypes.c_long
+            lib.base_nsm_scan.argtypes = [
+                _F64, ctypes.c_long, _I64, _I64, ctypes.c_long,
+                _F64, _I64, ctypes.c_long, ctypes.c_double,
+                ctypes.c_double, ctypes.c_double, ctypes.c_double,
+                ctypes.c_double, _I64, _F64]
+            lib.base_dtw_scan.restype = ctypes.c_long
+            lib.base_dtw_scan.argtypes = [
+                _F64, ctypes.c_long, _I64, _I64, ctypes.c_long,
+                _F64, _F64, _F64, _I64, ctypes.c_long, ctypes.c_long,
+                ctypes.c_double, _I64, _F64]
+            lib.base_nsm_dtw_scan.restype = ctypes.c_long
+            lib.base_nsm_dtw_scan.argtypes = [
+                _F64, ctypes.c_long, _I64, _I64, ctypes.c_long,
+                _F64, _F64, _F64, _I64, ctypes.c_long, ctypes.c_long,
+                ctypes.c_double, ctypes.c_double, ctypes.c_double,
+                ctypes.c_double, ctypes.c_double, _I64, _F64]
+        _BASE_LIB = lib
+    return _BASE_LIB
 
 
 def get_lib() -> ctypes.CDLL | None:

@@ -1,4 +1,5 @@
-"""Brute-force float64 oracles of RSM-ED and cNSM-ED, in PyTorch.
+"""Brute-force float64 oracles of RSM-ED, cNSM-ED, RSM-DTW and cNSM-DTW,
+in PyTorch.
 
 The same semantics as ``kvmatch_tpu/oracle.py`` (``rsm_ed``, ``nsm_ed``):
 an offset is an answer iff its distance^2 <= epsilon^2; window mean/std come
@@ -6,7 +7,8 @@ from float64 prefix sums; distances are returned square-rooted.  The O(n L)
 distance work runs in float64 on ``device`` (the current CUDA device unless
 the caller passes ``device="cpu"``) over chunks of the series' window view,
 so a card checks n=1e6, L=8192 in about a second.  It shares no code with
-the engines it checks.
+the engines it checks.  ``dedup_overlapping`` is a copy of the JAX
+package's (the CLI's ``oracle`` command prints its output).
 """
 
 from __future__ import annotations
@@ -198,3 +200,20 @@ def cnsm_dtw(data: np.ndarray, query: np.ndarray, epsilon: float, rho: int,
     d2 = _dtw_d2(data, zq, cand, rho, device, mean_t[cand], std_t[cand])
     keep = d2 <= epsilon * epsilon
     return cand[keep], np.sqrt(d2[keep])
+
+
+def dedup_overlapping(offsets: np.ndarray, distances: np.ndarray, length: int
+                      ) -> Tuple[np.ndarray, np.ndarray]:
+    """Keep the best answer among mutually overlapping windows (CsvTester.java:119-134)."""
+    order = np.argsort(distances, kind="stable")
+    kept_o, kept_d = [], []
+    taken = np.zeros(offsets.size, bool)
+    for idx in order:
+        if taken[idx]:
+            continue
+        o = offsets[idx]
+        kept_o.append(o)
+        kept_d.append(distances[idx])
+        overlap = (offsets < o + length) & (offsets + length > o)
+        taken |= overlap
+    return np.asarray(kept_o, np.int64), np.asarray(kept_d)

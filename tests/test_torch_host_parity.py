@@ -336,3 +336,87 @@ def test_device_build_host_functions_equal_jax(fn, monkeypatch):
             got, want = got[:1], want[:1]
         for g, w in zip(got, want):
             np.testing.assert_array_equal(g, w)
+
+
+class _StubEngine:
+    """Deterministic per-query stats for fit_cost_model (no device): query
+    ``i`` is the one whose first value is ``i``.  The JAX fit reads them
+    from ``query_batch``, the port's from ``query``."""
+
+    def __init__(self, qcfg, dtw):
+        self.qcfg, self.use_dtw_cost_model = qcfg, dtw
+
+    @staticmethod
+    def _result(i):
+        from types import SimpleNamespace
+        return SimpleNamespace(stats=SimpleNamespace(
+            n_disjoint=3 * i + 1, n_candidates=1000 * (i + 1) ** 2,
+            t_phase2_ms=2.0 + 0.5 * i + 0.01 * i * i))
+
+    def query(self, query, epsilon, **params):
+        return self._result(int(query[0]))
+
+    def query_batch(self, queries, epsilon, **params):
+        return [self._result(int(q[0])) for q in queries]
+
+
+@pytest.mark.parametrize("module", ["codec", "storage_file", "streaming",
+                                    "experiments", "profiling"])
+def test_slice_module_equals_jax(series, tmp_path, module):
+    """The modules copied for persistence, the append build, the workloads
+    and profiling give what their JAX originals give."""
+    data, icfg, jindex = series
+    rng = np.random.default_rng(8)
+    if module == "codec":
+        from kvmatch_tpu.utils import codec as jcodec
+        from kvmatch_tpu_torch.utils import codec as tcodec
+        sc = jindex[50]
+        for pos_bytes in (4, 8):
+            assert tcodec.encode_positions_compact(
+                sc.left, sc.right, pos_bytes=pos_bytes) == \
+                jcodec.encode_positions_compact(sc.left, sc.right,
+                                                pos_bytes=pos_bytes)
+        assert tcodec.encode_statistic_info(
+            sc.keys, sc.cum_intervals, sc.cum_offsets) == \
+            jcodec.encode_statistic_info(sc.keys, sc.cum_intervals,
+                                         sc.cum_offsets)
+    elif module == "storage_file":
+        from kvmatch_tpu.storage import file as jfile
+        from kvmatch_tpu_torch.storage import file as tfile
+        tfile.IndexFileStore(tmp_path / "t", n=data.size).save(
+            index_from_arrays(jindex))
+        jfile.IndexFileStore(tmp_path / "j", n=data.size).save(jindex)
+        for w in jindex:
+            name = f"index-{data.size}-{w}"
+            assert (tmp_path / "t" / name).read_bytes() == \
+                (tmp_path / "j" / name).read_bytes()
+        tfile.IndexNpzStore(tmp_path / "t.npz").save(index_from_arrays(jindex))
+        _same_scales(tfile.IndexNpzStore(tmp_path / "t.npz").load(), jindex)
+    elif module == "streaming":
+        from kvmatch_tpu.index.streaming import StreamingIndexBuilder as JSB
+        from kvmatch_tpu_torch.index.streaming import StreamingIndexBuilder
+        t, j = StreamingIndexBuilder(), JSB()
+        for s in (slice(0, 777), slice(777, 12_000), slice(12_000, None)):
+            t.append(data[s])
+            j.append(data[s])
+        _same_scales(t.build(), j.build())
+    elif module == "experiments":
+        from kvmatch_tpu import experiments as jexp
+        from kvmatch_tpu_torch import experiments as texp
+        for sel in (0.0, 1e-7, 3.3e-5, 1e-3, 0.5):
+            assert texp._bin_label(sel) == jexp._bin_label(sel)
+        for cls in ("WorkloadEntry", "BinReport"):
+            assert [f.name for f in dataclasses.fields(getattr(texp, cls))] \
+                == [f.name for f in dataclasses.fields(getattr(jexp, cls))]
+    else:
+        from kvmatch_tpu.utils import profiling as jprof
+        from kvmatch_tpu_torch.utils import profiling as tprof
+        assert tprof.StatsWriter.FIELDS == jprof.StatsWriter.FIELDS
+        qs = rng.normal(size=(6, 64))
+        qs[:, 0] = np.arange(6)
+        for dtw in (False, True):
+            got = tprof.fit_cost_model(_StubEngine(tconfig.QueryConfig(), dtw),
+                                       qs, 1.0, repeats=2)
+            want = jprof.fit_cost_model(_StubEngine(jconfig.QueryConfig(), dtw),
+                                        qs, 1.0, repeats=2)
+            assert dataclasses.asdict(got) == dataclasses.asdict(want)

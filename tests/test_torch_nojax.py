@@ -5,7 +5,9 @@ since this test process imports both for the parity tests).  One probe runs
 the ED engines, one the DTW engines; every entry point is asked for the CPU
 explicitly, as the card is the port's default; a third builds the full
 device index and the device-bucket index and serves them streamed and
-host-only.  A static check finds no
+host-only; a fourth runs this slice's modules (the append build,
+persistence, the command line, the twins and the full scan, codec,
+storage, experiments, profiling).  A static check finds no
 import of ``kvmatch_tpu`` in the port's sources or in chip_smoke.py."""
 
 import ast
@@ -112,8 +114,48 @@ assert 1000 in c.offsets.tolist()
 """ + VERDICT
 
 
-@pytest.mark.parametrize("probe", [PROBE, DTW_PROBE, STREAM_PROBE],
-                         ids=["ed", "dtw", "stream"])
+SLICE_PROBE = r"""
+import sys
+preloaded = "jax" in sys.modules
+import contextlib, io, tempfile
+from pathlib import Path
+import numpy as np
+import torch
+torch.set_num_threads(1)
+from kvmatch_tpu_torch import (IndexNpzStore, QueryEngine, StreamingIndexBuilder,
+                               TWINS, UcrScanner, build_index_host, cli,
+                               experiments, generate_series, oracle)
+from kvmatch_tpu_torch.storage import base, file, memory
+from kvmatch_tpu_torch.utils import codec, profiling
+data = generate_series(8_000, seed=3)
+b = StreamingIndexBuilder()
+b.append(data[:3_000])
+b.append(data[3_000:])
+index = b.build()
+q = data[1000:1200]
+want = set(oracle.rsm_ed(data, q, 2.0, device="cpu")[0].tolist())
+with tempfile.TemporaryDirectory() as d:
+    IndexNpzStore(Path(d) / "i.npz").save(index)
+    loaded = IndexNpzStore(Path(d) / "i.npz").load()
+    out = io.StringIO()
+    with contextlib.redirect_stdout(out):
+        cli.main(["generate-data", "8000", "--seed", "3", "--out",
+                  str(Path(d) / "data")])
+        cli.main(["query", str(Path(d) / "data"), "--offset", "1000",
+                  "--length", "200", "--epsilon", "2", "--device", "cpu"])
+    assert "Best: 1000, distance: 0.0" in out.getvalue()
+a = QueryEngine(data, index=loaded, device="cpu").query(q, 2.0)
+c = TWINS["rsm-ed"](data, index=loaded, device="cpu").query(q, 2.0)
+s = UcrScanner(data, device="cpu").scan_ed(q, 2.0)
+assert set(a.offsets.tolist()) == set(c.offsets.tolist()) == \
+    set(s[0].tolist()) == want
+assert index.keys() == build_index_host(data).keys()
+""" + VERDICT
+
+
+@pytest.mark.parametrize("probe", [PROBE, DTW_PROBE, STREAM_PROBE,
+                                   SLICE_PROBE],
+                         ids=["ed", "dtw", "stream", "slice"])
 def test_port_runs_without_jax(probe):
     env = dict(os.environ, PYTHONPATH=str(REPO))
     out = subprocess.run([sys.executable, "-c", probe], cwd=REPO, env=env,
