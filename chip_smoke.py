@@ -105,7 +105,19 @@ JSON line tagged with the card's name and power limit and its seconds
                 queries, the RSM-DTW singles), each equal to the index
                 engine, with both times (medians of 3 after a warm run).
                 The launches of the cli, baselines and append paths are
-                counted as the stream phase's are.
+                counted as the stream phase's are;
+14. sharded  -- parallel/ on a mesh of SHARDS shards (cuda:0 repeated, or
+                SHARDS cards when visible): build_index_sharded at n=1e8,
+                its stack bit-equal to the single-device stack and its
+                index to build_index_device_buckets's; the five sharded
+                steps through run_sharded_step_with_recovery (the RSM-ED
+                README demo, the 8 north-star windows as RSM-ED queries,
+                the cNSM-ED north star, whose floods must escalate top_k,
+                RSM-DTW on the selective singles with K3 and with K4, and
+                cNSM-DTW at n=1e6), every answer set after the f64 confirm
+                equal to the resident engine's (the oracle's at n=1e6),
+                each step's seconds beside the engine's; the halo bytes;
+                dryrun_multichip(SHARDS); launches counted as above.
 
 Then the kernel table ({"kernels": [...]}), the nvidia-smi name/power line
 and, last, {"ok": true, "device": {...}}.  The env line carries each
@@ -1984,6 +1996,327 @@ def baselines(data8, dev8, q8, rsm_offs, eng8, raw8, reng8, index8, device,
     return out
 
 
+# ------------------------------------------------------------ phase 14 ----
+# sharded: the mesh's shards (on cuda:0 repeated, or on SHARDS cards when
+# that many are visible); the RSM-DTW singles whose K1 count (over the whole
+# series) is at most SHARDED_DTW_MAX_COUNT, up to SHARDED_DTW_SINGLES of them
+# (the sharded steps have no LB cascade: every candidate takes a DP row);
+# the first top_k of each recovery ladder.
+SHARDS = 4
+SHARDED_DTW_MAX_COUNT = 2_000_000
+SHARDED_DTW_SINGLES = 4
+SHARDED_TOP_K = {"ed": 1024, "ed_batched": 256, "norm": 256, "dtw": 256,
+                 "norm_dtw": 64}
+
+
+def sync_all() -> None:
+    import torch
+    for i in range(torch.cuda.device_count()):
+        torch.cuda.synchronize(i)
+
+
+def exact_sets(kind: str, data64, queries, ctxs, offsets, d2, eps: float,
+               rho: int = 0) -> tuple:
+    """Float64 confirm of a sharded step's candidates: per query, the
+    offsets whose f32 d2 lies within eps^2 + guard_threshold (the engines'
+    guard band, verify_guard 1e-2), checked exactly -- ED and cNSM-ED on the
+    card over ``data64`` (the f64 series there), DTW on the host (the
+    native f64 DP).  cNSM uses the engines' window statistics
+    (engine/norm_ed.py:_confirm_znorm_exact).  Returns (sets, near rows)."""
+    import numpy as np
+    import torch
+    from kvmatch_tpu_torch import verify
+    from kvmatch_tpu_torch.ops.dtw import dtw_banded_batch_f64
+    eps2 = eps * eps
+    L = queries.shape[1]
+    thresh = eps2 + verify.guard_threshold(eps2, L, 1e-2)
+    if offsets.dim() == 2:  # the single-query step: (n_sh, K)
+        offsets, d2 = offsets[:, None], d2[:, None]
+    sets, near_rows = [], 0
+    cols = torch.arange(L, device=data64.device)
+    for qi, q in enumerate(queries):
+        near = torch.unique(offsets[:, qi][d2[:, qi] <= thresh])
+        near_rows += int(near.numel())
+        norm = kind.startswith("cnsm")
+        if norm:
+            mu_q, sd_q = ctxs[qi].params["_mu_q"], ctxs[qi].params["_sd_q"]
+            qv = (q - mu_q) / sd_q
+        else:
+            qv = q
+        keep = []
+        for s in range(0, int(near.numel()), 4096):
+            o = near[s:s + 4096]
+            x = data64[o[:, None] + cols[None, :]]
+            ok = torch.ones(o.shape[0], dtype=torch.bool, device=o.device)
+            if norm:
+                mu = x.mean(1)
+                sd = torch.sqrt(torch.clamp_min((x * x).mean(1) - mu * mu, 0))
+                ratio = sd / sd_q
+                ok = ((torch.abs(mu - mu_q) <= BETA) & (ratio <= ALPHA)
+                      & (ratio >= 1.0 / ALPHA) & (sd > 0))
+                x = (x - mu[:, None]) / torch.where(sd > 0, sd, 1.0)[:, None]
+            if kind.endswith("dtw"):
+                dd = torch.as_tensor(dtw_banded_batch_f64(
+                    x.cpu().numpy(), np.asarray(qv, np.float64), rho, eps2),
+                    device=o.device)
+            else:
+                ref = torch.as_tensor(qv, dtype=torch.float64,
+                                      device=o.device)
+                dd = ((x - ref[None, :]) ** 2).sum(1)
+            keep.append(o[ok & (dd <= eps2)])
+        sets.append(set(torch.cat(keep).tolist()) if keep else set())
+    return sets, near_rows
+
+
+def sharded_phase(data8, stack8, buckets8, q8, offs8, raw8, eng8, reng8,
+                  oracles: dict, device, kernels, launches: dict) -> dict:
+    """The sharded build and the five sharded steps (parallel/) on a mesh of
+    SHARDS shards, each answer set held to a resident engine's (or, at
+    n=1e6, the float64 oracle's) after the f64 confirm; the steps'
+    launches of ``kernels`` go into ``launches`` (the resident engines and
+    the confirms run outside ``counted``).
+
+    build: build_index_sharded at N_MAIN; its stack bit-equal to the
+    single-device stack ``stack8`` over the valid starts, its index equal
+    to ``buckets8`` (build_index_device_buckets).  Then, each through
+    run_sharded_step_with_recovery from SHARDED_TOP_K: the single RSM-ED
+    step on the README demo (offset 123,456, L=8192, eps=10); the batched
+    RSM-ED step on the 8 north-star windows (eps=4, the kernels phase's
+    RSM-ED plans); the cNSM-ED step on the north star (floods: the ladder
+    must escalate); the RSM-DTW step (L=1024, rho=51, eps=6) on the
+    selective singles, with K3 and again with K4; the cNSM-DTW step at
+    n=1e6 (L=1024, rho=51, the exact_dtw series and queries) against the
+    oracle.  Probe counts summed over the shards equal the resident ED
+    engines'.  Last, dryrun_multichip(SHARDS)."""
+    import contextlib
+    import io
+    import numpy as np
+    import torch
+    from kvmatch_tpu_torch import (IndexConfig, NormQueryEngineDtw,
+                                   generate_series)
+    from kvmatch_tpu_torch.ops import dtw as td
+    from kvmatch_tpu_torch.parallel import query as pq
+    from kvmatch_tpu_torch.parallel.build import build_index_sharded
+    from kvmatch_tpu_torch.parallel.dryrun import (dryrun_multichip,
+                                                   norm_inputs, plan_group)
+    from kvmatch_tpu_torch.parallel.mesh import make_mesh
+    from kvmatch_tpu_torch.storage.memory import HbmStore
+    icfg = IndexConfig()
+    scales = tuple(icfg.scales)
+    cards = torch.cuda.device_count() if device.type == "cuda" else 0
+    mesh = make_mesh([torch.device("cuda", i if cards >= SHARDS else 0)
+                      if cards else device for i in range(SHARDS)])
+    out = dict(mesh=[str(d) for d in mesh.devices])
+
+    t0 = time.perf_counter()
+    index_sh, stack_sh = counted(kernels, launches, lambda: build_index_sharded(
+        data8, mesh, icfg))
+    sync_all()
+    out["build_s"] = time.perf_counter() - t0
+    per, n = stack_sh.per, data8.size
+    differ = 0
+    for s, part in enumerate(stack_sh):
+        for i, w in enumerate(scales):
+            hi = min(per, n - w + 1 - s * per)
+            if hi > 0:
+                differ += int((part[i, :hi] != stack8[i, s * per:s * per + hi]
+                               .to(part.device)).sum())
+    if differ:
+        raise AssertionError(f"sharded stack: {differ} bucket ids differ from "
+                             f"the single-device stack")
+    same_index(index_sh, buckets8, "build_index_sharded")
+    out.update(stack_bit_equal=True, index_equal=True, per_shard=per)
+    del index_sh
+    data_sh = HbmStore(data8, sharding=mesh).device
+    data64 = torch.as_tensor(data8, dtype=torch.float64, device=device)
+    k_cap = per
+
+    def step_run(name, factory, inputs):
+        """The step through the ladder twice: the first run (it also makes
+        the haloed views of a new L) and a warm one."""
+        times = []
+        for _ in range(2):
+            rounds = []
+
+            def fac(k):
+                rounds.append(k)
+                return factory(k)
+            sync_all()
+            t0 = time.perf_counter()
+            res, used_k = counted(kernels, launches, lambda: (
+                pq.run_sharded_step_with_recovery(
+                    fac, inputs, top_k=SHARDED_TOP_K[name], k_cap=k_cap)))
+            sync_all()
+            times.append(time.perf_counter() - t0)
+        return res, dict(s=times[1], s_first=times[0], rounds=rounds,
+                         used_k=used_k, counts=res[0].tolist())
+
+    def resident_run(fn):
+        """The resident engine, timed after one untimed run."""
+        fn()
+        sync_all()
+        t0 = time.perf_counter()
+        res = fn()
+        sync_all()
+        return res, time.perf_counter() - t0
+
+    def held(name, sets, want, near):
+        for qi, (g, w) in enumerate(zip(sets, want)):
+            if g != w:
+                raise AssertionError(f"sharded {name} query {qi}: answer set "
+                                     f"differs from the resident engine's "
+                                     f"({len(g)} against {len(w)})")
+        return dict(answers=[len(w) for w in want], near_rows=near,
+                    equal=True)
+
+    # The single RSM-ED step: the README demo.
+    demo_off, demo_L, demo_eps = 123_456, 8192, 10.0
+    qd = data8[demo_off:demo_off + demo_L][None]
+    (seg,), ctx = plan_group(raw8, qd, demo_eps)
+    (rd,), rd_s = resident_run(lambda: raw8.query_batch_device(qd,
+                                                              demo_eps))
+    res, info = step_run("ed", lambda k: pq.make_sharded_query_step(
+        mesh, icfg, demo_L, top_k=k), (data_sh, stack_sh, qd[0],
+                                       pq.pack_segments(seg, scales, device),
+                                       demo_eps ** 2, n))
+    sets, near = exact_sets("rsm_ed", data64, qd, ctx, res[1], res[2],
+                            demo_eps)
+    out["ed"] = dict(info, resident_s=rd_s, resident_candidates=int(
+        rd.stats.n_candidates), **held("ed", sets, [set(
+            rd.offsets.tolist())], near))
+    if sum(info["counts"]) != rd.stats.n_candidates:
+        raise AssertionError("sharded README demo: probe counts differ from "
+                             "the resident engine's")
+
+    # The batched RSM-ED step: the north-star windows as raw queries.
+    segs, ctxs = plan_group(raw8, q8, EPS)
+    rb, rb_s = resident_run(lambda: raw8.query_batch_device(q8, EPS))
+    res, info = step_run("ed_batched", lambda k: (
+        pq.make_sharded_query_step_batched(mesh, icfg, L_MAIN, top_k=k)), (
+        data_sh, stack_sh, q8, pq.pack_segments_batch(segs, scales, device),
+        torch.full((len(q8),), EPS * EPS, device=device), n))
+    sets, near = exact_sets("rsm_ed", data64, q8, ctxs, res[1], res[2],
+                            EPS)
+    out["ed_batched"] = dict(info, resident_s=rb_s, **held(
+        "ed_batched", sets, [set(r.offsets.tolist()) for r in rb],
+        near))
+    if info["counts"] != [r.stats.n_candidates for r in rb]:
+        raise AssertionError("sharded RSM-ED batch: probe counts differ from "
+                             "the resident engine's")
+
+    # The cNSM-ED step: the north star, through the recovery ladder.
+    segs, ctxs = plan_group(eng8, q8, EPS, alpha=ALPHA, beta=BETA)
+    cons, qhat = norm_inputs(ctxs, q8, device)
+    rn, rn_s = resident_run(lambda: eng8.query_batch_device(
+        q8, EPS, alpha=ALPHA, beta=BETA))
+    res, info = step_run("norm", lambda k: (
+        pq.make_sharded_query_step_norm_batched(mesh, icfg, L_MAIN, top_k=k)),
+        (data_sh, stack_sh, qhat, pq.pack_segments_batch(segs, scales, device),
+         torch.full((len(q8),), EPS * EPS, device=device), cons, n))
+    if len(info["rounds"]) < 2:
+        raise AssertionError("the north star did not escalate top_k")
+    sets, near = exact_sets("cnsm_ed", data64, q8, ctxs, res[1],
+                            res[2], EPS)
+    counts = res[0].sum(0).tolist()
+    out["norm"] = dict(info, resident_s=rn_s, counts_total=counts, **held(
+        "norm", sets, [set(r.offsets.tolist()) for r in rn], near))
+    if counts != [r.stats.n_candidates for r in rn]:
+        raise AssertionError("sharded north star: probe counts differ from "
+                             "the resident engine's")
+    del res
+
+    # The RSM-DTW step: the selective singles, with K3 and with K4.
+    qs = np.stack([data8[o:o + L_RSM_DTW] for o in offs8])
+    segs, ctxs = plan_group(reng8, qs, EPS_RSM, rho=RHO_RSM)
+    # top_k = 0: the probe alone (every list empty), to pick the singles.
+    probe_only = counted(kernels, launches, lambda: (
+        pq.make_sharded_query_step_dtw_batched(
+            mesh, icfg, L_RSM_DTW, RHO_RSM, top_k=0)(
+            data_sh, stack_sh, qs,
+            pq.pack_segments_batch(segs, scales, device),
+            torch.full((len(qs),), EPS_RSM ** 2, device=device), n)))
+    totals = probe_only[0].sum(0).tolist()
+    pick = [i for i, c in enumerate(totals)
+            if c <= SHARDED_DTW_MAX_COUNT][:SHARDED_DTW_SINGLES]
+    if not pick:
+        raise AssertionError(f"no RSM-DTW single under "
+                             f"{SHARDED_DTW_MAX_COUNT} candidates: {totals}")
+    want, rs_s = [], 0.0
+    for i in pick:
+        r, t = resident_run(lambda i=i: reng8.query(qs[i], EPS_RSM,
+                                                    rho=RHO_RSM))
+        want.append(set(r.offsets.tolist()))
+        rs_s += t
+    inputs = (data_sh, stack_sh, qs[pick],
+              pq.pack_segments_batch([segs[i] for i in pick], scales, device),
+              torch.full((len(pick),), EPS_RSM ** 2, device=device), n)
+    res, info = step_run("dtw", lambda k: pq.make_sharded_query_step_dtw_batched(
+        mesh, icfg, L_RSM_DTW, RHO_RSM, top_k=k), inputs)
+    sets, near = exact_sets("rsm_dtw", data64, qs[pick], None, res[1],
+                            res[2], EPS_RSM, RHO_RSM)
+    out["dtw"] = dict(info, offsets=[int(offs8[i]) for i in pick],
+                      probe_totals=totals, resident_s=rs_s,
+                      **held("dtw", sets, want, near))
+    td.DTW_STATE["variant"] = "rows"
+    try:
+        sync_all()
+        t0 = time.perf_counter()
+        res = counted(kernels, launches, lambda: (
+            pq.make_sharded_query_step_dtw_batched(
+                mesh, icfg, L_RSM_DTW, RHO_RSM, top_k=info["used_k"])(
+                *inputs)))
+        sync_all()
+        k4_s = time.perf_counter() - t0
+    finally:
+        td.DTW_STATE["variant"] = "diag"
+    sets, near = exact_sets("rsm_dtw", data64, qs[pick], None, res[1],
+                            res[2], EPS_RSM, RHO_RSM)
+    out["dtw_k4"] = dict(s=k4_s, **held("dtw_k4", sets, want, near))
+    del res, data64
+
+    # The cNSM-DTW step at n=1e6 against the oracle, through the ladder.
+    L_n, rho_n = 1024, 51
+    small = generate_series(1_000_000, seed=20260816)
+    offs_n, qn = self_queries(small, 4, L_n, seed=1)
+    small_index, small_stack = build_index_sharded(small, mesh, icfg)
+    eng_n = NormQueryEngineDtw(small, index=small_index, icfg=icfg,
+                               device_data="host")
+    segs, ctxs = plan_group(eng_n, qn, EPS, alpha=ALPHA, beta=BETA,
+                            rho=rho_n)
+    cons, qhat = norm_inputs(ctxs, qn, device)
+    k_cap = small_stack.per
+    res, info = step_run("norm_dtw", lambda k: (
+        pq.make_sharded_query_step_norm_dtw_batched(
+            mesh, icfg, L_n, rho_n, top_k=k)), (
+        HbmStore(small, sharding=mesh).device, small_stack, qhat,
+        pq.pack_segments_batch(segs, scales, device),
+        torch.full((len(qn),), EPS * EPS, device=device), cons, small.size))
+    small64 = torch.as_tensor(small, dtype=torch.float64, device=device)
+    sets, near = exact_sets("cnsm_dtw", small64, qn, ctxs, res[1],
+                            res[2], EPS, rho_n)
+    want = oracles[oracle_key("cnsm_dtw", L_n, rho_n, EPS)]
+    out["norm_dtw"] = dict(info, n=small.size, **held(
+        "norm_dtw", sets, want, near))
+    for o, got in zip(offs_n, sets):
+        if int(o) not in got:
+            raise AssertionError(f"sharded cNSM-DTW self-query {o} not found")
+    out["halo_bytes"] = dict(series=data_sh.halo_bytes,
+                             stack=stack_sh.halo_bytes)
+    # The haloed copies the steps read, as allocated (one a Shards).
+    out["haloed_bytes"] = dict(series=data_sh.haloed_bytes,
+                               stack=stack_sh.haloed_bytes)
+    del res, small64, data_sh, stack_sh
+
+    buf = io.StringIO()
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(buf):
+        counted(kernels, launches, lambda: dryrun_multichip(
+            SHARDS, mesh.devices))
+    out["dryrun"] = dict(line=buf.getvalue().strip(),
+                         s=time.perf_counter() - t0)
+    return out
+
+
 def kernel_registers(so) -> dict:
     """Registers, and local memory (spills) in bytes, of each kernel of the
     library, from ``cuobjdump -res-usage``; empty where the toolkit has no
@@ -2184,7 +2517,7 @@ def main() -> int:
                                  f"streamed path")
     # This slice's paths: persistence, the append build, the command line
     # and the baselines, each path's launches counted from 0 over it alone.
-    phase("persist", lambda: persist(data8, dev8, full.pop("buckets"), index8,
+    phase("persist", lambda: persist(data8, dev8, full["buckets"], index8,
                                      q8, device))
     append_launches = {fn.__name__: 0 for fn in path_kernels}
     phase("append", lambda: counted(path_kernels, append_launches,
@@ -2203,6 +2536,17 @@ def main() -> int:
               baselines=base_launches, append=append_launches))
     if base_launches["dtw_diag"] < 1:
         raise AssertionError("K3 was not launched by UcrScanner.scan_dtw")
+    # This slice's path: the sharded build and steps, counted over it alone.
+    shard_launches = {fn.__name__: 0 for fn in path_kernels}
+    phase("sharded", lambda: sharded_phase(
+        data8, stack8, full.pop("buckets"), q8, offs8, raw8, eng8, reng8,
+        oracles, device, path_kernels, shard_launches), n=N_MAIN,
+        shards=SHARDS)
+    emit(dict(phase="sharded_launches", card=card, launches=shard_launches))
+    for name in ("probe_flags", "window_ed", "dtw_diag", "dtw_rows"):
+        if shard_launches[name] < 1:
+            raise AssertionError(f"kernel {name} was not launched on the "
+                                 f"sharded path")
     loaded = sorted(m for m in sys.modules
                     if m.split(".")[0] in ("jax", "kvmatch_tpu"))
     if loaded:
@@ -2292,7 +2636,8 @@ def main() -> int:
     paths = dict(main=launches, main_dtw=dtw_launches,
                  exact_dtw=dict(dtw_rows=rows_launches),
                  stream=stream_launches, cli=cli_launches,
-                 baselines=base_launches, append=append_launches)
+                 baselines=base_launches, append=append_launches,
+                 sharded=shard_launches)
     glob = wide["global_form"]
     for row in rows:
         row["launches_by_path"] = {p: c[row["name"]] for p, c in paths.items()

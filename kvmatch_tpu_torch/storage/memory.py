@@ -5,7 +5,8 @@ TimeSeriesMemoryOperator (operator/memory/TimeSeriesMemoryOperator.java:
 29-82).  ``HbmStore`` is the port of the JAX package's device store, which
 replaces the reference's HBase/Kudu tables (SURVEY.md section 2.6): the
 series lives as a float32 tensor on the torch device (the card's HBM3 by
-default), with a float64 host shadow; range reads are host slices.
+default), or split by offset range over a ``parallel.mesh.Mesh``, with a
+float64 host shadow; range reads are host slices.
 """
 
 from __future__ import annotations
@@ -13,7 +14,7 @@ from __future__ import annotations
 import numpy as np
 
 from .. import backend
-from ..state import series_to_device
+from ..state import host_series, series_to_device
 
 
 class MemoryStore:
@@ -38,11 +39,22 @@ class HbmStore:
     The float32 tensor feeds the probe and verify kernels, and an engine
     takes it as ``device_data=store.device``; the float64 shadow serves the
     exact host confirmations.  ``device`` is the current CUDA device unless
-    the caller passes ``device="cpu"``."""
+    the caller passes ``device="cpu"``.  With ``sharding`` (a
+    ``parallel.mesh.Mesh``) ``self.device`` is instead the zero-padded
+    series split by offset range, one float32 tensor per shard on its
+    shard's device (``parallel.build.shard_series``), and ``device`` must be
+    None."""
 
-    def __init__(self, data: np.ndarray, device=None):
-        self.host, self.device = series_to_device(
-            data, backend.resolve_device(device))
+    def __init__(self, data: np.ndarray, device=None, sharding=None):
+        if sharding is None:
+            self.host, self.device = series_to_device(
+                data, backend.resolve_device(device))
+            return
+        if device is not None:
+            raise ValueError("pass device= or sharding=, not both")
+        from ..parallel.build import shard_series
+        self.host = host_series(data)
+        self.device = shard_series(self.host, sharding)
 
     def read(self, left: int, length: int) -> np.ndarray:
         return self.host[left:left + length]

@@ -23,6 +23,7 @@ from kvmatch_tpu_torch.data.generators import generate_series
 from kvmatch_tpu_torch.engine.base import BaseEngine
 from kvmatch_tpu_torch.index.build import build_index_host
 from kvmatch_tpu_torch.storage.memory import HbmStore
+from test_torch_host_parity import jax_native_lib
 
 torch.set_num_threads(2)
 
@@ -107,6 +108,7 @@ def test_scanner_takes_a_device_series(scanners):
 
 @pytest.fixture(scope="module")
 def twin_setup():
+    jax_native_lib("get_baseline_lib", "_BASE_TRIED")  # the JAX twins
     data = generate_series(60_000, seed=21)
     return (data, build_index_host(data, IndexConfig()),
             build_index_numpy(data, JIndexConfig()))

@@ -19,6 +19,7 @@ import torch
 
 from kvmatch_tpu import cli as jcli
 from kvmatch_tpu_torch import cli
+from test_torch_host_parity import jax_native_lib
 
 torch.set_num_threads(2)
 
@@ -47,6 +48,7 @@ def answers(lines):
 
 @pytest.fixture(scope="module")
 def files(tmp_path_factory):
+    jax_native_lib("get_baseline_lib", "_BASE_TRIED")  # the JAX twins
     d = tmp_path_factory.mktemp("cli")
     run(cli.main, ["generate-data", N, "--seed", 5, "--out", d / "data"])
     run(jcli.main, ["generate-data", N, "--seed", 5, "--out", d / "jdata"])

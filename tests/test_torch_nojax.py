@@ -7,7 +7,9 @@ explicitly, as the card is the port's default; a third builds the full
 device index and the device-bucket index and serves them streamed and
 host-only; a fourth runs this slice's modules (the append build,
 persistence, the command line, the twins and the full scan, codec,
-storage, experiments, profiling).  A static check finds no
+storage, experiments, profiling); a fifth the sharded build, the
+sharded steps and their recovery (``parallel.dryrun``) and the sharded
+``HbmStore``.  A static check finds no
 import of ``kvmatch_tpu`` in the port's sources or in chip_smoke.py."""
 
 import ast
@@ -153,9 +155,25 @@ assert index.keys() == build_index_host(data).keys()
 """ + VERDICT
 
 
+SHARDED_PROBE = r"""
+import sys
+preloaded = "jax" in sys.modules
+import numpy as np
+import torch
+torch.set_num_threads(1)
+from kvmatch_tpu_torch import generate_series
+from kvmatch_tpu_torch.parallel.dryrun import dryrun_multichip
+from kvmatch_tpu_torch.parallel.mesh import make_mesh
+from kvmatch_tpu_torch.storage.memory import HbmStore
+dryrun_multichip(2, ["cpu"] * 2)
+store = HbmStore(generate_series(1_001, seed=3), sharding=make_mesh(["cpu"] * 2))
+assert [t.shape[0] for t in store.device] == [501, 501]
+""" + VERDICT
+
+
 @pytest.mark.parametrize("probe", [PROBE, DTW_PROBE, STREAM_PROBE,
-                                   SLICE_PROBE],
-                         ids=["ed", "dtw", "stream", "slice"])
+                                   SLICE_PROBE, SHARDED_PROBE],
+                         ids=["ed", "dtw", "stream", "slice", "sharded"])
 def test_port_runs_without_jax(probe):
     env = dict(os.environ, PYTHONPATH=str(REPO))
     out = subprocess.run([sys.executable, "-c", probe], cwd=REPO, env=env,

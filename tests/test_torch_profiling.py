@@ -59,25 +59,58 @@ FAMILIES = {  # engine, its params, whether it reads the _dtw coefficients
 }
 
 
+# A known phase-2 time model, t2 = a * n_windows + b * n_offsets/1e5 * L + c,
+# with every coefficient positive and unlike the defaults.
+KNOWN_FIT = (0.375, 0.0625, 2.5)
+
+
 @pytest.mark.parametrize("name", sorted(FAMILIES))
-def test_fit_cost_model_routes_by_engine_family(setup, name):
+def test_fit_cost_model_routes_by_engine_family(setup, name, monkeypatch):
     """ED engines re-fit (a, b, intercept); the others the _dtw
-    coefficients (the reference fits the two families separately,
-    QueryEngine.java:55-57 against QueryEngineDtw.java:53-55), as the JAX
-    package's fit routes them."""
+    coefficients and the intercept (the reference fits the two families
+    separately, QueryEngine.java:55-57 against QueryEngineDtw.java:53-55),
+    as the JAX package's fit routes them.  With phase-2 times given by a
+    known linear function of the real queries' counts, the fit recovers it
+    and exactly the family's fields move; one timed fit per family keeps
+    every coefficient >= 0 and moves no field outside the family."""
     data, index, _ = setup
     cls, kw, dtw = FAMILIES[name]
     eng = cls(data, index=index, device="cpu")
     assert eng.use_dtw_cost_model == dtw
-    offs = np.random.default_rng(0).integers(0, data.size - 256, 4)
-    qc = profiling.fit_cost_model(eng, np.stack([data[o:o + 256]
-                                                 for o in offs]), 4.0, **kw)
+    L = 256
+    offs = np.random.default_rng(0).integers(0, data.size - L, 6)
+    queries = np.stack([data[o:o + L] for o in offs])
     base = dataclasses.asdict(eng.qcfg)
-    moved = {k for k, v in dataclasses.asdict(qc).items() if v != base[k]}
     fitted = ({"phase2_cost_a_dtw", "phase2_cost_b_dtw"} if dtw else
               {"phase2_cost_a", "phase2_cost_b"}) | {"phase2_cost_intercept"}
-    assert moved <= fitted and "phase2_cost_intercept" in moved
-    assert all(getattr(qc, k) >= 0 for k in fitted)
+
+    def moved(qc):
+        return {k for k, v in dataclasses.asdict(qc).items() if v != base[k]}
+
+    timed = profiling.fit_cost_model(eng, queries, 4.0, **kw)
+    assert moved(timed) <= fitted
+    assert all(getattr(timed, k) >= 0 for k in fitted)
+
+    a, b, c = KNOWN_FIT
+    real_query, rows = eng.query, []
+
+    def query(q, epsilon, **params):
+        res = real_query(q, epsilon, **params)
+        s = res.stats
+        row = (max(s.n_disjoint, 1), s.n_candidates / 1e5 * L)
+        rows.append(row)
+        s.t_phase2_ms = a * row[0] + b * row[1] + c
+        return res
+
+    monkeypatch.setattr(eng, "query", query)
+    qc = profiling.fit_cost_model(eng, queries, 4.0, **kw)
+    design = np.column_stack([np.asarray(rows), np.ones(len(rows))])
+    assert np.linalg.matrix_rank(design) == 3, "counts do not pin the fit"
+    assert moved(qc) == fitted
+    names = (["phase2_cost_a_dtw", "phase2_cost_b_dtw"] if dtw else
+             ["phase2_cost_a", "phase2_cost_b"]) + ["phase2_cost_intercept"]
+    for k, want in zip(names, KNOWN_FIT):
+        assert getattr(qc, k) == pytest.approx(want, rel=1e-6, abs=1e-6)
 
 
 def test_trace_writes_a_chrome_trace_on_the_cpu(setup, tmp_path):
