@@ -106,7 +106,17 @@ JSON line tagged with the card's name and power limit and its seconds
                 engine, with both times (medians of 3 after a warm run).
                 The launches of the cli, baselines and append paths are
                 counted as the stream phase's are;
-14. sharded  -- parallel/ on a mesh of SHARDS shards (cuda:0 repeated, or
+14. bench    -- python -m kvmatch_tpu_torch.bench in process (bench.run) at
+                n=1e6 with --quick --no-northstar: every quick section
+                runs with no error, the demo is exact, every self-query
+                found; then utils/kernel_bench's measure_kernel_efficiency
+                and compare_window_kernel on the n=1e8 series;
+15. selectivity -- the calibrated selectivity matrix (selectivity.py) of
+                RSM-ED and cNSM-ED at n=1e8, L=8192 over the resident
+                series and stats-only index, SELECTIVITY_PER_DECADE
+                queries a decade: no false dismissal; the launches of
+                both paths counted as above;
+16. sharded  -- parallel/ on a mesh of SHARDS shards (cuda:0 repeated, or
                 SHARDS cards when visible): build_index_sharded at n=1e8,
                 its stack bit-equal to the single-device stack and its
                 index to build_index_device_buckets's; the five sharded
@@ -137,6 +147,15 @@ import time
 from pathlib import Path
 
 REPO = Path(__file__).resolve().parent
+if not (REPO / "kvmatch_tpu_torch" / "csrc").is_dir():
+    print(f"chip_smoke: {REPO} is not a checkout of the repository",
+          file=sys.stderr)
+    sys.exit(2)
+sys.path.insert(0, str(REPO))
+# The one roofline of the port (bound_ms, bound_by) and its timer.
+from kvmatch_tpu_torch.utils.kernel_bench import (  # noqa: E402
+    DP_OPS, DS_OPS, K1_OPS, K1_OPS_FULL, K1_TRACK_OPS, K2_OPS, band_cells,
+    bound, card_line, timed_ms)
 
 L_MAIN = 8192
 N_MAIN = 100_000_000
@@ -194,73 +213,14 @@ STREAM_SMALL_STAGE = 1 << 14
 # HBM3, 700.00 W; PERF.md §4).
 FILE_STORE_N = 1_000_000
 
-# The least time the card could take for a kernel's work (bound_ms): the
-# larger of its bytes (each input read once, each output written once) over
-# the memory rate and its f32 operations over the f32 rate outside the
-# tensor cores -- the published peaks of one H100 SXM at 700 W.
-HBM_BYTES_PER_S = 3.35e12
-F32_OPS_PER_S = 67e12
-# f32 operations per unit of work, counted in the kernels' sources:
-# K1 per (position, query, plan segment) term of the bound: 1 convert, 4 for
-# the key bounds, 4 for delta, 3 for the bound sum; cNSM adds 2 + 4 for the
-# z-bounds.  K1 leaves a position once its bound exceeds eps^2, so the work
-# this run needs is the terms still open when reached (ops/probe.py:
-# probe_work), plus, for cNSM, the Ex/Ex2 tracks (4 + 5 a term) over every
-# segment of the positions left for the sigma filter; its bytes are the
-# distinct stack entries those read.  K1_OPS_FULL is the whole
-# (position, segment) grid with the tracks, the count of a probe without
-# the early exit, over the whole stack.
-K1_OPS = {False: 12, True: 18}
-K1_TRACK_OPS = 9
-K1_OPS_FULL = 27
-K2_OPS = {"raw": 3, "znorm": 9}  # per window element: sub, mul, add; z-norm
-# adds the mean sum (1), the centred square sum (3) and the z-difference (2).
-DP_OPS = 5   # K3, K4 per band cell: sub, mul, add, two mins (cap not counted)
-DS_OPS = 20  # DS per band cell: d (2), two pair minima (2 x 4), TwoSum (10)
 # exact_dtw: (engine, n, L, rho, eps)
 DTW_EXACT_SHAPES = (("rsm_dtw", 1_000_000, L_RSM_DTW, RHO_RSM, EPS_RSM),
                     ("cnsm_dtw", 1_000_000, 1024, 51, EPS),
                     ("cnsm_dtw", 1_000_000, L_MAIN, RHO_MAIN, EPS))
 
 
-def card_line() -> str:
-    out = subprocess.run(
-        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
-        capture_output=True, text=True, timeout=60, check=True)
-    return out.stdout.strip().splitlines()[0].strip()
-
-
 def emit(obj: dict) -> None:
     print(json.dumps(obj), flush=True)
-
-
-def bound(nbytes: float, ops: float) -> dict:
-    """bound_ms and what sets it, from the work's bytes and f32 ops."""
-    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
-    t_ops = ops / F32_OPS_PER_S * 1e3
-    return dict(bound_ms=max(t_bytes, t_ops),
-                bound_by="bytes" if t_bytes >= t_ops else "operations",
-                bound_bytes=nbytes, bound_ops=ops)
-
-
-def band_cells(L: int, r: int) -> int:
-    """Cells of an L x L Sakoe-Chiba band of radius r."""
-    r = min(r, L - 1)
-    return L * (2 * r + 1) - r * (r + 1)
-
-
-def timed_ms(fn, reps: int, device) -> float:
-    """Mean milliseconds of ``fn()`` over ``reps`` runs, synchronized."""
-    import torch
-    sync = (lambda: torch.cuda.synchronize(device)) \
-        if device.type == "cuda" else (lambda: None)
-    fn()
-    sync()
-    t0 = time.perf_counter()
-    for _ in range(reps):
-        fn()
-    sync()
-    return (time.perf_counter() - t0) * 1e3 / reps
 
 
 def self_queries(data, n_queries: int, length: int, seed: int):
@@ -1997,6 +1957,90 @@ def baselines(data8, dev8, q8, rsm_offs, eng8, raw8, reng8, index8, device,
 
 
 # ------------------------------------------------------------ phase 14 ----
+# bench: the port's bench at BENCH_N with --quick --no-northstar (main
+# already serves the north star at n=1e8), then kernel_bench on the n=1e8
+# series.
+BENCH_N = 1_000_000
+
+
+def bench_phase(dev8, kernels, launches: dict) -> dict:
+    """``kvmatch_tpu_torch.bench.run`` in process: every quick section runs
+    with no error, the demo is exact and every self-query is found; its
+    launches are counted over the run alone.  Then
+    ``measure_kernel_efficiency`` and ``compare_window_kernel`` on the
+    resident n=1e8 series at their default (the JAX package's) shapes."""
+    import shutil
+    from kvmatch_tpu_torch import bench
+    from kvmatch_tpu_torch.utils.kernel_bench import (
+        compare_window_kernel, measure_kernel_efficiency)
+    d = work_dir("smoke_bench")
+    args = bench.parse_args(["--n", str(BENCH_N), "--quick",
+                             "--no-northstar", "--log-dir", str(d)])
+    t0 = time.perf_counter()
+    line = counted(kernels, launches, lambda: bench.run(args))
+    run_s = time.perf_counter() - t0
+    ext = line["extras"]
+    if ext["section_errors"]:
+        raise AssertionError(f"bench sections failed: {ext['section_errors']}")
+    if tuple(ext["sections_run"]) != bench.QUICK_SECTIONS:
+        raise AssertionError(f"bench ran {ext['sections_run']}, skipped "
+                             f"{ext['sections_skipped']}")
+    corr = ext["correctness"]
+    short = {k: v for k, v in corr.items() if k.endswith("_self_found")
+             and isinstance(v, str) and len(set(v.split("/"))) != 1}
+    if corr.get("demo_exact") is not True or not corr.get("dtw_self_found") \
+            or short:
+        raise AssertionError(f"bench correctness: {corr}")
+    shutil.rmtree(d)
+    t0 = time.perf_counter()
+    eff = measure_kernel_efficiency(dev8)
+    eff_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    window = compare_window_kernel(dev8)
+    return dict(run_s=run_s, value=line["value"],
+                vs_baseline=line["vs_baseline"], extras=ext,
+                kernel_efficiency=eff, kernel_efficiency_s=eff_s,
+                window_kernel=window,
+                window_kernel_s=time.perf_counter() - t0)
+
+
+# ------------------------------------------------------------ phase 15 ----
+# selectivity: the calibrated matrix of both ED engines at n=1e8, L=8192,
+# on SELECTIVITY_PER_DECADE self-queries a decade.  A depth cut from 4: the
+# matrix at 4 took 164.1 s, most of it RSM-ED's phase 2 (7.1-9.8 s a
+# query; NVIDIA H100 80GB HBM3, 700.00 W; PERF.md §4), past the two new
+# phases' share of the script's limit.
+SELECTIVITY_PER_DECADE = 2
+
+
+def selectivity_phase(data8, dev8, index8, kernels, launches: dict,
+                      per_decade: int = SELECTIVITY_PER_DECADE) -> dict:
+    """``selectivity.run_matrix`` over the resident series and its
+    stats-only index: no false dismissal on any decade line; the
+    calibration seconds a query, and each decade's queries in the decade
+    and at the target exactly."""
+    from kvmatch_tpu_torch import IndexConfig, selectivity
+    lines = counted(kernels, launches, lambda: selectivity.run_matrix(
+        data8, dev8, index8, IndexConfig(), per_decade, L_MAIN))
+    decades = [ln for ln in lines if ln["section"].endswith("_decade")]
+    if len(decades) != 2 * len(selectivity.DECADES):
+        raise AssertionError(f"{len(decades)} decade lines")
+    missed = {(ln["section"], ln["decade"]): ln["false_dismissals"]
+              for ln in decades if ln["false_dismissals"]}
+    if missed:
+        raise AssertionError(f"false dismissals: {missed}")
+    keep = ("section", "decade", "target", "in_decade", "exact_count",
+            "false_dismissals", "qps", "mean_t1_ms", "mean_t2_ms",
+            "mean_candidates", "mean_host_rechecked", "mean_answers",
+            "median_answers")
+    return dict(per_decade=per_decade,
+                calibrate_s_per_query={ln["section"]: ln["sec_per_query"]
+                                       for ln in lines
+                                       if "sec_per_query" in ln},
+                decades=[{k: ln[k] for k in keep} for ln in decades])
+
+
+# ------------------------------------------------------------ phase 16 ----
 # sharded: the mesh's shards (on cuda:0 repeated, or on SHARDS cards when
 # that many are visible); the RSM-DTW singles whose K1 count (over the whole
 # series) is at most SHARDED_DTW_MAX_COUNT, up to SHARDED_DTW_SINGLES of them
@@ -2352,11 +2396,6 @@ def main() -> int:
               "false); this script measures the GPU and has no CPU mode",
               file=sys.stderr)
         return 2
-    if not (REPO / "kvmatch_tpu_torch" / "csrc").is_dir():
-        print(f"chip_smoke: {REPO} is not a checkout of the repository",
-              file=sys.stderr)
-        return 2
-    sys.path.insert(0, str(REPO))
     from kvmatch_tpu_torch import (IndexConfig, NormQueryEngine,
                                    NormQueryEngineDtw, QueryConfig,
                                    QueryEngine, QueryEngineDtw,
@@ -2536,6 +2575,26 @@ def main() -> int:
               baselines=base_launches, append=append_launches))
     if base_launches["dtw_diag"] < 1:
         raise AssertionError("K3 was not launched by UcrScanner.scan_dtw")
+    # This slice's paths: the bench and the selectivity matrix, each
+    # path's launches counted from 0 over it alone (kernel_bench's timed
+    # launches are measurements and are not counted).
+    bench_launches = {fn.__name__: 0 for fn in path_kernels}
+    eff = phase("bench", lambda: bench_phase(dev8, path_kernels,
+                                             bench_launches),
+                n=BENCH_N)["kernel_efficiency"]
+    sel_launches = {fn.__name__: 0 for fn in path_kernels}
+    phase("selectivity", lambda: selectivity_phase(
+        data8, dev8, index8, path_kernels, sel_launches), n=N_MAIN,
+        L=L_MAIN)
+    emit(dict(phase="measure_launches", card=card, bench=bench_launches,
+              selectivity=sel_launches))
+    for name, got in (("probe_flags", bench_launches),
+                      ("dtw_diag", bench_launches),
+                      ("dtw_ds", bench_launches),
+                      ("probe_flags", sel_launches)):
+        if got[name] < 1:
+            raise AssertionError(f"kernel {name} was not launched on the "
+                                 f"bench or selectivity path")
     # This slice's path: the sharded build and steps, counted over it alone.
     shard_launches = {fn.__name__: 0 for fn in path_kernels}
     phase("sharded", lambda: sharded_phase(
@@ -2637,8 +2696,20 @@ def main() -> int:
                  exact_dtw=dict(dtw_rows=rows_launches),
                  stream=stream_launches, cli=cli_launches,
                  baselines=base_launches, append=append_launches,
+                 bench=bench_launches, selectivity=sel_launches,
                  sharded=shard_launches)
     glob = wide["global_form"]
+    # kernel_bench's section of each kernel, at the JAX package's shapes.
+    sections = dict(window_ed="gather_ed", dtw_diag="banded_dtw",
+                    dtw_rows="banded_dtw_rows", dtw_ds="ds_dtw")
+    for row in rows:
+        sec = sections.get(row["name"])
+        if sec is not None:
+            row["kernel_bench"] = {
+                k: eff[f"{sec}_{k}"] for k in ("ms", "gbps", "bound_ms",
+                                               "share")}
+            row["kernel_bench"]["shape"] = eff[
+                f"{'banded_dtw' if sec.startswith('banded') else sec}_shape"]
     for row in rows:
         row["launches_by_path"] = {p: c[row["name"]] for p, c in paths.items()
                                    if row["name"] in c}

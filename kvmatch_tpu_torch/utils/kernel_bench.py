@@ -1,0 +1,370 @@
+"""Kernel efficiency against the card's roofline (port of
+kvmatch_tpu/utils/kernel_bench.py).
+
+For each phase-2 kernel and the build pass this reports
+
+    achieved GB/s = mandatory bytes / device time per call
+
+where the mandatory bytes count each input element read once and each
+output element written once (the JAX package's byte formulas, kept so the
+fields read beside ``BENCH_r0x``'s), and beside each the least time the
+card could take for the same work (``*_bound_ms``, from ``bound``) and the
+share of it reached (``*_share`` = bound / time).
+
+``bound`` is the one roofline of the port: ``chip_smoke.py``'s kernel table
+uses it too.  Its peaks are the published ones of one H100 SXM at 700 W;
+its operation counts per unit of work were counted in the kernels'
+sources (``K1_*``, ``K2_OPS``, ``DP_OPS``, ``DS_OPS``).
+
+Each section has a factory returning a ``Section`` (the call ``fn(i)``, its
+bytes, the JAX formula's flops where the JAX section reports a rate of
+them, and the f32 operations the roofline counts), so a test can build and
+run one section alone at a small shape.  ``measure_kernel_efficiency``
+times them all at the JAX package's shapes unless ``shapes`` overrides
+one; on a CPU tensor every wrapper runs its plain version and the fields
+name what ran (``*_kernel``).
+"""
+
+from __future__ import annotations
+
+import math
+import subprocess
+import time
+from typing import Callable, Dict, NamedTuple, Optional
+
+import numpy as np
+import torch
+
+# The least time the card could take for a kernel's work (bound_ms): the
+# larger of its bytes (each input read once, each output written once) over
+# the memory rate and its f32 operations over the f32 rate outside the
+# tensor cores -- the published peaks of one H100 SXM at 700 W.
+HBM_BYTES_PER_S = 3.35e12
+F32_OPS_PER_S = 67e12
+# f32 operations per unit of work, counted in the kernels' sources:
+# K1 per (position, query, plan segment) term of the bound: 1 convert, 4 for
+# the key bounds, 4 for delta, 3 for the bound sum; cNSM adds 2 + 4 for the
+# z-bounds.  K1 leaves a position once its bound exceeds eps^2, so the work
+# a run needs is the terms still open when reached (ops/probe.py:
+# probe_work), plus, for cNSM, the Ex/Ex2 tracks (4 + 5 a term) over every
+# segment of the positions left for the sigma filter; its bytes are the
+# distinct stack entries those read.  K1_OPS_FULL is the whole
+# (position, segment) grid with the tracks, the count of a probe without
+# the early exit, over the whole stack.
+K1_OPS = {False: 12, True: 18}
+K1_TRACK_OPS = 9
+K1_OPS_FULL = 27
+K2_OPS = {"raw": 3, "znorm": 9}  # per window element: sub, mul, add; z-norm
+# adds the mean sum (1), the centred square sum (3) and the z-difference (2).
+DP_OPS = 5   # K3, K4 per band cell: sub, mul, add, two mins (cap not counted)
+DS_OPS = 20  # DS per band cell: d (2), two pair minima (2 x 4), TwoSum (10)
+# The build pass (ops/sliding.build_buckets): per point, the unit sum's 4
+# doubling and 2 combining adds and the 4 scale-doubling adds; per point and
+# scale, the bucketing's multiply, floor, subtract, compare and convert.
+BUILD_OPS_POINT, BUILD_OPS_SCALE = 10, 5
+# A real FFT of N points: 2.5 N log2 N operations (half a complex FFT's).
+FFT_OPS = 2.5
+
+#: The JAX package's shapes (kvmatch_tpu/utils/kernel_bench.py:85, 108,
+#: 133, 168, 184), section -> shape.
+DEFAULT_SHAPES = dict(gather_ed=(65536, 1024), region_fft=(8192, 512, 1024),
+                      banded_dtw=(8192, 1024, 51), ds_dtw=1024,
+                      build_pass=1 << 24)
+#: compare_window_kernel's (B, L), the JAX package's (kernel_bench.py:217).
+WINDOW_SHAPES = ((4096, 1024), (1024, 8192))
+#: Rounds of ``reps`` calls each; the least round is kept.
+ROUNDS = 3
+
+
+def card_line() -> str:
+    """The card's name and power limit, as ``nvidia-smi
+    --query-gpu=name,power.limit --format=csv,noheader`` gives them (its
+    first card)."""
+    out = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+        capture_output=True, text=True, timeout=60, check=True)
+    return out.stdout.strip().splitlines()[0].strip()
+
+
+def bound(nbytes: float, ops: float) -> dict:
+    """bound_ms and what sets it, from the work's bytes and f32 ops."""
+    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+    t_ops = ops / F32_OPS_PER_S * 1e3
+    return dict(bound_ms=max(t_bytes, t_ops),
+                bound_by="bytes" if t_bytes >= t_ops else "operations",
+                bound_bytes=nbytes, bound_ops=ops)
+
+
+def band_cells(L: int, r: int) -> int:
+    """Cells of an L x L Sakoe-Chiba band of radius r."""
+    r = min(r, L - 1)
+    return L * (2 * r + 1) - r * (r + 1)
+
+
+def _timed(fn: Callable[[int], object], reps: int, device,
+           rounds: int) -> float:
+    """Least milliseconds per call of ``fn(i)`` over ``rounds`` runs of
+    ``reps`` calls, after one warm call; ``i`` is distinct across the calls
+    (0 .. rounds * reps), so a caller must take ``fn(i)`` for ``i`` up to
+    ``rounds * reps``.  On the card each run lies between two CUDA events on
+    the current stream; on the CPU between two ``perf_counter`` reads.  The
+    least run is the estimator of a fixed time plus non-negative noise."""
+    fn(rounds * reps)
+    best = math.inf
+    if device.type == "cuda":
+        stream = torch.cuda.current_stream(device)
+        for k in range(rounds):
+            start = torch.cuda.Event(enable_timing=True)
+            end = torch.cuda.Event(enable_timing=True)
+            start.record(stream)
+            for j in range(reps):
+                fn(k * reps + j)
+            end.record(stream)
+            end.synchronize()
+            best = min(best, start.elapsed_time(end))
+    else:
+        for k in range(rounds):
+            t0 = time.perf_counter()
+            for j in range(reps):
+                fn(k * reps + j)
+            best = min(best, (time.perf_counter() - t0) * 1e3)
+    return best / reps
+
+
+def timed_ms(fn: Callable[[], object], reps: int, device) -> float:
+    """Mean milliseconds of ``fn()`` over ``reps`` calls after a warm one,
+    timed as ``_timed`` times one round."""
+    return _timed(lambda _i: fn(), reps, device, rounds=1)
+
+
+class Section(NamedTuple):
+    """One timed call ``fn(i)`` and its work: ``nbytes`` (the JAX
+    package's byte formula), ``flops`` (its flop formula, where the JAX
+    section reports a rate of them, else None) and ``ops`` (the f32
+    operations of the roofline)."""
+    fn: Callable[[int], object]
+    nbytes: float
+    flops: Optional[float]
+    ops: float
+
+
+def _on(device, a, dtype=None) -> torch.Tensor:
+    return torch.as_tensor(np.asarray(a), dtype=dtype, device=device)
+
+
+def gather_ed(data_dev, offs, L: int) -> Section:
+    """Raw squared ED of the B windows at ``offs + i`` against the series'
+    first L points: ``ops/ed.ed_distances_multi``, K2 on the card
+    (JAX: ``ops/ed.ed_distances``, kernel_bench.py:85-99)."""
+    from ..ops.ed import ed_distances_multi
+    dev = data_dev.device
+    B = len(offs)
+    q = data_dev[:L][None].contiguous()
+    offs_t = _on(dev, offs, torch.int64)
+    qids = torch.zeros(B, dtype=torch.int32, device=dev)
+    return Section(lambda i: ed_distances_multi(data_dev, q, offs_t + i, qids,
+                                                L),
+                   B * L * 4 + L * 4 + B * 4, None, K2_OPS["raw"] * B * L)
+
+
+def region_fft(data_dev, starts, L: int, M: int) -> Section:
+    """Z-normalised distances of the M offsets of each region row at
+    ``starts + i`` by FFT correlation: ``ops/regions.
+    region_znorm_distances_multi`` (JAX: ``region_znorm_distances``,
+    kernel_bench.py:101-117).  Operations: the three real FFTs of N points
+    a row (the row, its query, the product's inverse)."""
+    from ..ops.regions import region_znorm_distances_multi
+    dev = data_dev.device
+    R = len(starts)
+    r_len = M + L - 1
+    q = data_dev[:L]
+    qh = ((q - q.mean()) / (q.std(unbiased=False) + 1e-9))[None].contiguous()
+    starts_t = _on(dev, starts, torch.int64)
+    qids = torch.zeros(R, dtype=torch.int32, device=dev)
+    N = 1 << max(math.ceil(math.log2(r_len)), 1)
+    return Section(lambda i: region_znorm_distances_multi(
+        data_dev, qh, starts_t + i, qids, L, M),
+        R * r_len * 4 + L * 4 + 3 * R * M * 4, None,
+        R * 3 * FFT_OPS * N * math.log2(N))
+
+
+def banded_dtw(data_dev, offs, L: int, rho: int, dp) -> Section:
+    """The windows at ``offs + i`` gathered, then ``dp(rows, q, qids, rho)``
+    against the series' first L points: ``ops/dtw.dtw_diag`` (K3, the
+    engines' DP), ``dtw_rows`` (K4) or ``dtw_banded_plain`` (JAX:
+    kernel_bench.py:127-153; flops 8 per cell of the unclamped L x W band,
+    the JAX formula; ops ``DP_OPS`` per cell of the band)."""
+    from ..ops.ed import _gather
+    dev = data_dev.device
+    B = len(offs)
+    q = data_dev[:L][None].contiguous()
+    offs_t = _on(dev, offs, torch.int64)
+    qids = torch.zeros(B, dtype=torch.int32, device=dev)
+    W = 2 * rho + 1
+    return Section(lambda i: dp(_gather(data_dev, offs_t + i, L), q, qids,
+                                rho),
+                   B * L * 4 + L * 4 + B * 4, B * L * W * 8,
+                   DP_OPS * B * band_cells(L, rho))
+
+
+def ds_dtw(data_dev, offs, L: int, rho: int) -> Section:
+    """The double-single confirm stage ``ops/dtw.dtw_stage_ds_multi`` (the
+    DS kernel) on the windows at ``offs + i`` (JAX: kernel_bench.py:
+    166-179, which reports no byte count; here the windows, the query and
+    the three outputs)."""
+    from ..ops.dtw import dtw_stage_ds_multi
+    dev = data_dev.device
+    B = len(offs)
+    q = data_dev[:L][None].contiguous()
+    offs_t = _on(dev, offs, torch.int64)
+    qids = torch.zeros(B, dtype=torch.int32, device=dev)
+    return Section(lambda i: dtw_stage_ds_multi(data_dev, q, offs_t + i, qids,
+                                                L, rho),
+                   B * L * 4 + L * 4 + 3 * B * 4, None,
+                   DS_OPS * B * band_cells(L, rho))
+
+
+def build_pass(data_dev, nb: int, scales, pos_of_d: int) -> Section:
+    """Bucket ids of every scale over the first ``nb`` points:
+    ``ops/sliding.build_buckets`` (JAX: kernel_bench.py:181-199).  The JAX
+    section adds i * 1e-12 to the points against its backend's memoization;
+    that is a full pass over them here and the card memoizes nothing, so
+    every call takes the same points."""
+    from ..ops.sliding import build_buckets
+    piece = data_dev[:nb]
+    scales = tuple(scales)
+    return Section(lambda i: build_buckets(piece, scales, pos_of_d),
+                   nb * 4 + len(scales) * nb * 4, None,
+                   nb * (BUILD_OPS_POINT + BUILD_OPS_SCALE * len(scales)))
+
+
+def _fields(out: dict, prefix: str, sec: Section, reps: int, device,
+            rounds: int = ROUNDS) -> float:
+    """Time ``sec`` and write its ``prefix``_{ms, gbps, [gflops],
+    bound_ms, bound_by, share} fields; returns the seconds a call."""
+    ms = _timed(sec.fn, reps, device, rounds)
+    sec_s = ms / 1e3
+    work = bound(sec.nbytes, sec.ops)
+    out[f"{prefix}_ms"] = ms
+    out[f"{prefix}_gbps"] = sec.nbytes / sec_s / 1e9
+    if sec.flops is not None:
+        out[f"{prefix}_gflops"] = sec.flops / sec_s / 1e9
+    out[f"{prefix}_bound_ms"] = work["bound_ms"]
+    out[f"{prefix}_bound_by"] = work["bound_by"]
+    # The bound is the card's: a share only of a time taken on the card.
+    out[f"{prefix}_share"] = (work["bound_ms"] / ms
+                              if device.type == "cuda" else None)
+    return sec_s
+
+
+def measure_kernel_efficiency(data_dev: torch.Tensor, reps: int = 8,
+                              shapes: Optional[dict] = None
+                              ) -> Dict[str, object]:
+    """Time the hot kernels against ``data_dev`` (the f32 series on its
+    device; n >= 2^21 at the default shapes).  Returns a flat dict of the
+    JAX package's fields (``banded_dtw_xla_*`` becomes
+    ``banded_dtw_plain_*``, the plain PyTorch DP, timed one call a round;
+    the non-selected variant ``banded_dtw_rows_*`` is K4), each timed field
+    with its bound and share.  ``shapes`` overrides ``DEFAULT_SHAPES`` per
+    section; the gather, region and build sections take 8 * ``reps`` calls
+    a round (the JAX package's 64)."""
+    from ..config import DEFAULT_INDEX_CONFIG
+    from ..ops import dtw as td
+    shapes = dict(DEFAULT_SHAPES, **(shapes or {}))
+    device = data_dev.device
+    n = int(data_dev.shape[0])
+    out: Dict[str, object] = {}
+    rng = np.random.default_rng(0)
+    fast_reps = 8 * reps
+    on_card = device.type == "cuda"
+
+    B, L = shapes["gather_ed"]
+    offs = rng.integers(0, n - L - 4 * fast_reps, B)
+    _fields(out, "gather_ed", gather_ed(data_dev, offs, L), fast_reps,
+            device)
+    out["gather_ed_shape"] = f"B={B} L={L}"
+    out["gather_ed_kernel"] = "K2 window_ed" if on_card else "window_ed_plain"
+
+    R, M, Lr = shapes["region_fft"]
+    starts = rng.integers(0, n - (M + Lr - 1) - 4 * fast_reps, R)
+    sec_s = _fields(out, "region_fft", region_fft(data_dev, starts, Lr, M),
+                    fast_reps, device)
+    out["region_fft_shape"] = f"R={R} M={M} L={Lr}"
+    out["region_fft_offsets_per_s"] = R * M / sec_s
+
+    Bd, Ld, rho = shapes["banded_dtw"]
+    offs_d = rng.integers(0, n - Ld - 4 * reps, Bd)
+    for prefix, dp, kernel, plain in (
+            ("banded_dtw", td.dtw_diag, "K3 dtw_diag", "dtw_banded_plain"),
+            ("banded_dtw_rows", td.dtw_rows, "K4 dtw_rows",
+             "dtw_banded_plain"),
+            ("banded_dtw_plain", td.dtw_banded_plain, "dtw_banded_plain",
+             "dtw_banded_plain")):
+        # The plain DP is L steps of a dozen small launches each: one call
+        # a round.
+        one = dp is td.dtw_banded_plain
+        sec_s = _fields(out, prefix, banded_dtw(data_dev, offs_d, Ld, rho, dp),
+                        1 if one else reps, device, 1 if one else ROUNDS)
+        out[f"{prefix}_cands_per_s"] = Bd / sec_s
+        out[f"{prefix}_kernel"] = kernel if on_card else plain
+    out["banded_dtw_shape"] = f"B={Bd} L={Ld} rho={rho}"
+
+    Bds = shapes["ds_dtw"]
+    sec_s = _fields(out, "ds_dtw", ds_dtw(data_dev, offs_d[:Bds], Ld, rho),
+                    reps, device)
+    out["ds_dtw_cands_per_s"] = Bds / sec_s
+    out["ds_dtw_shape"] = f"B={Bds} L={Ld} rho={rho}"
+    out["ds_dtw_kernel"] = "DS dtw_ds" if on_card else "dtw_banded_ds_plain"
+
+    nb = min(n, shapes["build_pass"])
+    scales = tuple(DEFAULT_INDEX_CONFIG.scales)
+    sec_s = _fields(out, "build_pass", build_pass(
+        data_dev, nb, scales, DEFAULT_INDEX_CONFIG.pos_of_d), fast_reps,
+        device)
+    out["build_pass_mpts_per_s"] = nb * len(scales) / sec_s / 1e6
+    out["build_pass_shape"] = f"n={nb} scales={len(scales)}"
+    out["device"] = torch.cuda.get_device_name(device) if on_card else "cpu"
+    return out
+
+
+def compare_window_kernel(data_dev: torch.Tensor, reps: int = 8
+                          ) -> Dict[str, object]:
+    """K2 (``window_ed``, raw) against its plain version
+    ``window_ed_plain`` and the library yardstick (``torch.cdist`` of the
+    pre-gathered windows, the gather excluded) at each (B, L) of
+    ``WINDOW_SHAPES`` (the JAX package's ``compare_pallas_gather``).  On a CPU
+    tensor the kernel cannot run: only the plain version and the library
+    call are timed, under their own names."""
+    from ..ops.ed import _gather, window_ed, window_ed_plain
+    device = data_dev.device
+    n = int(data_dev.shape[0])
+    on_card = device.type == "cuda"
+    out: Dict[str, object] = {}
+    rng = np.random.default_rng(1)
+    for B, L in WINDOW_SHAPES:
+        offs = _on(device, rng.integers(0, n - L - 4 * reps, B), torch.int64)
+        q = data_dev[:L][None].contiguous()
+        qids = torch.zeros(B, dtype=torch.int32, device=device)
+        tag = f"B{B}_L{L}"
+        plain = _timed(lambda i: window_ed_plain(data_dev, q, offs + i, qids,
+                                                 L, False), reps, device,
+                       ROUNDS)
+        # As chip_smoke.py's K2 row: each window against its query row.
+        xw = _gather(data_dev, offs, L)[:, None, :]
+        qw = q[qids.long()][:, None, :]
+        library = _timed(lambda i: torch.cdist(xw, qw), reps, device, ROUNDS)
+        del xw, qw
+        out[f"plain_ms_{tag}"] = plain
+        out[f"library_ms_{tag}"] = library
+        if on_card:
+            k2 = _timed(lambda i: window_ed(data_dev, q, offs + i, qids, L,
+                                            False), reps, device, ROUNDS)
+            out[f"k2_ms_{tag}"] = k2
+            out[f"k2_speedup_vs_plain_{tag}"] = plain / k2
+            out[f"k2_speedup_vs_library_{tag}"] = library / k2
+        else:
+            out[f"plain_speedup_vs_library_{tag}"] = library / plain
+    out["library"] = ("torch.cdist of the pre-gathered raw windows against "
+                      "the query, gather excluded")
+    out["device"] = torch.cuda.get_device_name(device) if on_card else "cpu"
+    return out

@@ -9,7 +9,8 @@ host-only; a fourth runs this slice's modules (the append build,
 persistence, the command line, the twins and the full scan, codec,
 storage, experiments, profiling); a fifth the sharded build, the
 sharded steps and their recovery (``parallel.dryrun``) and the sharded
-``HbmStore``.  A static check finds no
+``HbmStore``; a sixth one tiny section each of the measurement layer
+(``bench``, ``selectivity``, ``utils.kernel_bench``).  A static check finds no
 import of ``kvmatch_tpu`` in the port's sources or in chip_smoke.py."""
 
 import ast
@@ -171,9 +172,32 @@ assert [t.shape[0] for t in store.device] == [501, 501]
 """ + VERDICT
 
 
+BENCH_PROBE = r"""
+import sys
+preloaded = "jax" in sys.modules
+import numpy as np
+import torch
+torch.set_num_threads(1)
+from kvmatch_tpu_torch import QueryConfig, bench, generate_series, selectivity
+from kvmatch_tpu_torch.utils import kernel_bench
+data = generate_series(140_000, seed=3)
+dev = torch.as_tensor(data.astype(np.float32))
+sec = kernel_bench.gather_ed(dev, np.arange(0, 1000, 10), 128)
+assert sec.fn(0).shape == (100,)
+st = bench._setup(bench.parse_args(["--n", "140000", "--quick", "--batch",
+                                    "2", "--device", "cpu"]),
+                  QueryConfig.h100_tuned(), torch.device("cpu"))
+bench.demo(st)
+assert st.correctness["demo_exact"]
+vals, pos = selectivity.topk_profile("rsm", dev, data[5000:5256], 16)
+assert int(pos[0]) == 5000
+""" + VERDICT
+
+
 @pytest.mark.parametrize("probe", [PROBE, DTW_PROBE, STREAM_PROBE,
-                                   SLICE_PROBE, SHARDED_PROBE],
-                         ids=["ed", "dtw", "stream", "slice", "sharded"])
+                                   SLICE_PROBE, SHARDED_PROBE, BENCH_PROBE],
+                         ids=["ed", "dtw", "stream", "slice", "sharded",
+                              "bench"])
 def test_port_runs_without_jax(probe):
     env = dict(os.environ, PYTHONPATH=str(REPO))
     out = subprocess.run([sys.executable, "-c", probe], cwd=REPO, env=env,
