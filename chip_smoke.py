@@ -16,7 +16,11 @@ JSON line tagged with the card's name and power limit and its seconds
                 times: K1 (dense probe) on the n=1e8 cached bucket stack
                 with the 8 north-star cNSM-ED plans, the 8 cNSM-DTW
                 envelope plans and the 8 RSM-ED plans of the same queries;
-                K2 (window distances, raw and z-norm) at B=16384, L=8192;
+                K2 (window distances, raw and z-norm) at B=16384, L=8192
+                with the north-star queries, then at each (B, L) of
+                K2_SHAPES: held to its plain version, and timed alone on
+                the card (torch.profiler, a trace a shape), beside the
+                wrapper's host time and torch.cdist's device time;
                 K3 (dtw_diag), K4 (dtw_rows) and the double-single DP
                 (dtw_ds) on one bucket of B=1024 windows, L=8192, r=409,
                 raw and z-normed, and K3 on a 16,384-row chunk; K3 and DS
@@ -50,7 +54,8 @@ JSON line tagged with the card's name and power limit and its seconds
 5. main      -- cNSM-ED at n=1e8, L=8192, 8 self-queries, eps=4,
                 alpha=1.2, beta=5 (bench.py's north star): one warm batch,
                 3 timed batches, then each query alone through engine.query
-                (the latency path); launch counts of K1 and K2 over both;
+                (the latency path); launch counts of K1 and K2 over both,
+                and the (B, L) of each path's K2 calls;
    main_dtw  -- cNSM-DTW at n=1e8, L=8192, rho=409 on the same series,
                 index and the 8 queries (MAIN_DTW_QUERIES): one warm batch,
                 MAIN_DTW_REPS timed batches with their stage counts and
@@ -110,7 +115,8 @@ JSON line tagged with the card's name and power limit and its seconds
                 n=1e6 with --quick --no-northstar: every quick section
                 runs with no error, the demo is exact, every self-query
                 found; then utils/kernel_bench's measure_kernel_efficiency
-                and compare_window_kernel on the n=1e8 series;
+                and compare_window_kernel (K2 timed as in kernels) on the
+                n=1e8 series;
 15. selectivity -- the calibrated selectivity matrix (selectivity.py) of
                 RSM-ED and cNSM-ED at n=1e8, L=8192 over the resident
                 series and stats-only index, SELECTIVITY_PER_DECADE
@@ -126,7 +132,8 @@ JSON line tagged with the card's name and power limit and its seconds
                 RSM-DTW on the selective singles with K3 and with K4, and
                 cNSM-DTW at n=1e6), every answer set after the f64 confirm
                 equal to the resident engine's (the oracle's at n=1e6),
-                each step's seconds beside the engine's; the halo bytes;
+                each step's seconds beside the engine's (and the (B, L) of
+                the cNSM-ED step's K2 calls); the halo bytes;
                 dryrun_multichip(SHARDS); launches counted as above.
 
 Then the kernel table ({"kernels": [...]}), the nvidia-smi name/power line
@@ -154,8 +161,8 @@ if not (REPO / "kvmatch_tpu_torch" / "csrc").is_dir():
 sys.path.insert(0, str(REPO))
 # The one roofline of the port (bound_ms, bound_by) and its timer.
 from kvmatch_tpu_torch.utils.kernel_bench import (  # noqa: E402
-    DP_OPS, DS_OPS, K1_OPS, K1_OPS_FULL, K1_TRACK_OPS, K2_OPS, band_cells,
-    bound, card_line, timed_ms)
+    DP_OPS, DS_OPS, K1_OPS, K1_OPS_FULL, K1_TRACK_OPS, K2_QUERIES, K2_SHAPES,
+    band_cells, bound, card_line, k2_work, timed_ms, window_kernel_times)
 
 L_MAIN = 8192
 N_MAIN = 100_000_000
@@ -182,11 +189,10 @@ K3_BITWISE_CASES = ((1024, 51, 256), (1024, 409, 256), (1024, 1100, 256),
 # first of a cluster of 3 blocks (r = 26,624, 65 warps).  K4's carries are
 # in its global workspace at both.
 WIDE_BAND_CASES = ((13_313, 13_312, 2), (26_625, 26_624, 2))
-# The engines on such a band: (engine, n, L, rho, eps, queries).  A query of
-# more
-# than 12,024 points needs more than the default 30 plan segments (44 at
-# L = 16,384: segments of 1-16 units of 25 points); K1 packs at most 30, so
-# these plans take host phase 1 over a host-built index.
+# The engines on such a band, 2 self-queries each: (engine, n, L, rho, eps).
+# A query of more than 12,024 points needs more than the default 30 plan
+# segments (44 at L = 16,384: segments of 1-16 units of 25 points); K1 packs
+# at most 30, so these plans take host phase 1 over a host-built index.
 WIDE_ENGINE_SHAPES = (("rsm_dtw", 17_000, 16_384, 13_500, EPS_RSM),
                       ("cnsm_dtw", 17_000, 16_384, 13_500, EPS))
 WIDE_MAX_SEGMENTS = 64
@@ -303,12 +309,50 @@ def check_probe_kernel(eng, bstack, queries, device, norm: bool = True,
     return res
 
 
-def check_window_kernel(data_dev, queries, device, batch: int) -> dict:
-    """K2 raw and z-norm at (batch, L) against the plain version within
-    |dd2| <= 1e-5 L + 1e-5 d2 and |dmean|, |dstd| <= 1e-5 max|x|."""
-    import numpy as np
+def k2_held(args, what: str) -> dict:
+    """K2 (``window_ed``) against its plain version on ``args`` within
+    |dd2| <= 1e-5 L + 1e-5 d2 and |dmean|, |dstd| <= 1e-5 max|x|; raises
+    beyond them.  Returns the errors and the plain call's ms."""
     import torch
     from kvmatch_tpu_torch.ops.ed import _gather, window_ed, window_ed_plain
+    data_dev, _qm, offs, _qids, L, znorm = args
+    got = window_ed(*args)
+    torch.cuda.synchronize(data_dev.device)
+    t0 = time.perf_counter()
+    want = window_ed_plain(*args)
+    torch.cuda.synchronize(data_dev.device)
+    plain_ms = (time.perf_counter() - t0) * 1e3
+    g = got if znorm else (got,)
+    w = want if znorm else (want,)
+    finite = torch.isfinite(w[0])
+    if not torch.equal(torch.isfinite(g[0]), finite):
+        raise AssertionError(f"K2 {what}: infinite rows differ")
+    err = (g[0] - w[0]).abs()[finite]
+    tol = 1e-5 * L + 1e-5 * w[0].abs()[finite]
+    if bool((err > tol).any()):
+        raise AssertionError(f"K2 {what}: d2 error {float(err.max())} "
+                             f"beyond 1e-5 L + 1e-5 d2")
+    scale = _gather(data_dev, offs, L).abs().amax(dim=1)
+    stat_err = max([float(((a - b).abs() / scale).max())
+                    for a, b in zip(g[1:], w[1:])], default=0.0)
+    if stat_err > 1e-5:
+        raise AssertionError(f"K2 {what}: mean/std error {stat_err} of "
+                             f"max|x| beyond 1e-5")
+    return dict(max_abs_err=float(err.max()),
+                max_err_over_bound=float((err / tol).max()),
+                stat_err_rel=stat_err, plain_ms=plain_ms)
+
+
+def check_window_kernel(data_dev, queries, device, batch: int) -> dict:
+    """K2 raw and z-norm against the plain version (``k2_held``): at
+    (batch, L) with the north-star queries, then at each (B, L) of
+    K2_SHAPES on rows of K2_QUERIES series windows; then K2's times at
+    K2_SHAPES by ``window_kernel_times`` (the kernel's device time alone,
+    the wrapper's host time, torch.cdist's device time for the raw form),
+    the one timer of K2."""
+    import numpy as np
+    import torch
+    from kvmatch_tpu_torch.ops.ed import _gather
     Q, L = queries.shape
     n = data_dev.shape[0]
     rng = np.random.default_rng(5)
@@ -320,42 +364,29 @@ def check_window_kernel(data_dev, queries, device, batch: int) -> dict:
     sd = queries.std(axis=1, keepdims=True)
     qhat = torch.as_tensor((queries - mu) / sd, dtype=torch.float32,
                            device=device)
-    scale = _gather(data_dev, offs, L).abs().amax(dim=1)
-    # The library yardstick of the raw form: torch.cdist of each pre-gathered
-    # window against its query row (the gather is excluded from its time).
-    xw = _gather(data_dev, offs, L)[:, None, :]
-    qw = qraw[qids.long()][:, None, :]
-    library_ms = timed_ms(lambda: torch.cdist(xw, qw), 20, device)
-    del xw, qw
-    out = {}
-    for name, qm, znorm in (("raw", qraw, False), ("znorm", qhat, True)):
-        args = (data_dev, qm, offs, qids, L, znorm)
-        got, want = window_ed(*args), window_ed_plain(*args)
-        g = got if znorm else (got,)
-        w = want if znorm else (want,)
-        finite = torch.isfinite(w[0])
-        if not torch.equal(torch.isfinite(g[0]), finite):
-            raise AssertionError(f"K2 {name}: infinite rows differ")
-        err = (g[0] - w[0]).abs()[finite]
-        tol = 1e-5 * L + 1e-5 * w[0].abs()[finite]
-        if bool((err > tol).any()):
-            raise AssertionError(f"K2 {name}: d2 error {float(err.max())} "
-                                 f"beyond 1e-5 L + 1e-5 d2")
-        stat_err = max([float(((a - b).abs() / scale).max())
-                        for a, b in zip(g[1:], w[1:])], default=0.0)
-        if stat_err > 1e-5:
-            raise AssertionError(f"K2 {name}: mean/std error {stat_err} of "
-                                 f"max|x| beyond 1e-5")
-        out[name] = dict(
-            max_abs_err=float(err.max()),
-            max_err_over_bound=float((err / tol).max()),
-            stat_err_rel=stat_err,
-            ms=timed_ms(lambda: window_ed(*args), 20, device),
-            plain_ms=timed_ms(lambda: window_ed_plain(*args), 5, device),
-            library_ms=library_ms if name == "raw" else None,
-            **bound(batch * (4 * L + 12) + Q * L * 4
-                    + batch * 4 * (3 if znorm else 1),
-                    K2_OPS[name] * batch * L))
+    out = {name: dict(k2_held((data_dev, qm, offs, qids, L, znorm), name),
+                      **k2_work(batch, L, Q, znorm))
+           for name, qm, znorm in (("raw", qraw, False),
+                                   ("znorm", qhat, True))}
+    held = {}
+    for B, Ls in K2_SHAPES:
+        offs = torch.as_tensor(rng.integers(0, n - Ls + 1, B), device=device)
+        qids = torch.as_tensor(np.sort(rng.integers(0, K2_QUERIES, B))
+                               .astype(np.int32), device=device)
+        qr = _gather(data_dev, torch.as_tensor(rng.integers(
+            0, n - Ls + 1, K2_QUERIES), device=device), Ls).contiguous()
+        qh = ((qr - qr.mean(1, keepdim=True))
+              / qr.std(1, unbiased=False, keepdim=True)).contiguous()
+        held[f"B{B}_L{Ls}"] = {
+            name: k2_held((data_dev, qm, offs, qids, Ls, name == "znorm"),
+                          f"{name} B={B} L={Ls}")
+            for name, qm in (("raw", qr), ("znorm", qh))}
+    t0 = time.perf_counter()
+    out["shapes"] = window_kernel_times(data_dev)
+    out["times_s"] = time.perf_counter() - t0
+    for tag, entry in out["shapes"].items():
+        for name in ("raw", "znorm"):
+            entry[name].update(held[tag][name])
     return out
 
 
@@ -2139,6 +2170,7 @@ def sharded_phase(data8, stack8, buckets8, q8, offs8, raw8, eng8, reng8,
     from kvmatch_tpu_torch import (IndexConfig, NormQueryEngineDtw,
                                    generate_series)
     from kvmatch_tpu_torch.ops import dtw as td
+    from kvmatch_tpu_torch.ops.ed import window_ed
     from kvmatch_tpu_torch.parallel import query as pq
     from kvmatch_tpu_torch.parallel.build import build_index_sharded
     from kvmatch_tpu_torch.parallel.dryrun import (dryrun_multichip,
@@ -2253,10 +2285,12 @@ def sharded_phase(data8, stack8, buckets8, q8, offs8, raw8, eng8, reng8,
     cons, qhat = norm_inputs(ctxs, q8, device)
     rn, rn_s = resident_run(lambda: eng8.query_batch_device(
         q8, EPS, alpha=ALPHA, beta=BETA))
+    window_ed.shapes.clear()
     res, info = step_run("norm", lambda k: (
         pq.make_sharded_query_step_norm_batched(mesh, icfg, L_MAIN, top_k=k)),
         (data_sh, stack_sh, qhat, pq.pack_segments_batch(segs, scales, device),
          torch.full((len(q8),), EPS * EPS, device=device), cons, n))
+    info["k2_shapes"] = dict(window_ed.shapes)
     if len(info["rounds"]) < 2:
         raise AssertionError("the north star did not escalate top_k")
     sets, near = exact_sets("cnsm_ed", data64, q8, ctxs, res[1],
@@ -2475,6 +2509,7 @@ def main() -> int:
         k4_bitwise=check_bitwise(dev8, q8, device, "K4")))
     k1, k1d, k1r, k2, kd = (kern[k] for k in (
         "k1", "k1_dtw_plans", "k1_raw_plans", "k2", "dtw"))
+    k2_main = k2["shapes"][f"B{K2_BATCH}_L{L_MAIN}"]
     phase("fft", lambda: fft_error(dev8, q8, device))
     oracles: dict = {}  # the n=1e6 oracle's sets, for the streamed engines
     phase("exact", lambda: exact_small(device, oracles))
@@ -2488,8 +2523,12 @@ def main() -> int:
     window_ed.launches = 0
 
     def ed_main():
+        window_ed.shapes.clear()
         main, batch_res = main_path(eng8, offs8, q8)
+        shapes = dict(batch=dict(window_ed.shapes))
+        window_ed.shapes.clear()
         main.update(single_queries(eng8, q8, batch_res))
+        main["k2_shapes"] = dict(shapes, singles=dict(window_ed.shapes))
         return main
     main = phase("main", ed_main, n=N_MAIN, L=L_MAIN, eps=EPS, alpha=ALPHA,
                  beta=BETA)
@@ -2597,7 +2636,7 @@ def main() -> int:
                                  f"bench or selectivity path")
     # This slice's path: the sharded build and steps, counted over it alone.
     shard_launches = {fn.__name__: 0 for fn in path_kernels}
-    phase("sharded", lambda: sharded_phase(
+    shard = phase("sharded", lambda: sharded_phase(
         data8, stack8, full.pop("buckets"), q8, offs8, raw8, eng8, reng8,
         oracles, device, path_kernels, shard_launches), n=N_MAIN,
         shards=SHARDS)
@@ -2655,14 +2694,27 @@ def main() -> int:
             source="kvmatch_tpu_torch/csrc/window_ed.cu",
             replaces="kvmatch_tpu/ops/pallas_ed.py:60",
             launches=launches["window_ed"], launched_on="main",
-            max_abs_err=max(v["max_abs_err"] for v in k2.values()),
-            max_err_over_bound=max(v["max_err_over_bound"]
-                                   for v in k2.values()),
+            max_abs_err=max(k2[v]["max_abs_err"] for v in ("raw", "znorm")),
+            max_err_over_bound=max(k2[v]["max_err_over_bound"]
+                                   for v in ("raw", "znorm")),
             tolerance="|d2 - d2_plain| <= 1e-5 L + 1e-5 d2",
-            ms=k2["znorm"]["ms"], plain_ms=k2["znorm"]["plain_ms"],
-            raw_ms=k2["raw"]["ms"], library_ms=k2["raw"]["library_ms"],
+            ms=k2_main["znorm"]["device_ms"],
+            plain_ms=k2["znorm"]["plain_ms"],
+            raw_ms=k2_main["raw"]["device_ms"],
+            raw_plain_ms=k2["raw"]["plain_ms"],
+            library_ms=k2_main["raw"]["library_ms"],
+            timing="device time alone (torch.profiler), B=16384, L=8192",
             library="torch.cdist of the pre-gathered raw windows, gather "
-                    "excluded (compare with raw_ms)"), k2["znorm"],
+                    "excluded (compare with raw_ms)",
+            device_ms_by_shape={
+                tag: dict({name: {k: e[name][k] for k in (
+                    "device_ms", "host_us", "bound_ms", "share_of_bound",
+                    "library_ms", "max_err_over_bound", "plain_ms")}
+                           for name in ("raw", "znorm")}, traces=e["traces"])
+                for tag, e in k2["shapes"].items()},
+            launched_shapes=dict(main["k2_shapes"],
+                                 sharded_north_star=shard["norm"][
+                                     "k2_shapes"])), k2["znorm"],
             per_batch["window_ed"]),
         dict(dp_entry("dtw_diag", "kvmatch_tpu/ops/dtw_pallas.py:176",
                       "dtw_diag", dtw_launches["dtw_diag"], "main_dtw",

@@ -132,7 +132,11 @@ def cmd_query(args) -> int:
     offset = args.offset - 1 if args.one_based else args.offset
     kernels = _kernels()
     before = [k.launches for k in kernels]
-    res = engine.query_at(offset, args.length, args.epsilon, **params)
+    try:
+        res = engine.query_at(offset, args.length, args.epsilon, **params)
+    except ValueError as e:
+        print(f"query: {e}", file=sys.stderr)
+        return 2
     if args.count_launches:
         print(json.dumps({k.__name__: k.launches - b
                           for k, b in zip(kernels, before)}), file=sys.stderr)

@@ -14,82 +14,140 @@
 // the caller.
 //
 // What bounds it on an H100: device-memory reads, 4*L bytes of window per
-// row (the query row stays in L1/L2 across rows of the same query) against
-// 3 f32 ops per element -- far below the compute roofline.  Design: one
-// 256-thread block per row, threads stride the window so a warp reads
-// consecutive addresses, a shared-memory tree reduces the f32 partial sums.
-// The z-norm variant is two-pass (mean, then centred sums) as in
-// ops/ed.py:201-211; its second and third passes re-read the 32 KB window
-// from L1/L2.  The TPU kernel's 1024-element DMA alignment and barrel realign
-// (Mosaic constraints) are not carried over.
+// row (the query rows stay in L1/L2 across the rows of one query, which the
+// engines send together), against 3 (raw) or 9 (z-norm) f32 operations a
+// window element -- far below the compute roofline.  The design, chosen on
+// the card's timings (PERF.md):
+//
+// * A row is WPR warps: one up to L = 1024, two up to 2048, four up to 4096,
+//   eight above; a block is 8 warps, so 8 / WPR rows.  Lanes read
+//   consecutive floats (each warp load is one coalesced 128-byte line), 16
+//   loads a thread in flight before their first use.
+// * Sums are warp shuffles (every lane gets the total); a row of several
+//   warps adds the warps' sums through one shared-memory stage -- at most
+//   two barriers a reduction, against the nine of a 256-thread tree.
+// * z-norm keeps the two-pass centred algebra of the plain version (mean,
+//   then the centred square sum, then the distance, which multiplies by
+//   1/std where the plain version divides).  Pass one reads the window from
+//   device memory; passes two and three re-read it through L1.  Past
+//   L = 4096 a block's window (32 KB at L = 8192) times the blocks an SM
+//   holds outgrows L1, so pass two walks the window backwards: it starts on
+//   the lines pass one touched last, and pass three on those pass two
+//   touched last.
+// * Staging each window in shared memory by 16-byte cp.async copies (the
+//   Pallas kernel's VMEM copy) was slower on the card at every shape on
+//   record: a block holds its copy through three passes, so fewer windows
+//   are in flight.
 
 #include <cuda_runtime.h>
 #include <math.h>
 
-#define KVM_ED_THREADS 256
+#define KVM_ED_WARPS 8
+#define KVM_ED_THREADS (32 * KVM_ED_WARPS)
 
-__device__ __forceinline__ float block_sum(float v, float* sh) {
-  const int tid = threadIdx.x;
-  sh[tid] = v;
+// The sum of v over a row's WPR warps, returned to every thread of the row.
+// Every thread of the block calls it the same number of times (rows past B
+// repeat the last row), so its barriers are uniform.
+template <int WPR>
+__device__ __forceinline__ float row_sum(float v, float* red, int warp,
+                                         int lane) {
+#pragma unroll
+  for (int o = 16; o > 0; o >>= 1) v += __shfl_xor_sync(0xffffffffu, v, o);
+  if (WPR == 1) return v;
+  if (lane == 0) red[warp] = v;
   __syncthreads();
-  for (int s = KVM_ED_THREADS / 2; s > 0; s >>= 1) {
-    if (tid < s) sh[tid] = sh[tid] + sh[tid + s];
-    __syncthreads();
-  }
-  const float r = sh[0];
+  const int first = (warp / WPR) * WPR;
+  float t = 0.0f;
+#pragma unroll
+  for (int w = 0; w < WPR; ++w) t += red[first + w];
   __syncthreads();
-  return r;
+  return t;
 }
 
+template <int WPR, bool ZNORM>
 __global__ void __launch_bounds__(KVM_ED_THREADS)
 window_ed_kernel(const float* __restrict__ data, long long n,
                  const float* __restrict__ queries, int L, float inv_l,
                  const long long* __restrict__ offsets,
-                 const int* __restrict__ qids, int znorm,
+                 const int* __restrict__ qids, int B,
                  float* __restrict__ d2, float* __restrict__ mean,
                  float* __restrict__ stdv) {
-  __shared__ float sh[KVM_ED_THREADS];
-  const long long b = blockIdx.x;
-  const int tid = threadIdx.x;
+  constexpr int ROWS = KVM_ED_WARPS / WPR;
+  constexpr int T = 32 * WPR;  // threads of a row
+  __shared__ float red[KVM_ED_WARPS];
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int slot = warp / WPR;
+  const int t = threadIdx.x - slot * T;
+  const long long row = (long long)blockIdx.x * ROWS + slot;
+  const bool live = row < B;
+  const long long b = live ? row : (long long)B - 1;
   long long off = offsets[b];
   if (off > n - L) off = n - L;
   if (off < 0) off = 0;
-  const float* x = data + off;
-  const float* q = queries + (long long)qids[b] * L;
+  const float* __restrict__ x = data + off;
+  const float* __restrict__ q = queries + (long long)qids[b] * L;
 
-  if (!znorm) {
+  if constexpr (!ZNORM) {
     float s = 0.0f;
-    for (int j = tid; j < L; j += KVM_ED_THREADS) {
-      const float df = x[j] - q[j];
-      s = s + df * df;
+#pragma unroll 16
+    for (int j = t; j < L; j += T) {
+      const float df = __ldg(x + j) - __ldg(q + j);
+      s = fmaf(df, df, s);
     }
-    const float tot = block_sum(s, sh);
-    if (tid == 0) d2[b] = tot;
-    return;
+    const float tot = row_sum<WPR>(s, red, warp, lane);
+    if (live && t == 0) d2[b] = tot;
+  } else {
+    float s1 = 0.0f;
+#pragma unroll 16
+    for (int j = t; j < L; j += T) s1 += __ldg(x + j);
+    const float mu = row_sum<WPR>(s1, red, warp, lane) * inv_l;
+    float s2 = 0.0f;
+    if constexpr (WPR == 8) {
+      const int last = t < L ? t + ((L - 1 - t) / T) * T : t - T;
+#pragma unroll 16
+      for (int j = last; j >= t; j -= T) {
+        const float c = __ldg(x + j) - mu;
+        s2 = fmaf(c, c, s2);
+      }
+    } else {
+#pragma unroll 16
+      for (int j = t; j < L; j += T) {
+        const float c = __ldg(x + j) - mu;
+        s2 = fmaf(c, c, s2);
+      }
+    }
+    const float var = row_sum<WPR>(s2, red, warp, lane) * inv_l;
+    const float sd = sqrtf(var);
+    const float inv = 1.0f / (sd > 0.0f ? sd : 1.0f);
+    float s3 = 0.0f;
+#pragma unroll 16
+    for (int j = t; j < L; j += T) {
+      const float z = (__ldg(x + j) - mu) * inv - __ldg(q + j);
+      s3 = fmaf(z, z, s3);
+    }
+    const float tot = row_sum<WPR>(s3, red, warp, lane);
+    if (live && t == 0) {
+      d2[b] = sd > 0.0f ? tot : INFINITY;
+      mean[b] = mu;
+      stdv[b] = sd;
+    }
   }
+}
 
-  float s1 = 0.0f;
-  for (int j = tid; j < L; j += KVM_ED_THREADS) s1 = s1 + x[j];
-  const float mu = block_sum(s1, sh) * inv_l;
-  float s2 = 0.0f;
-  for (int j = tid; j < L; j += KVM_ED_THREADS) {
-    const float c = x[j] - mu;
-    s2 = s2 + c * c;
-  }
-  const float var = block_sum(s2, sh) * inv_l;
-  const float sd = sqrtf(var);
-  const float safe = sd > 0.0f ? sd : 1.0f;
-  float s3 = 0.0f;
-  for (int j = tid; j < L; j += KVM_ED_THREADS) {
-    const float z = (x[j] - mu) / safe - q[j];
-    s3 = s3 + z * z;
-  }
-  const float tot = block_sum(s3, sh);
-  if (tid == 0) {
-    d2[b] = sd > 0.0f ? tot : INFINITY;
-    mean[b] = mu;
-    stdv[b] = sd;
-  }
+template <int WPR>
+static int launch(int znorm, const float* data, long long n,
+                  const float* queries, int L, float inv_l,
+                  const long long* offsets, const int* qids, int B, float* d2,
+                  float* mean, float* stdv, cudaStream_t stream) {
+  constexpr int ROWS = KVM_ED_WARPS / WPR;
+  const unsigned grid = (unsigned)((B + ROWS - 1) / ROWS);
+  if (znorm)
+    window_ed_kernel<WPR, true><<<grid, KVM_ED_THREADS, 0, stream>>>(
+        data, n, queries, L, inv_l, offsets, qids, B, d2, mean, stdv);
+  else
+    window_ed_kernel<WPR, false><<<grid, KVM_ED_THREADS, 0, stream>>>(
+        data, n, queries, L, inv_l, offsets, qids, B, d2, mean, stdv);
+  return (int)cudaGetLastError();
 }
 
 extern "C" int kvm_window_ed(const void* data, long long n,
@@ -98,9 +156,17 @@ extern "C" int kvm_window_ed(const void* data, long long n,
                              int znorm, void* d2, void* mean, void* stdv,
                              void* stream) {
   if (B <= 0 || L <= 0 || (long long)L > n) return (int)cudaErrorInvalidValue;
-  window_ed_kernel<<<B, KVM_ED_THREADS, 0, (cudaStream_t)stream>>>(
-      (const float*)data, n, (const float*)queries, L, inv_l,
-      (const long long*)offsets, (const int*)qids, znorm, (float*)d2,
-      (float*)mean, (float*)stdv);
-  return (int)cudaGetLastError();
+  const float* x = (const float*)data;
+  const float* qs = (const float*)queries;
+  const long long* off = (const long long*)offsets;
+  const int* qi = (const int*)qids;
+  float *o1 = (float*)d2, *o2 = (float*)mean, *o3 = (float*)stdv;
+  cudaStream_t st = (cudaStream_t)stream;
+  if (L <= 1024)
+    return launch<1>(znorm, x, n, qs, L, inv_l, off, qi, B, o1, o2, o3, st);
+  if (L <= 2048)
+    return launch<2>(znorm, x, n, qs, L, inv_l, off, qi, B, o1, o2, o3, st);
+  if (L <= 4096)
+    return launch<4>(znorm, x, n, qs, L, inv_l, off, qi, B, o1, o2, o3, st);
+  return launch<8>(znorm, x, n, qs, L, inv_l, off, qi, B, o1, o2, o3, st);
 }

@@ -360,8 +360,11 @@ class BaseEngine:
     # ------------------------------------------------------------------ plans
     def _plan(self, ctx: _Ctx) -> List[QuerySegment]:
         lo, hi, fn = self._plan_inputs(ctx)
-        return determine_query_plan(ctx.length, lo, hi, fn,
-                                    self.icfg, self.qcfg)
+        segments = determine_query_plan(ctx.length, lo, hi, fn,
+                                        self.icfg, self.qcfg)
+        if not segments:
+            raise self._no_plan(ctx.length)
+        return segments
 
     def _plan_batch(self, ctxs) -> list:
         """Plan a same-length query batch with the stacked DP (identical
@@ -369,10 +372,29 @@ class BaseEngine:
         parts = [self._plan_inputs(c) for c in ctxs]
         lo = np.stack([pt[0] for pt in parts])
         hi = np.stack([pt[1] for pt in parts])
-        return determine_query_plans_batched(
+        plans = determine_query_plans_batched(
             ctxs[0].length, lo, hi, [pt[2] for pt in parts],
             self.icfg, self.qcfg,
             cost_batch_multi=self._cost_batch_multi(ctxs))
+        if not all(plans):
+            raise self._no_plan(ctxs[0].length)
+        return plans
+
+    def _no_plan(self, length: int) -> ValueError:
+        """The error of a query that no plan covers: its units outnumber
+        ``QueryConfig.max_segments`` segments of the widest scale.  Phase 0
+        runs on the host, so this comes before any device work.  (The JAX
+        package goes on to phase 1 and raises IndexError there.)"""
+        unit = self.icfg.unit
+        widest = max(w for w, on in zip(self.icfg.wu_list,
+                                        self.icfg.wu_enabled) if on)
+        segs = self.qcfg.max_segments
+        longest = (segs * (widest // unit) + 1) * unit - 1
+        return ValueError(
+            f"query length {length}: no plan of at most "
+            f"QueryConfig.max_segments = {segs} segments of at most {widest} "
+            f"points covers it (the longest such query has {longest} "
+            f"points); raise max_segments")
 
     # Use the join when the candidate set is this many times smaller than the
     # segment's planned interval count (the join is O(|CS| log P) vs the

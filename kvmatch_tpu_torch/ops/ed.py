@@ -83,11 +83,16 @@ def window_ed(data, queries, offsets, qids, length: int, znorm: bool):
         float(np.float32(1.0 / length)), offsets.data_ptr(), qids.data_ptr(),
         B, int(znorm), d2.data_ptr(), mean.data_ptr(), std.data_ptr(), stream)
     window_ed.launches += 1
+    key = f"B{B}_L{length}_{'znorm' if znorm else 'raw'}"
+    window_ed.shapes[key] = window_ed.shapes.get(key, 0) + 1
     kernels.check(code, "window_ed")
     return (d2, mean, std) if znorm else d2
 
 
 window_ed.launches = 0
+#: Launches by shape, "B{rows}_L{length}_{raw|znorm}", counted with
+#: ``launches``.
+window_ed.shapes = {}
 
 
 def ed_distances_multi(data, queries, offsets, qids, length: int):

@@ -17,8 +17,14 @@ among its answers (``replay``).
 The targets and decade bounds follow n (``decade_targets``,
 ``decade_bounds``): at n = 1e8 they are the JAX script's 3, 30, 300, 3000.
 A false dismissal fails the run (exit 1).  ``exact_count`` is reported, not
-held: the engine confirms in f64, and where the f32 profile's gap at the
-target rank is narrower than its FFT error the count may differ by one.
+held: eps sits at the mid-gap of the f32 profile, and the engine confirms in
+f64, so a query misses its target only where the f64 gap at the target rank
+is narrower than the profile's f32 error (regions.py's ERR_C / FFT_ERR_C
+bound).  The RSM-ED profile centres each query and its windows by that
+query's own mean (distances do not change under a common shift): a
+centre far from the query's level, such as the series mean, makes near
+windows' energies large and their d2 a difference of f32 values whose ulp
+is wider than the gaps between ranks.
 
   python -m kvmatch_tpu_torch.selectivity [--n N] [--length L]
       [--per-decade P] [--engines rsm_ed,cnsm_ed] [--out FILE]
@@ -57,8 +63,6 @@ M_ROWS = 4096
 CHUNK_ROWS = 1024
 #: Least top-K size; it grows past the largest target (``topk_size``).
 K_MIN = 4096
-#: Points whose mean centres the RSM-ED profile (the JAX script's).
-CENTER_POINTS = 262_144
 ENGINES = ("rsm_ed", "cnsm_ed")
 OUT_DIR = Path(__file__).resolve().parents[1] / "build" / "selectivity"
 
@@ -92,12 +96,13 @@ def _constraint(mean, std, mu_q: float, sd_q: float):
 
 
 def topk_profile(kind: str, data_dev: torch.Tensor, q: np.ndarray, k: int,
-                 center: float = 0.0, chunk: int = CHUNK_ROWS
+                 chunk: int = CHUNK_ROWS
                  ) -> Tuple[torch.Tensor, torch.Tensor]:
     """The ``k`` smallest squared distances of query ``q`` (host, length L)
     to every window of the series ``data_dev`` and their window offsets,
-    ascending, on the series' device.  ``kind`` "rsm": raw ED against
-    ``q - center`` (the series centred by the same constant); "cnsm":
+    ascending, on the series' device.  ``kind`` "rsm": raw ED, the query
+    and every window centred by the query's own mean (f64, rounded to f32);
+    "cnsm":
     z-normalised ED, +inf where the window breaks the ALPHA/BETA
     constraint.  One sweep over the m = n - L + 1 windows in region rows of
     M_ROWS (row g owns offsets [g M, min((g + 1) M, m)); a row clamped at
@@ -114,6 +119,9 @@ def topk_profile(kind: str, data_dev: torch.Tensor, q: np.ndarray, k: int,
     starts = np.clip(np.arange(nrows, dtype=np.int64) * M, 0,
                      max(n - (M + L - 1), 0))
     if kind == "rsm":
+        # The query's f64 mean, rounded to f32: the f32 windows and the
+        # query are shifted by the same value.
+        center = float(np.float32(q.mean()))
         qv = torch.as_tensor((q - center)[None], dtype=torch.float32,
                              device=dev)
     else:
@@ -150,7 +158,7 @@ def topk_profile(kind: str, data_dev: torch.Tensor, q: np.ndarray, k: int,
 
 def calibrate(kind: str, data: np.ndarray, data_dev: torch.Tensor, offs,
               length: int, targets: Dict[int, int], k: int,
-              center: float = 0.0, log: Callable = None
+              log: Callable = None
               ) -> Tuple[Dict[int, List[float]], float]:
     """eps per decade for each self-query ``data[o:o + length]``: the
     square root of the middle of the gap between the target-th and the
@@ -163,8 +171,7 @@ def calibrate(kind: str, data: np.ndarray, data_dev: torch.Tensor, offs,
     sync()
     t0 = time.perf_counter()
     for j, o in enumerate(offs):
-        vals, _ = topk_profile(kind, data_dev, data[o:o + length], k,
-                               center=center)
+        vals, _ = topk_profile(kind, data_dev, data[o:o + length], k)
         ds = vals.cpu().numpy()
         fin = ds[np.isfinite(ds)]
         for d, target in targets.items():
@@ -235,7 +242,6 @@ def run_matrix(data: np.ndarray, data_dev: torch.Tensor, index, icfg,
     targets, k = decade_targets(n), topk_size(n)
     offs = np.sort(np.random.default_rng(OFFSET_SEED).integers(
         0, n - length, per_decade))
-    center = float(np.mean(data[:CENTER_POINTS]))
     for name in engines:
         if name not in ENGINES:
             raise ValueError(f"engine {name!r}: one of {ENGINES}")
@@ -246,7 +252,7 @@ def run_matrix(data: np.ndarray, data_dev: torch.Tensor, index, icfg,
         eng = cls(data, index=index, icfg=icfg, qcfg=qcfg,
                   device_data=data_dev)
         eps, sec = calibrate(kind, data, data_dev, offs, length, targets, k,
-                             center=center if kind == "rsm" else 0.0, log=log)
+                             log=log)
         log(section=f"{kind}_calibrate", done=len(offs), sec=sec,
             sec_per_query=sec / len(offs), topk=k, chunk_rows=CHUNK_ROWS)
         for line in replay(eng, name, data, offs, length, eps, params,

@@ -30,7 +30,7 @@ from __future__ import annotations
 import math
 import subprocess
 import time
-from typing import Callable, Dict, NamedTuple, Optional
+from typing import Callable, Dict, NamedTuple, Optional, Sequence
 
 import numpy as np
 import torch
@@ -74,6 +74,22 @@ DEFAULT_SHAPES = dict(gather_ed=(65536, 1024), region_fft=(8192, 512, 1024),
 WINDOW_SHAPES = ((4096, 1024), (1024, 8192))
 #: Rounds of ``reps`` calls each; the least round is kept.
 ROUNDS = 3
+#: K2's shapes on record (B, L), timed by ``window_kernel_times``: the
+#: JAX package's compare shapes, the kernels phase's (verify.bucket_size's
+#: cap at L = 8192) and the gather section's.
+K2_SHAPES = ((4096, 1024), (1024, 8192), (16384, 8192), (65536, 1024))
+#: Queries of a K2 measurement (the north-star batch's 8).
+K2_QUERIES = 8
+#: Traces ``device_ms`` takes before it gives up on one that is whole.
+DEVICE_TRACE_TRIES = 5
+#: K2's kernel, as torch.profiler names it (csrc/window_ed.cu).
+K2_KERNEL = "window_ed_kernel"
+#: The most of its bound a timed K2 call may reach: a device time past it is
+#: not physical, so ``window_kernel_times`` takes such a trace again.
+MAX_SHARE = 1.05
+#: Least bytes of windows a K2 measurement walks through: about three times
+#: the card's 50 MB L2, so that its windows come from device memory.
+K2_WALK_BYTES = 160 << 20
 
 
 def card_line() -> str:
@@ -93,6 +109,14 @@ def bound(nbytes: float, ops: float) -> dict:
     return dict(bound_ms=max(t_bytes, t_ops),
                 bound_by="bytes" if t_bytes >= t_ops else "operations",
                 bound_bytes=nbytes, bound_ops=ops)
+
+
+def k2_work(B: int, L: int, Q: int, znorm: bool) -> dict:
+    """K2's ``bound`` for B rows of width L against Q query rows: each
+    window, offset (8 bytes), query id (4) and query row read once, d2 (and
+    mean and std) written once; K2_OPS a window element."""
+    return bound(B * (4 * L + 12) + Q * L * 4 + B * 4 * (3 if znorm else 1),
+                 K2_OPS["znorm" if znorm else "raw"] * B * L)
 
 
 def band_cells(L: int, r: int) -> int:
@@ -129,6 +153,81 @@ def _timed(fn: Callable[[int], object], reps: int, device,
                 fn(k * reps + j)
             best = min(best, (time.perf_counter() - t0) * 1e3)
     return best / reps
+
+
+def split_trace(events, calls: int, blocks: int, kernel: str,
+                library: bool, floors: Sequence[float] = ()):
+    """Per-call milliseconds of ``blocks`` blocks of ``calls`` calls that
+    each launch one ``kernel``, then (``library``) of a block of ``calls``
+    library calls, from a trace's device activities ``(name, start_us,
+    duration_us)``.  Raises ValueError, saying why, for a trace that is not
+    whole: other than ``blocks * calls`` activities named ``kernel``; other
+    activities without a library block; library activities that are none,
+    no whole multiple of ``calls``, or start before the kernel's last; a
+    block under its least physical time (``floors``, ms a call)."""
+    events = sorted(events, key=lambda e: e[1])
+    named = [e for e in events if kernel in e[0]]
+    rest = [e for e in events if kernel not in e[0]]
+    if len(named) != blocks * calls:
+        raise ValueError(f"{len(named)} {kernel} activities for "
+                         f"{blocks * calls} calls")
+    if library and (not rest or len(rest) % calls
+                    or rest[0][1] < named[-1][1]):
+        raise ValueError(f"{len(rest)} library activities for {calls} "
+                         f"calls, or amid the kernel's")
+    if not library and rest:
+        raise ValueError(f"{len(rest)} activities besides {kernel}")
+    ms = [sum(e[2] for e in named[k * calls:(k + 1) * calls]) / 1e3 / calls
+          for k in range(blocks)]
+    for k, (t, least) in enumerate(zip(ms, floors)):
+        if t < least:
+            raise ValueError(f"block {k}: {t} ms a call, under its least "
+                             f"physical {least} ms")
+    return ms, (sum(e[2] for e in rest) / 1e3 / calls if library else None)
+
+
+def device_ms(fns: Sequence[Callable[[int], object]], calls: int, device,
+              kernel: str = K2_KERNEL,
+              library: Optional[Callable[[int], object]] = None,
+              floors: Sequence[float] = ()):
+    """Device milliseconds a call of each of ``fns``, each of which
+    launches one ``kernel`` a call, and of ``library``: one torch.profiler
+    trace, after a warm call of each, of ``calls`` calls ``fn(i)`` of each
+    in turn, then of ``library``; each block's summed kernel durations over
+    ``calls``.  The launch path on the host and the gaps between kernels
+    are left out, so this is the kernels' own time; ``_timed`` includes
+    them.  A trace that is not whole (``split_trace``) is taken again, up
+    to DEVICE_TRACE_TRIES in all, then RuntimeError gives each one's
+    fault.  Returns (a time for each of ``fns``, the library's time or
+    None, the traces taken)."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    if device.type != "cuda":
+        raise ValueError("device_ms times the card's device activities: "
+                         f"{device} is not a CUDA device")
+    run = list(fns) + ([library] if library is not None else [])
+    for fn in run:
+        fn(calls)
+    torch.cuda.synchronize(device)
+    faults = []
+    for tries in range(1, DEVICE_TRACE_TRIES + 1):
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            for fn in run:
+                for i in range(calls):
+                    fn(i)
+            torch.cuda.synchronize(device)
+        try:
+            ms, lib = split_trace(
+                [(e.name, e.time_range.start, e.time_range.elapsed_us())
+                 for e in prof.events() if e.device_type == DeviceType.CUDA],
+                calls, len(fns), kernel, library is not None, floors)
+        except ValueError as fault:
+            faults.append(str(fault))
+            continue
+        return ms, lib, tries
+    raise RuntimeError(f"torch.profiler recorded no whole trace of {calls} "
+                       f"calls a block in {DEVICE_TRACE_TRIES}: {faults}")
 
 
 def timed_ms(fn: Callable[[], object], reps: int, device) -> float:
@@ -332,13 +431,17 @@ def compare_window_kernel(data_dev: torch.Tensor, reps: int = 8
     """K2 (``window_ed``, raw) against its plain version
     ``window_ed_plain`` and the library yardstick (``torch.cdist`` of the
     pre-gathered windows, the gather excluded) at each (B, L) of
-    ``WINDOW_SHAPES`` (the JAX package's ``compare_pallas_gather``).  On a CPU
-    tensor the kernel cannot run: only the plain version and the library
-    call are timed, under their own names."""
-    from ..ops.ed import _gather, window_ed, window_ed_plain
+    ``WINDOW_SHAPES`` (the JAX package's ``compare_pallas_gather``).  On the
+    card K2 and the library call are timed by ``window_kernel_times``
+    (their device time, ``reps`` calls); on a CPU tensor the kernel cannot
+    run, and the plain version and the library call are timed under their
+    own names."""
+    from ..ops.ed import _gather, window_ed_plain
     device = data_dev.device
     n = int(data_dev.shape[0])
     on_card = device.type == "cuda"
+    card = (window_kernel_times(data_dev, WINDOW_SHAPES, calls=reps)
+            if on_card else {})
     out: Dict[str, object] = {}
     rng = np.random.default_rng(1)
     for B, L in WINDOW_SHAPES:
@@ -349,22 +452,116 @@ def compare_window_kernel(data_dev: torch.Tensor, reps: int = 8
         plain = _timed(lambda i: window_ed_plain(data_dev, q, offs + i, qids,
                                                  L, False), reps, device,
                        ROUNDS)
-        # As chip_smoke.py's K2 row: each window against its query row.
-        xw = _gather(data_dev, offs, L)[:, None, :]
-        qw = q[qids.long()][:, None, :]
-        library = _timed(lambda i: torch.cdist(xw, qw), reps, device, ROUNDS)
-        del xw, qw
         out[f"plain_ms_{tag}"] = plain
-        out[f"library_ms_{tag}"] = library
         if on_card:
-            k2 = _timed(lambda i: window_ed(data_dev, q, offs + i, qids, L,
-                                            False), reps, device, ROUNDS)
+            k2, library = (card[tag]["raw"][k]
+                           for k in ("device_ms", "library_ms"))
+            out[f"library_ms_{tag}"] = library
             out[f"k2_ms_{tag}"] = k2
             out[f"k2_speedup_vs_plain_{tag}"] = plain / k2
             out[f"k2_speedup_vs_library_{tag}"] = library / k2
         else:
+            # As chip_smoke.py's K2 row: each window against its query row.
+            xw = _gather(data_dev, offs, L)[:, None, :]
+            qw = q[qids.long()][:, None, :]
+            library = _timed(lambda i: torch.cdist(xw, qw), reps, device,
+                             ROUNDS)
+            out[f"library_ms_{tag}"] = library
             out[f"plain_speedup_vs_library_{tag}"] = library / plain
     out["library"] = ("torch.cdist of the pre-gathered raw windows against "
                       "the query, gather excluded")
     out["device"] = torch.cuda.get_device_name(device) if on_card else "cpu"
     return out
+
+
+def window_kernel_times(data_dev: torch.Tensor, shapes=K2_SHAPES,
+                        calls: int = 20, seed: int = 3) -> Dict[str, dict]:
+    """K2 on the card at each (B, L) of ``shapes``, raw and z-normalised,
+    against K2_QUERIES query rows (rows sorted by query, as the engines
+    send them): ``device_ms`` (the kernel alone, torch.profiler; one trace
+    a shape with the library call, taken again while a form's share of its
+    bound is past MAX_SHARE; ``traces``), ``host_us`` (the wrapper's host
+    time a call: checks, allocations, the ctypes launch), the bound and
+    its share of ``device_ms``; for the raw form
+    ``library_ms``, the device time of ``torch.cdist`` of the pre-gathered
+    windows against their query rows (the gather excluded).  Each call
+    takes the next of several offset sets that together span
+    K2_WALK_BYTES, so the windows come from device memory and not from
+    L2."""
+    from ..ops.ed import _gather, window_ed
+    device = data_dev.device
+    if device.type != "cuda":
+        raise ValueError("window_kernel_times measures the kernel on the card")
+    n = int(data_dev.shape[0])
+    rng = np.random.default_rng(seed)
+    out: Dict[str, dict] = {}
+    for B, L in shapes:
+        tag = f"B{B}_L{L}"
+        sets = max(1, -(-K2_WALK_BYTES // (B * L * 4)))
+        offs = [_on(device, rng.integers(0, n - L + 1, B), torch.int64)
+                for _ in range(sets)]
+        qids = _on(device, np.sort(rng.integers(0, K2_QUERIES, B))
+                   .astype(np.int32))
+        qraw = _gather(data_dev, _on(device, rng.integers(
+            0, n - L + 1, K2_QUERIES), torch.int64), L).contiguous()
+        mu = qraw.mean(dim=1, keepdim=True)
+        qhat = ((qraw - mu) / qraw.std(dim=1, unbiased=False, keepdim=True)
+                ).contiguous()
+        forms = (("raw", qraw, False), ("znorm", qhat, True))
+        fns = [lambda i, qm=qm, z=z: window_ed(data_dev, qm, offs[i % sets],
+                                               qids, L, z)
+               for _, qm, z in forms]
+        works = [k2_work(B, L, K2_QUERIES, z) for _, _, z in forms]
+        xw = [_gather(data_dev, o, L)[:, None, :] for o in offs]
+        qw = qraw[qids.long()][:, None, :]
+        dms, library_ms, traces = device_ms(
+            fns, calls, device, K2_KERNEL,
+            library=lambda i: torch.cdist(xw[i % sets], qw),
+            floors=[w["bound_ms"] / MAX_SHARE for w in works])
+        del xw, qw
+        entry: Dict[str, object] = dict(offset_sets=sets, traces=traces)
+        for (form, _, _), fn, ms, work in zip(forms, fns, dms, works):
+            torch.cuda.synchronize(device)
+            t0 = time.perf_counter()
+            for i in range(calls):
+                fn(i)
+            host_s = time.perf_counter() - t0
+            torch.cuda.synchronize(device)
+            entry[form] = dict(device_ms=ms, host_us=host_s / calls * 1e6,
+                               share_of_bound=work["bound_ms"] / ms,
+                               library_ms=library_ms if form == "raw"
+                               else None, **work)
+        out[tag] = entry
+    return out
+
+
+def main(argv=None) -> int:
+    """Time K2 on the card (``window_kernel_times``) on the n-point series
+    of seed 20260817 (chip_smoke.py's), resident on the card; one JSON line
+    with the card's name and power limit."""
+    import argparse
+    import json
+    import sys
+    from ..data.generators import generate_series
+    ap = argparse.ArgumentParser(
+        prog="python -m kvmatch_tpu_torch.utils.kernel_bench",
+        description="K2's device time at its shapes on record.")
+    ap.add_argument("--n", type=int, default=100_000_000)
+    ap.add_argument("--calls", type=int, default=20)
+    args = ap.parse_args(argv)
+    if not torch.cuda.is_available():
+        print("kernel_bench: no CUDA device; K2 is timed on the card",
+              file=sys.stderr)
+        return 2
+    device = torch.device("cuda", torch.cuda.current_device())
+    data = torch.as_tensor(generate_series(args.n, seed=20260817),
+                           dtype=torch.float32, device=device)
+    times = window_kernel_times(data, calls=args.calls)
+    print(json.dumps(dict(card=card_line(),
+                          device=torch.cuda.get_device_name(device),
+                          n=args.n, calls=args.calls, k2=times)))
+    return 0
+
+
+if __name__ == "__main__":
+    raise SystemExit(main())

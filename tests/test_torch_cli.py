@@ -192,3 +192,15 @@ def test_query_counts_launches(files, capsys):
     assert set(counts) == {"probe_flags", "window_ed", "dtw_diag",
                            "dtw_rows", "dtw_ds"}
     assert not any(counts.values())
+
+
+def test_query_past_the_longest_plan_exits_with_the_error(files, capsys):
+    """A query of L = 12,100 has no plan of at most max_segments segments:
+    the command exits 2 with the engine's ValueError on stderr and prints
+    no answer."""
+    argv = ["query", files / "data", "--index", files / "t.npz", "--offset",
+            100, "--length", 12_100, "--epsilon", 5, *CPU]
+    assert cli.main([str(a) for a in argv]) == 2
+    out = capsys.readouterr()
+    assert out.out == ""
+    assert "query length 12100" in out.err and "max_segments" in out.err

@@ -90,3 +90,18 @@ def test_int64_offsets_past_int32():
     x = ted._gather(data, offs, 4)  # clamps the far offset like dynamic_slice
     assert x.tolist() == [[2, 3, 4, 5], [6, 7, 8, 9]]
 
+
+
+@pytest.mark.parametrize("znorm", [False, True])
+def test_plain_route_counts_no_launch(znorm):
+    """On CPU tensors the wrapper runs the plain version: neither its launch
+    count nor its tally of launches by shape moves."""
+    data, queries, offs, qids = _inputs(5000, 100, 16, 2, 3)
+    before, shapes = ted.window_ed.launches, dict(ted.window_ed.shapes)
+    args = [torch.as_tensor(a) for a in (data, queries, offs, qids)]
+    got = ted.window_ed(*args, 100, znorm)
+    want = ted.window_ed_plain(*args, 100, znorm)
+    for g, w in zip(got if znorm else (got,), want if znorm else (want,)):
+        assert torch.equal(g, w)
+    assert ted.window_ed.launches == before
+    assert ted.window_ed.shapes == shapes

@@ -182,3 +182,14 @@ def test_default_device_is_the_card(monkeypatch):
         NormQueryEngine(np.zeros(1000))
     with pytest.raises(RuntimeError, match="not available"):
         build_index_device_stats(np.zeros(1000), tconfig.IndexConfig())
+
+
+def test_norm_query_past_the_longest_plan_raises(setup):
+    """cNSM-ED at L = 12,100 (past 30 segments of 400 points and a
+    24-point tail) has no plan: ValueError naming max_segments, as RSM-ED
+    (tests/test_torch_engine_rsm.py)."""
+    q = setup["data"][100:100 + 12_100]
+    for call in (setup["norm"].query, setup["norm"].query_batch_device):
+        with pytest.raises(ValueError, match="max_segments = 30"):
+            call(q if call == setup["norm"].query else q[None], 5.0,
+                 alpha=1.5, beta=20.0)

@@ -16,11 +16,13 @@ import torch
 from kvmatch_tpu import oracle
 from kvmatch_tpu.config import IndexConfig, QueryConfig
 from kvmatch_tpu.data.generators import generate_series
+from kvmatch_tpu.engine.base import QueryStats as JStats, _Ctx as JCtx
 from kvmatch_tpu.engine.rsm_ed import QueryEngine as JaxRaw
 from kvmatch_tpu.index.build import build_index_tpu
 from kvmatch_tpu_torch import QueryEngine
 from kvmatch_tpu_torch.engine import rsm_ed as port_raw
 from kvmatch_tpu_torch import config as tconfig
+from kvmatch_tpu_torch.engine.base import QueryStats, _Ctx
 from kvmatch_tpu_torch.state import index_from_arrays
 
 torch.set_num_threads(2)
@@ -41,7 +43,7 @@ def setup():
     data = generate_series(N, seed=7)
     icfg = IndexConfig()
     jindex = build_index_tpu(data, icfg)
-    return dict(data=data,
+    return dict(data=data, index=index_from_arrays(jindex),
                 jraw=JaxRaw(data, index=jindex, icfg=icfg, qcfg=SERVE),
                 raw=QueryEngine(data, index=index_from_arrays(jindex),
                                 icfg=tconfig.IndexConfig(),
@@ -118,3 +120,60 @@ def test_region_near_overflow_falls_back(setup, monkeypatch):
     for res, q, e in zip(setup["raw"].query_batch_device(qs, eps), qs, eps):
         oo, od = oracle.rsm_ed(data, q, e)
         _same(res, oo, od, "overflow fallback")
+
+
+# The longest query a plan covers with the default config: 30 segments
+# (QueryConfig.max_segments) of at most 16 units of 25 points, and a tail of
+# fewer than 25 points that no segment needs.
+LONGEST = 30 * 16 * 25 + 24
+
+
+def _never(*args, **kwargs):
+    raise AssertionError("phase 1 ran on a query with no plan")
+
+
+@pytest.mark.parametrize("entry", ["query", "query_batch",
+                                   "query_batch_device", "stream"])
+def test_query_past_the_longest_plan_raises(setup, monkeypatch, entry):
+    """A query of L = 12,100 > 12,024 has no plan: every entry point raises
+    ValueError naming max_segments in phase 0, before phase 1 or any device
+    work (the JAX package raises IndexError in phase 1 instead:
+    test_longest_plan_equals_jax)."""
+    data = setup["data"]
+    q = data[100:100 + 12_100]
+    eng = setup["raw"]
+    if entry == "stream":
+        eng = QueryEngine(data, index=setup["index"], device_data="stream",
+                          device="cpu")
+    for name in ("_phase1", "_phase1_routed", "_dense_probe_retry"):
+        monkeypatch.setattr(eng, name, _never)
+    call = {"query": lambda: eng.query(q, 5.0),
+            "query_batch": lambda: eng.query_batch(q[None], 5.0),
+            "query_batch_device": lambda: eng.query_batch_device(q[None], 5.0),
+            "stream": lambda: eng.query_batch_device(q[None], 5.0)}[entry]
+    with pytest.raises(ValueError, match="max_segments = 30") as err:
+        call()
+    assert "query length 12100" in str(err.value)
+    assert f"the longest such query has {LONGEST} points" in str(err.value)
+
+
+def test_longest_plan_equals_jax(setup):
+    """At L = 12,024 the port plans what the JAX package plans (30
+    segments); one point more, the JAX package's plan is empty and its
+    query raises IndexError in phase 1, where the port raises ValueError in
+    phase 0."""
+    data, eng, jeng = setup["data"], setup["raw"], setup["jraw"]
+    q = data[300:300 + LONGEST]
+    want = jeng._plan(JCtx(query=q, length=q.size, epsilon=5.0, eps2=25.0,
+                           params={}, stats=JStats()))
+    got = eng._plan(_Ctx(query=q, length=q.size, epsilon=5.0, eps2=25.0,
+                         params={}, stats=QueryStats()))
+    assert len(want) == 30
+    assert [vars(s) for s in got] == [vars(s) for s in want]
+    q = data[300:300 + LONGEST + 1]
+    assert jeng._plan(JCtx(query=q, length=q.size, epsilon=5.0, eps2=25.0,
+                           params={}, stats=JStats())) == []
+    with pytest.raises(IndexError):
+        jeng.query(q, 5.0)
+    with pytest.raises(ValueError, match="max_segments"):
+        eng.query(q, 5.0)

@@ -206,8 +206,8 @@ def test_chip_smoke_takes_the_roofline_from_kernel_bench():
     """The kernel table's bounds and kernel_bench's shares have one
     definition: chip_smoke.py imports them and defines none of its own."""
     used = {"bound", "band_cells", "timed_ms", "card_line", "K1_OPS",
-            "K1_TRACK_OPS", "K1_OPS_FULL", "K2_OPS", "DP_OPS", "DS_OPS"}
-    names = used | {"HBM_BYTES_PER_S", "F32_OPS_PER_S"}
+            "K1_TRACK_OPS", "K1_OPS_FULL", "k2_work", "DP_OPS", "DS_OPS"}
+    names = used | {"HBM_BYTES_PER_S", "F32_OPS_PER_S", "K2_OPS"}
     tree = ast.parse((REPO / "chip_smoke.py").read_text())
     defined = {t.id for node in tree.body if isinstance(node, ast.Assign)
                for t in node.targets if isinstance(t, ast.Name)}
@@ -219,3 +219,59 @@ def test_chip_smoke_takes_the_roofline_from_kernel_bench():
                 and node.module == "kvmatch_tpu_torch.utils.kernel_bench"
                 for a in node.names}
     assert used <= imported
+
+
+def test_k2_work_counts_each_byte_once():
+    """K2's bound: each window, offset, query id and query row read once,
+    d2 (and mean and std) written once; K2_OPS a window element."""
+    w = kb.k2_work(16384, 8192, 8, True)
+    assert w["bound_bytes"] == (16384 * (4 * 8192 + 12) + 8 * 8192 * 4
+                                + 16384 * 12)
+    assert w["bound_ops"] == kb.K2_OPS["znorm"] * 16384 * 8192
+    assert w["bound_by"] == "bytes"
+    assert kb.k2_work(4096, 1024, 8, False)["bound_bytes"] == (
+        4096 * (4 * 1024 + 12) + 8 * 1024 * 4 + 4096 * 4)
+
+
+def test_k2_device_times_refuse_the_cpu(monkeypatch):
+    """K2's device times are the card's: on a CPU tensor the timers raise,
+    and the command exits 2 without a card."""
+    data = torch.zeros(10_000)
+    with pytest.raises(ValueError, match="card"):
+        kb.window_kernel_times(data, shapes=((4, 100),))
+    with pytest.raises(ValueError, match="CUDA"):
+        kb.device_ms([lambda i: None], 2, data.device)
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    assert kb.main(["--n", "1000"]) == 2
+
+
+def _trace(kernel_starts, library_starts=(), dur=10.0):
+    return ([("void window_ed_kernel<1, false>(float const*)", t, dur)
+             for t in kernel_starts]
+            + [("cdist_kernel_cuda_impl", t, 2 * dur) for t in library_starts])
+
+
+@pytest.mark.parametrize("events,library,fault", [
+    (_trace(range(6)), False, None),
+    (_trace(range(6), (10, 11, 12, 13)), True, None),
+    (_trace(range(5)), False, "5 window_ed_kernel"),         # a launch lost
+    (_trace(range(7)), False, "7 window_ed_kernel"),         # one too many
+    (_trace(range(6), (10,)), False, "besides"),             # not asked for
+    (_trace(range(6)), True, "0 library"),                   # library's lost
+    (_trace(range(6), (10, 11, 12)), True, "3 library"),     # part of them
+    (_trace(range(6), (3, 11, 12, 13)), True, "amid"),       # amid K2's
+    (_trace(range(6), dur=1.0), False, "least physical"),    # too fast
+])
+def test_split_trace_keeps_only_whole_traces(events, library, fault):
+    """A trace of 3 blocks of 2 K2 calls (then a library block) splits into
+    each block's milliseconds a call; a trace that lost or gained device
+    activities, or whose block beats its least physical time, is refused
+    with its fault, so device_ms takes it again."""
+    args = (events[::-1], 2, 3, kb.K2_KERNEL, library, [0.005] * 3)
+    if fault is not None:
+        with pytest.raises(ValueError, match=fault):
+            kb.split_trace(*args)
+        return
+    ms, lib = kb.split_trace(*args)
+    assert ms == [0.01, 0.01, 0.01]
+    assert lib == (0.04 if library else None)

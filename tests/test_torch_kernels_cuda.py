@@ -205,6 +205,65 @@ def test_window_kernel_equals_plain(dev, znorm, L, B):
         assert np.all(np.abs(g - w) <= 1e-5 * scale)
 
 
+# K2's (L, B): every rows-per-block form (one warp a row up to L = 1024,
+# two up to 2048, four up to 4096, eight above, whose z-norm second pass
+# walks backwards), L not a multiple of 4 or of 32, B = 1 and B not a
+# multiple of the rows a block takes, L = 12,000 and L = 60,000 (past the
+# plans of the default config).
+K2_CASES = [(25, 1), (25, 13), (1000, 1001), (1500, 37), (3000, 250),
+            (8191, 9), (12_000, 5), (60_000, 3)]
+
+
+@pytest.mark.parametrize("shift", [0, 1])
+@pytest.mark.parametrize("znorm", [False, True])
+@pytest.mark.parametrize("L,B", K2_CASES)
+def test_window_kernel_shapes_offsets_and_edges(dev, L, B, znorm, shift):
+    """K2 against window_ed_plain on rows of 5 queries, with offsets at every
+    remainder modulo 4, at n - L and past both ends (clamped), and a flat
+    window (std 0, d2 inf); ``shift`` 1 starts the series 4 bytes past a
+    16-byte boundary."""
+    n, Q = 200_000, 5
+    rng = np.random.default_rng(7 * L + B + 2 * znorm + shift)
+    base = generate_series(n + shift, seed=9).astype(np.float32)
+    flat = 5000
+    base[shift + flat:shift + flat + L] = -1.25
+    data = torch.as_tensor(base, device=dev)[shift:]
+    assert data.data_ptr() % 16 == 4 * shift
+    special = [n - L + 7, 0, 1, 2, 3, n - L, n - L - 1, n - L - 2,
+               n - L - 3, -3, flat, n + 50]
+    offs = rng.integers(0, n - L + 1, B)
+    offs[:min(B, len(special))] = special[:B]
+    qoffs = rng.integers(0, n - L, Q)
+    queries = np.stack([base[shift + o:shift + o + L] for o in qoffs])
+    if znorm:
+        queries = (queries - queries.mean(1, keepdims=True)) / \
+            queries.std(1, keepdims=True)
+    args = (data, torch.as_tensor(queries, dtype=torch.float32, device=dev),
+            torch.as_tensor(offs, device=dev),
+            torch.as_tensor(rng.integers(0, Q, B).astype(np.int32),
+                            device=dev), L, znorm)
+    before = ted.window_ed.launches
+    key = f"B{B}_L{L}_{'znorm' if znorm else 'raw'}"
+    shape_before = ted.window_ed.shapes.get(key, 0)
+    got = ted.window_ed(*args)
+    torch.cuda.synchronize()
+    assert ted.window_ed.launches == before + 1
+    assert ted.window_ed.shapes[key] == shape_before + 1
+    want = ted.window_ed_plain(*args)
+    got = [t.cpu().numpy() for t in (got if znorm else (got,))]
+    want = [t.cpu().numpy() for t in (want if znorm else (want,))]
+    finite = np.isfinite(want[0])
+    np.testing.assert_array_equal(np.isfinite(got[0]), finite)
+    if znorm and B > special.index(flat):
+        assert not finite[special.index(flat)]
+    err = np.abs(got[0][finite] - want[0][finite])
+    assert np.all(err <= 1e-5 * L + 1e-5 * np.abs(want[0][finite]))
+    start = np.clip(offs, 0, n - L)
+    scale = np.abs(base[shift + start[:, None] + np.arange(L)]).max(axis=1)
+    for g, w in zip(got[1:], want[1:]):
+        assert np.all(np.abs(g - w) <= 1e-5 * scale)
+
+
 def test_window_kernel_rejects_int32_offsets(dev):
     data = torch.zeros(1000, device=dev)
     q = torch.zeros((1, 100), device=dev)

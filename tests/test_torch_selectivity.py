@@ -55,7 +55,7 @@ def _profile64(kind, data, q):
     mean = win.mean(axis=1)
     std = np.sqrt(np.maximum((win * win).mean(axis=1) - mean * mean, 0.0))
     mu_q, sd_q = _params(q)
-    center = float(np.mean(data[:sel.CENTER_POINTS]))
+    center = float(np.float32(q.mean()))  # the RSM profile's centre
     for s in range(0, m, 20_000):
         w = win[s:s + 20_000]
         if kind == "rsm":
@@ -91,7 +91,7 @@ def _jax_profile(kind, data, q, k):
     dj = jnp.asarray(data.astype(np.float32))
     sj = jnp.asarray(starts, jnp.int32)
     if kind == "rsm":
-        center = float(np.mean(data[:sel.CENTER_POINTS]))
+        center = float(np.float32(q.mean()))
         d2, _ = jrg.region_ed_distances(dj, jnp.asarray(q - center,
                                                         jnp.float32),
                                         sj, L, M, np.float32(center))
@@ -127,9 +127,7 @@ def test_decade_targets_follow_n():
 def test_topk_profile_equals_jax_and_f64(series, kind):
     data, dt = series
     q = data[77_777:77_777 + L]
-    center = float(np.mean(data[:sel.CENTER_POINTS])) if kind == "rsm" \
-        else 0.0
-    vals, pos = sel.topk_profile(kind, dt, q, K, center=center, chunk=7)
+    vals, pos = sel.topk_profile(kind, dt, q, K, chunk=7)
     vals, pos = vals.numpy(), pos.numpy()
     assert len(set(pos.tolist())) == K
     # cNSM's constraint may leave fewer than K windows: the rest are +inf.
@@ -159,10 +157,7 @@ def test_calibrate_replay_hits_targets(series, kind):
     qcfg = QueryConfig(dense_probe_min_count=0)
     offs = np.sort(np.random.default_rng(5).integers(0, N - L, 3))
     targets = {-6: 1, -5: 6, -4: 40}
-    center = float(np.mean(data[:sel.CENTER_POINTS])) if kind == "rsm" \
-        else 0.0
-    eps, sec = sel.calibrate(kind, data, dt, offs, L, targets, K,
-                             center=center)
+    eps, sec = sel.calibrate(kind, data, dt, offs, L, targets, K)
     assert sec > 0 and all(len(v) == 3 for v in eps.values())
     cls, params = ((QueryEngine, {}) if kind == "rsm" else
                    (NormQueryEngine, dict(alpha=sel.ALPHA, beta=sel.BETA)))
@@ -182,6 +177,27 @@ def test_calibrate_replay_hits_targets(series, kind):
                 wide += 1
                 assert line["answers"][j] == t, (d, offs[j])
     assert wide >= 6  # most (query, decade) gaps are wide
+
+
+def test_rsm_calibration_far_from_the_series_mean(series):
+    """A raw-ED query whose windows lie far from the series mean (the second
+    half of the series lifted by 100): ``calibrate``'s eps gives an f64
+    answer count equal to the target at every decade.  A centre shared by
+    all queries, the series mean, would leave the near windows about 50
+    from it, their energies about 1e6 (f32 ulp 0.06-0.125, as at n = 1e8
+    and L = 8192) and eps on tied f32 values: 8 of these 12 counts then
+    missed their targets."""
+    data, _ = series
+    far = data.copy()
+    far[N // 2:] += 100.0
+    dt = torch.as_tensor(far.astype(np.float32))
+    offs = np.sort(np.random.default_rng(11).integers(N // 2, N - L, 3))
+    targets = {-6: 1, -5: 6, -4: 40, -3: 200}
+    eps, _ = sel.calibrate("rsm", far, dt, offs, L, targets, K)
+    for j, o in enumerate(offs):
+        d64, _ = _profile64("rsm", far, far[o:o + L])
+        for d, t in targets.items():
+            assert int(np.sum(d64 <= eps[d][j] ** 2)) == t, (o, d)
 
 
 def test_two_runs_write_two_files(tmp_path, monkeypatch, capsys):
