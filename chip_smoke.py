@@ -69,6 +69,16 @@ JSON line tagged with the card's name and power limit and its seconds
 7. profile   -- host spans of the cNSM-ED engine's phases and a
                 torch.profiler device trace of one batch: kernel time by
                 name, idle share;
+   single    -- the single-query ops of the JAX package's names on the
+                resident n=1e8 series at L=8192, r=409: ed_distances and
+                znorm_ed_distances (K2) on 1,024 offsets, the region
+                functions on 16 regions of M=8192, dtw_banded_batch and
+                dtw_banded_batch_multi on 256 z-normed windows with K3 and
+                with K4, dtw_banded_batch_ds_multi (DS), lb_kim and
+                lb_keogh, each bit-equal to its _multi form and within its
+                f64 tolerance; oracle.dtw_banded against the f64 batch DP;
+                each call's launch counted, and K2, K3, K4 and DS must
+                launch;
 8. build_full -- the full device build (index/device_build.py) at n=1e8
                 (spill mode) and at n=1e7 with its pieces kept on the
                 card, then copied to the host; the device bucket pass with
@@ -1136,6 +1146,210 @@ def profile_batch(eng, queries) -> dict:
         idle_share=1.0 - busy / (b1 - b0), n_device_events=len(dev),
         chrome_trace_bytes=trace_bytes,
         device_ms_by_name=[[k, v[0], v[1]] for k, v in top])
+
+
+# ------------------------------------------------------------ phase 7b ----
+# single: the JAX package's single-query ops on the resident n=1e8 series at
+# the north star's width: (ED offsets, regions of SINGLE_M offsets, DP rows,
+# rows held against the host f64 DP).
+SINGLE_SHAPE = (1024, 16, 256, 16)
+SINGLE_M = 8192
+# oracle.dtw_banded (a Python loop over the band) against the f64 batch DP:
+# (L, r, rows).
+SINGLE_ORACLE = (1024, 51, 2)
+
+
+def single_phase(data8, dev8, queries, device, kernels, launches: dict,
+                 L: int = L_MAIN, r: int = RHO_MAIN) -> dict:
+    """The single-query device ops through the kernels of their ``_multi``
+    forms, each call counted (it must launch its kernel: a CUDA tensor is
+    never sent to a plain version), each result bit-equal to its ``_multi``
+    form called outside the count:
+
+    * ed_distances / znorm_ed_distances (K2) on random offsets against the
+      first north-star query; 16 rows within guard_threshold(d64, L, 1e-2)
+      of the host float64 distance;
+    * region_ed_distances (centred by the query's own mean) and
+      region_znorm_distances on regions of SINGLE_M offsets;
+    * dtw_banded_batch (the z-normed query) and dtw_banded_batch_multi (a
+      north-star query per row) on z-normed windows, with K3 and with K4;
+      16 rows within the guard band of the native f64 DP;
+    * dtw_banded_batch_ds_multi (DS): every row within 8 eps32 (d64 + 1)
+      of the f64 DP (the plain version in float64 on the card);
+    * lb_kim and lb_keogh at or below the f64 DTW plus the guard band;
+    * oracle.dtw_banded (SINGLE_ORACLE) within rtol 1e-12 of the port's
+      f64 batch DP."""
+    import numpy as np
+    import torch
+    from kvmatch_tpu_torch import oracle, verify
+    from kvmatch_tpu_torch.ops import dtw as td
+    from kvmatch_tpu_torch.ops import ed as ted
+    from kvmatch_tpu_torch.ops import regions as treg
+    from kvmatch_tpu_torch.plan import envelope
+    n_ed, n_reg, n_dp, n_f64 = SINGLE_SHAPE
+    rng = np.random.default_rng(12)
+    eps32 = float(np.finfo(np.float32).eps)
+    out: dict = {}
+
+    def dev(x, dtype=torch.float32):
+        return torch.as_tensor(np.ascontiguousarray(x), dtype=dtype,
+                               device=device)
+
+    def znorm64(x):
+        x = np.asarray(x, np.float64)
+        return (x - x.mean(-1, keepdims=True)) / x.std(-1, keepdims=True)
+
+    def launched(kernel, fn):
+        """``fn()`` under the count; its kernel must launch once."""
+        res = counted(kernels, launches, fn)
+        if kernel.launches != 1:
+            raise AssertionError(f"{kernel.__name__} launched "
+                                 f"{kernel.launches} times for one call")
+        return res
+
+    def equal(got, want, what):
+        got = got if isinstance(got, tuple) else (got,)
+        want = want if isinstance(want, tuple) else (want,)
+        if len(got) != len(want) or not all(
+                torch.equal(g, w) for g, w in zip(got, want)):
+            raise AssertionError(f"{what} differs from its _multi form")
+
+    def within(got, want, tol, what):
+        ratio = float(np.max(np.abs(np.asarray(got, np.float64) - want)
+                             / tol))
+        if not ratio <= 1.0:
+            raise AssertionError(f"{what}: error {ratio} of its bound")
+        return ratio
+
+    # ED: K2 raw and z-norm against the first north-star query.
+    q = np.asarray(queries[0], np.float64)
+    q32, qh32 = dev(q), dev(znorm64(q))
+    offs_np = rng.integers(0, dev8.shape[0] - L + 1, n_ed)
+    offs = dev(offs_np, torch.int64)
+    zeros = ted._one_query(offs)
+    raw = launched(ted.window_ed, lambda: ted.ed_distances(dev8, q32, offs,
+                                                            L))
+    zn = launched(ted.window_ed, lambda: ted.znorm_ed_distances(
+        dev8, qh32, offs, L))
+    equal(raw, ted.ed_distances_multi(dev8, q32[None], offs, zeros, L),
+          "ed_distances")
+    equal(zn, ted.znorm_ed_distances_multi(dev8, qh32[None], offs, zeros, L),
+          "znorm_ed_distances")
+    win = np.stack([data8[o:o + L] for o in offs_np[:n_f64]])
+    d64 = ((win - q) ** 2).sum(1)
+    z64 = ((znorm64(win) - znorm64(q)) ** 2).sum(1)
+    out["ed"] = dict(
+        rows=n_ed, raw_over_guard=within(
+            raw[:n_f64].cpu().numpy(), d64, verify.guard_threshold(d64, L,
+                                                                   1e-2),
+            "ed_distances"),
+        znorm_over_guard=within(
+            zn[0][:n_f64].cpu().numpy(), z64,
+            verify.guard_threshold(z64, L, 1e-2), "znorm_ed_distances"),
+        d2_median=float(np.median(d64)), znorm_d2_median=float(
+            np.median(z64)))
+
+    # Regions: the FFT route (torch ops), one query for every region.
+    starts = dev(rng.integers(0, dev8.shape[0] - (SINGLE_M + L - 1) + 1,
+                              n_reg), torch.int64)
+    zeros_r = ted._one_query(starts)
+    center = float(np.float32(q.mean()))
+    qc32 = dev(q - center)
+    reg = counted(kernels, launches, lambda: (
+        treg.region_ed_distances(dev8, qc32, starts, L, SINGLE_M, center),
+        treg.region_znorm_distances(dev8, qh32, starts, L, SINGLE_M)))
+    equal(reg[0], treg.region_ed_distances_multi(
+        dev8, qc32[None], starts, zeros_r, L, SINGLE_M, center),
+        "region_ed_distances")
+    equal(reg[1], treg.region_znorm_distances_multi(
+        dev8, qh32[None], starts, zeros_r, L, SINGLE_M)[:3],
+        "region_znorm_distances")
+    out["regions"] = dict(rows=n_reg, m=SINGLE_M, finite=bool(
+        torch.isfinite(reg[1][0]).all()))
+
+    # DP: z-normed windows against the z-normed query, and against a
+    # north-star query per row; K3, then K4.
+    z = znormed_windows(dev8, device, rng, L, n_dp)
+    qb = dev(znorm64(np.asarray(queries, np.float64)[
+        rng.integers(0, len(queries), n_dp)]))
+    one_ids = ted._one_query(z)
+    row_ids = torch.arange(n_dp, dtype=torch.int32, device=device)
+    z64_rows = z.double()
+    d_one = td.dtw_banded_plain(z64_rows, qh32[None].double(), one_ids, r)
+    d_row = td.dtw_banded_plain(z64_rows, qb.double(), row_ids, r)
+    zn_np, qh_np, qb_np = (t.cpu().numpy().astype(np.float64)
+                           for t in (z, qh32, qb))
+    nat_one = td.dtw_banded_batch_f64(zn_np[:n_f64], qh_np, r)
+    nat_row = np.array([td.dtw_banded_batch_f64(zn_np[i:i + 1], qb_np[i],
+                                                r)[0] for i in range(n_f64)])
+    saved = td.DTW_STATE["variant"]
+    dp = {}
+    try:
+        for variant, kernel in (("diag", td.dtw_diag), ("rows", td.dtw_rows)):
+            td.DTW_STATE["variant"] = variant
+            one = launched(kernel, lambda: td.dtw_banded_batch(z, qh32, r))
+            per = launched(kernel, lambda: td.dtw_banded_batch_multi(z, qb,
+                                                                     r))
+            equal(one, td._dtw_f32(z, qh32[None], one_ids, r),
+                  f"dtw_banded_batch ({variant})")
+            equal(per, td._dtw_f32(z, qb, row_ids, r),
+                  f"dtw_banded_batch_multi ({variant})")
+            dp["k3" if variant == "diag" else "k4"] = {
+                name: within(got[:n_f64].cpu().numpy(), want,
+                             verify.guard_threshold(want, L, 1e-2),
+                             f"{name} ({variant})")
+                for name, got, want in (("one_over_guard", one, nat_one),
+                                        ("multi_over_guard", per, nat_row))}
+    finally:
+        td.DTW_STATE["variant"] = saved
+    out["dp"] = dict(rows=n_dp, L=L, r=r, **dp, native_vs_plain=float(
+        np.max(np.abs(nat_one - d_one[:n_f64].cpu().numpy())
+               / (nat_one + 1.0))))
+
+    # DS on the same rows, a query per row.
+    hi, lo = launched(td.dtw_ds, lambda: td.dtw_banded_batch_ds_multi(
+        z, qb, r))
+    equal((hi, lo), td.dtw_ds(z, qb, row_ids, r), "dtw_banded_batch_ds_multi")
+    ds = td.ds_value(hi.cpu().numpy(), lo.cpu().numpy())
+    want = d_row.cpu().numpy()
+    out["ds"] = dict(rows=n_dp, over_bound=within(
+        ds, want, 8.0 * eps32 * (want + 1.0), "dtw_banded_batch_ds_multi"),
+        native_over_bound=within(ds[:n_f64], nat_row,
+                                 8.0 * eps32 * (nat_row + 1.0),
+                                 "dtw_banded_batch_ds_multi (native)"))
+
+    # Lower bounds against the f64 DTW of the one query.
+    lo_env, hi_env = (dev(x) for x in envelope(qh_np, r))
+    kim, keogh = counted(kernels, launches, lambda: (
+        td.lb_kim(z, qh32), td.lb_keogh(z, lo_env, hi_env)))
+    d_one = d_one.cpu().numpy()
+    band = verify.guard_threshold(d_one, L, 1e-2)
+    lbs = {}
+    for name, lb in (("lb_kim", kim), ("lb_keogh", keogh)):
+        lb = lb.cpu().numpy().astype(np.float64)
+        if not np.all(lb <= d_one + band):
+            raise AssertionError(f"{name} above the f64 DTW")
+        lbs[name] = float(np.median(lb / d_one))
+    out["lb_median_share_of_dtw"] = lbs
+
+    # The scalar f64 DP of the oracle against the port's f64 batch DP.
+    Lo, ro, rows = SINGLE_ORACLE
+    a = znorm64(np.stack([data8[o:o + Lo] for o in rng.integers(
+        0, data8.size - Lo + 1, rows)]))
+    b = znorm64(np.asarray(queries[0][:Lo], np.float64))
+    t0 = time.perf_counter()
+    scalar = np.array([oracle.dtw_banded(x, b, ro) for x in a])
+    scalar_s = time.perf_counter() - t0
+    batch = td.dtw_banded_batch_f64(a, b, ro)
+    np.testing.assert_allclose(scalar, batch, rtol=1e-12)
+    out["oracle"] = dict(L=Lo, r=ro, rows=rows, seconds=scalar_s,
+                         max_rel=float(np.max(np.abs(scalar - batch)
+                                              / batch)))
+    for name in ("window_ed", "dtw_diag", "dtw_rows", "dtw_ds"):
+        if launches.get(name, 0) < 1:
+            raise AssertionError(f"kernel {name} was not launched on the "
+                                 f"single path")
+    return out
 
 
 # ------------------------------------------------------------- phase 8 ----
@@ -2571,6 +2785,14 @@ def main() -> int:
                                  f"path")
     phase("routing", lambda: routing_ab(eng8, offs8, q8), n=N_MAIN, L=L_MAIN)
     phase("profile", lambda: profile_batch(eng8, q8), n=N_MAIN, L=L_MAIN)
+    # The single-query ops of the JAX package's names, each call counted
+    # (launches made to compare with the _multi forms are not).
+    path_kernels = (probe_flags, window_ed, dtw_diag, dtw_rows, dtw_ds)
+    single_launches = {fn.__name__: 0 for fn in path_kernels}
+    phase("single", lambda: single_phase(data8, dev8, q8, device,
+                                         path_kernels, single_launches),
+          n=N_MAIN, L=L_MAIN, rho=RHO_MAIN)
+    emit(dict(phase="single_launches", card=card, launches=single_launches))
 
     # This slice's path: the full device build, then the streamed engines.
     full: dict = {}
@@ -2582,7 +2804,6 @@ def main() -> int:
     full_res = phase("build_full", run_build_full)
     # Only the streamed engines' queries count: the resident yardstick and
     # the oracle run outside ``counted``.
-    path_kernels = (probe_flags, window_ed, dtw_diag, dtw_rows, dtw_ds)
     stream_launches = {fn.__name__: 0 for fn in path_kernels}
     phase("stream", lambda: dict(
         main=stream_main(data8, dev8, full.pop("index"), offs8, q8, device,
@@ -2746,7 +2967,7 @@ def main() -> int:
     # Each path's launches, counted from 0 over that path alone.
     paths = dict(main=launches, main_dtw=dtw_launches,
                  exact_dtw=dict(dtw_rows=rows_launches),
-                 stream=stream_launches, cli=cli_launches,
+                 single=single_launches, stream=stream_launches, cli=cli_launches,
                  baselines=base_launches, append=append_launches,
                  bench=bench_launches, selectivity=sel_launches,
                  sharded=shard_launches)

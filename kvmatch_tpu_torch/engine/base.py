@@ -184,6 +184,9 @@ class BaseEngine:
             build_index_device_buckets(self.data, icfg, device=self.device)
 
     # ------------------------------------------------------------ helpers
+    def scale(self, w: int) -> IndexScale:
+        return self.index[w]
+
     def _dev(self, a, dtype) -> torch.Tensor:
         """numpy -> tensor on the engine's device."""
         return torch.as_tensor(np.ascontiguousarray(a), dtype=dtype,

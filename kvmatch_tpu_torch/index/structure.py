@@ -146,6 +146,10 @@ class IndexScale:
     def num_intervals(self) -> int:
         return int(self.row_ptr[-1]) if self.row_ptr.size else 0
 
+    def row_slice(self, r: int) -> Tuple[np.ndarray, np.ndarray]:
+        s, e = int(self.row_ptr[r]), int(self.row_ptr[r + 1])
+        return self.left[s:e], self.right[s:e]
+
     def memory_bytes(self) -> int:
         """Bytes of the scale's arrays; counting never pulls the device
         view."""
@@ -157,6 +161,14 @@ class IndexScale:
             return meta + self._left.nbytes + self._right.nbytes
         # device-resident intervals: int32 left/right (+row) per piece
         return meta + 12 * self.num_intervals
+
+    def counts_between(self, begin_round: float, end_round: float
+                       ) -> Tuple[int, int]:
+        """(#intervals, #offsets) the probe for the one range [begin_round,
+        end_round] will touch; see ``counts_between_batch``."""
+        i, o = self.counts_between_batch(np.atleast_1d(begin_round),
+                                         np.atleast_1d(end_round))
+        return int(i[0]), int(o[0])
 
     def counts_between_batch(self, begin_round: np.ndarray, end_round: np.ndarray
                              ) -> Tuple[np.ndarray, np.ndarray]:

@@ -25,6 +25,11 @@ K3's and DS's operations in their anti-diagonal order, and
 bitwise checks on the card.  ``DTW_STATE["variant"]`` picks K3 or K4 for
 the f32 stages, as ``_PALLAS_DTW_STATE`` does in JAX.
 
+``dtw_banded_batch``, ``dtw_banded_batch_multi`` and
+``dtw_banded_batch_ds_multi`` take JAX's arguments (one query, or a query
+per row) and go through the same wrappers; ``lb_kim`` and ``lb_keogh`` take
+one query or envelope for the batch.
+
 Offsets are int64 end to end (JAX casts them to int32).  The f64 host DP is
 the port's native host kernel (``native.dtw_band_f64``), with the NumPy twin
 as its fallback.
@@ -39,7 +44,7 @@ import torch
 import torch.nn.functional as F
 
 from .. import backend, kernels, native
-from .ed import _gather
+from .ed import _gather, _one_query
 
 BIG = 1e30
 
@@ -430,6 +435,40 @@ def ds_value(hi, lo) -> np.ndarray:
     return np.asarray(hi, np.float64) + np.asarray(lo, np.float64)
 
 
+# ------------------------------------------- the JAX package's batch forms
+# One query for the batch, or a query per row, as the functions of these
+# names in kvmatch_tpu/ops/dtw.py take them: the wrappers above with a
+# one-row query matrix (qids 0) or the rows' own (qids 0 .. B - 1).  A band
+# past L - 1 is the band L - 1, as in JAX.
+def _per_row(a_batch, q_batch) -> torch.Tensor:
+    """qids 0 .. B - 1: row b takes query b of ``q_batch``, which must have
+    the rows' shape."""
+    if q_batch.shape != a_batch.shape:
+        raise ValueError(f"need a query per row: q_batch "
+                         f"{tuple(q_batch.shape)} against rows "
+                         f"{tuple(a_batch.shape)}")
+    return torch.arange(a_batch.shape[0], dtype=torch.int32,
+                        device=a_batch.device)
+
+
+def dtw_banded_batch(a_batch, q, r: int) -> torch.Tensor:
+    """Squared banded DTW of a (B, L) batch against one query (L,), f32:
+    K3, or K4 when selected (``DTW_STATE``)."""
+    return _dtw_f32(a_batch, q[None], _one_query(a_batch), r)
+
+
+def dtw_banded_batch_multi(a_batch, q_batch, r: int) -> torch.Tensor:
+    """Banded DTW where every row of ``a_batch`` (B, L) has its own query,
+    the same row of ``q_batch`` (B, L)."""
+    return _dtw_f32(a_batch, q_batch, _per_row(a_batch, q_batch), r)
+
+
+def dtw_banded_batch_ds_multi(a_batch, q_batch, r: int):
+    """Double-single banded DTW, a query per row: the (hi, lo) f32 pair per
+    row (``ds_value`` combines it in float64 on the host)."""
+    return dtw_ds(a_batch, q_batch, _per_row(a_batch, q_batch), r)
+
+
 # ------------------------------------------------------ lower-bound cascade
 def lb_keogh_multi(a_batch, lo_batch, hi_batch) -> torch.Tensor:
     """LB_Keogh with a per-row query envelope ((B, L) each)."""
@@ -454,6 +493,16 @@ def lb_kim_multi(a_batch, q_batch) -> torch.Tensor:
     lb = lb + mn(d, mn(dist(x[2], q[1]), dist(x[2], q[0])))
     d = mn(mn(dist(y[0], p[2]), dist(y[1], p[2])), dist(y[2], p[2]))
     return lb + mn(d, mn(dist(y[2], p[1]), dist(y[2], p[0])))
+
+
+def lb_kim(a_batch, q) -> torch.Tensor:
+    """LB_Kim of a (B, L) batch against one query (L,)."""
+    return lb_kim_multi(a_batch, q[None].expand_as(a_batch))
+
+
+def lb_keogh(a_batch, q_lo, q_hi) -> torch.Tensor:
+    """LB_Keogh of a (B, L) batch against one query envelope (L,) each."""
+    return lb_keogh_multi(a_batch, q_lo[None], q_hi[None])
 
 
 def lb_stage_multi(data, env_lo, env_hi, qm, lo_m, hi_m, offs, qids,

@@ -6,7 +6,8 @@ compares data[offsets[b] : offsets[b] + L] (offsets int64, clamped to
 [0, n - L] like jax.lax.dynamic_slice) with queries[qids[b]].  ``window_ed``
 launches the CUDA kernel (csrc/window_ed.cu) for CUDA tensors and runs
 ``window_ed_plain`` for CPU tensors; ``window_ed_plain`` is the plain PyTorch
-version on any device.
+version on any device.  ``ed_distances`` and ``znorm_ed_distances`` take one
+query for the whole batch, as the JAX functions of those names do.
 
 The JAX package's tiled barrel-shift gather and shift tables are TPU devices
 and are not ported.
@@ -104,3 +105,24 @@ def znorm_ed_distances_multi(data, queries_hat, offsets, qids, length: int):
     """(d2, mean, std) of z-normalized windows against z-normalized queries;
     d2 is inf where std == 0."""
     return window_ed(data, queries_hat, offsets, qids, length, znorm=True)
+
+
+def _one_query(rows) -> torch.Tensor:
+    """qids of a batch (window offsets, region starts or DP rows) whose
+    rows all take query 0."""
+    return torch.zeros(rows.shape[0], dtype=torch.int32, device=rows.device)
+
+
+def ed_distances(data, query, offsets, length: int):
+    """Raw squared distances of a candidate batch against one query (L,):
+    ``ed_distances_multi`` with the query as a one-row batch."""
+    return ed_distances_multi(data, query[None], offsets, _one_query(offsets),
+                              length)
+
+
+def znorm_ed_distances(data, query_hat, offsets, length: int):
+    """(d2, mean, std) of z-normalized windows against one z-normalized
+    query (L,), ``query_hat = (Q - muQ) / sigmaQ`` with the population std;
+    d2 is inf where std == 0."""
+    return znorm_ed_distances_multi(data, query_hat[None], offsets,
+                                    _one_query(offsets), length)

@@ -20,7 +20,7 @@ from typing import Tuple
 import numpy as np
 import torch
 
-from .ed import _gather
+from .ed import _gather, _one_query
 
 # f32 round-off amplification constant of the error bounds.
 ERR_C = 64.0 * float(np.finfo(np.float32).eps)
@@ -98,6 +98,26 @@ def region_znorm_distances_multi(data, queries_hat, starts, qids,
     err = (2.0 * FFT_ERR_C * torch.sqrt(torch.clamp_min(s2, 0.0) * length)
            + ERR_C * two_l) / safe
     return d2, mean, std, err
+
+
+def region_ed_distances(data, query_centered, starts, length: int,
+                        m_per_region: int, center: float = 0.0):
+    """``region_ed_distances_multi`` with one query (L,) for every region:
+    (d2 (B, M), err (B, M)).  ``center`` is subtracted from the gathered
+    data; pass the constant that centred ``query_centered``."""
+    return region_ed_distances_multi(data, query_centered[None], starts,
+                                     _one_query(starts), length,
+                                     m_per_region, center)
+
+
+def region_znorm_distances(data, query_hat, starts, length: int,
+                           m_per_region: int):
+    """``region_znorm_distances_multi`` with one z-normalized query (L,) for
+    every region: (d2, mean, std), each (B, M)."""
+    d2, mean, std, _ = region_znorm_distances_multi(
+        data, query_hat[None], starts, _one_query(starts), length,
+        m_per_region)
+    return d2, mean, std
 
 
 def _near_compact(near: torch.Tensor, near_k: int):

@@ -7,8 +7,9 @@ from float64 prefix sums; distances are returned square-rooted.  The O(n L)
 distance work runs in float64 on ``device`` (the current CUDA device unless
 the caller passes ``device="cpu"``) over chunks of the series' window view,
 so a card checks n=1e6, L=8192 in about a second.  It shares no code with
-the engines it checks.  ``dedup_overlapping`` is a copy of the JAX
-package's (the CLI's ``oracle`` command prints its output).
+the engines it checks.  ``dedup_overlapping`` (the CLI's ``oracle``
+command prints its output) and ``dtw_banded``, the scalar float64 DP of one
+pair of rows on the host, are copies of the JAX package's.
 """
 
 from __future__ import annotations
@@ -89,6 +90,31 @@ def nsm_ed(data: np.ndarray, query: np.ndarray, epsilon: float,
     d2 = _d2(data, zq, cand, device, mean_t[cand], std_t[cand])
     keep = d2 <= epsilon * epsilon
     return cand[keep], np.sqrt(d2[keep])
+
+
+def dtw_banded(a: np.ndarray, b: np.ndarray, r: int) -> float:
+    """Banded DTW d^2 via a simple full DP restricted to the band (clear + exact)."""
+    m = a.size
+    INF = np.inf
+    prev = np.full(m, INF)
+    for i in range(m):
+        j_lo = max(0, i - r)
+        j_hi = min(m - 1, i + r)
+        cur = np.full(m, INF)
+        d = (a[i] - b[j_lo:j_hi + 1]) ** 2
+        if i == 0:
+            cur[0] = (a[0] - b[0]) ** 2
+            for j in range(max(1, j_lo), j_hi + 1):
+                cur[j] = cur[j - 1] + (a[0] - b[j]) ** 2
+        else:
+            run = INF
+            for j in range(j_lo, j_hi + 1):
+                best = min(prev[j], prev[j - 1] if j > 0 else INF, run)
+                run = best + d[j - j_lo]
+                cur[j] = run
+                run = cur[j]
+        prev = cur
+    return float(prev[m - 1])
 
 
 def _dtw_chunk_rows(device: torch.device, L: int, lanes: int) -> int:

@@ -1,7 +1,6 @@
 """Vectorized interval algebra over flat NumPy arrays.
 
-A copy of the functions of kvmatch_tpu/utils/intervals.py that the port
-calls.
+A copy of kvmatch_tpu/utils/intervals.py.
 
 The reference manipulates candidate sets as Java lists of ``Interval`` objects with
 serial two-pointer loops (QueryEngine.java:279-305, 593-693).  Here a candidate set is
@@ -109,6 +108,53 @@ def shift(cs: Dict[str, np.ndarray], delta: int) -> Dict[str, np.ndarray]:
     out["left"] = cs["left"] + delta
     out["right"] = cs["right"] + delta
     return out
+
+
+def clip_first_segment(cs: Dict[str, np.ndarray], order_1b: int, unit: int,
+                       n: int, length: int) -> Dict[str, np.ndarray]:
+    """Boundary clamping applied to the first probed segment
+    (QueryEngine.java:261-277).  Positions here are 1-based window starts of the
+    probed segment; a position p is viable iff the full query window fits:
+    1 <= p - (order-1)*unit  and  p - (order-1)*unit + length - 1 <= n.
+    """
+    base = (order_1b - 1) * unit
+    lo = 1 + base
+    hi = n - length + 1 + base
+    left = np.maximum(cs["left"], lo)
+    right = np.minimum(cs["right"], hi)
+    keep = left <= right
+    out = {k: v[keep] for k, v in cs.items()}
+    out["left"], out["right"] = left[keep], right[keep]
+    return out
+
+
+def intersect(a: Dict[str, np.ndarray], b: Dict[str, np.ndarray]) -> Tuple[Dict[str, np.ndarray], np.ndarray, np.ndarray]:
+    """All overlapping pieces of two sorted disjoint interval sets.
+
+    Returns (pieces, ia, ib) where pieces[k] = [max(a.l, b.l), min(a.r, b.r)] and
+    ia/ib index the source intervals, letting the caller combine payload columns
+    (epsilon sums, Ex/Ex2 sums, beta AND) before filtering.  Vectorized version of
+    the reference's two-pointer CS x CS_i merge (QueryEngine.java:279-305).
+    """
+    al, ar = a["left"], a["right"]
+    bl, br = b["left"], b["right"]
+    if al.size == 0 or bl.size == 0:
+        e = empty_set(tuple(k for k in a if k not in ("left", "right")))
+        return e, np.empty(0, np.int64), np.empty(0, np.int64)
+    # For each a-interval: b-intervals with br >= al and bl <= ar.
+    j0 = np.searchsorted(br, al, side="left")
+    j1 = np.searchsorted(bl, ar, side="right")
+    counts = np.maximum(j1 - j0, 0)
+    total = int(counts.sum())
+    ia = np.repeat(np.arange(al.size), counts)
+    # b-index within each a's range: arange trick.
+    offs = np.concatenate(([0], np.cumsum(counts)[:-1]))
+    ib = (np.arange(total) - np.repeat(offs, counts)) + np.repeat(j0, counts)
+    pieces = {
+        "left": np.maximum(al[ia], bl[ib]),
+        "right": np.minimum(ar[ia], br[ib]),
+    }
+    return pieces, ia, ib
 
 
 def intersect_with_sorted(cs: Dict[str, np.ndarray], raw: Dict[str, np.ndarray]

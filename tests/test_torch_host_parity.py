@@ -89,16 +89,19 @@ def test_generate_series_equals_jax(n, seed, frac):
 
 
 @pytest.mark.parametrize("fn", ["to_round", "snap_down", "bucket_id",
-                                "bucket_to_key"])
+                                "bucket_to_key", "grid_width", "to_upper",
+                                "snap_up"])
 def test_rounding_equals_jax(fn):
     rng = np.random.default_rng(1)
     x = rng.normal(0, 20, 1000)
     keys = np.sort(rng.choice(np.round(x, 1), 100, replace=False))
     for pos_of_d in (1, 2, 3):
-        if fn == "snap_down":
+        if fn in ("snap_down", "snap_up"):
             args = (x, keys, pos_of_d)
         elif fn == "bucket_to_key":
             args = (rng.integers(-5000, 5000, 100), pos_of_d)
+        elif fn == "grid_width":
+            args = (pos_of_d,)
         else:
             args = (x, pos_of_d)
         np.testing.assert_array_equal(getattr(trounding, fn)(*args),
@@ -117,7 +120,8 @@ def _random_set(rng, k, n=10_000, payloads=("eps",)):
 
 @pytest.mark.parametrize("fn", ["merge_intervals", "expand_offsets",
                                 "intersect_with_sorted", "count_stats",
-                                "shift", "empty_set"])
+                                "shift", "empty_set", "intersect",
+                                "clip_first_segment"])
 def test_intervals_equal_jax(fn):
     rng = np.random.default_rng(2)
     pay = ("eps", "ex_lo", "ex_up", "beta")
@@ -125,6 +129,11 @@ def test_intervals_equal_jax(fn):
     if fn == "intersect_with_sorted":
         cs = jiv.merge_intervals(a)
         args = (cs, _random_set(rng, 200, payloads=pay))
+    elif fn == "intersect":
+        args = (jiv.merge_intervals(a),
+                jiv.merge_intervals(_random_set(rng, 200, payloads=pay)))
+    elif fn == "clip_first_segment":
+        args = (jiv.merge_intervals(a), 3, 25, 9_000, 600)
     elif fn == "shift":
         args = (a, 17)
     elif fn == "empty_set":
@@ -385,12 +394,43 @@ class _StubEngine:
 
 
 @pytest.mark.parametrize("module", ["codec", "storage_file", "streaming",
-                                    "experiments", "profiling", "mesh"])
+                                    "experiments", "profiling", "mesh",
+                                    "structure", "engine_base"])
 def test_slice_module_equals_jax(series, tmp_path, module):
     """The modules copied for persistence, the append build, the workloads
-    and profiling give what their JAX originals give."""
+    and profiling give what their JAX originals give, and so do the index
+    scale's single-row and single-range reads and the engine's scale."""
     data, icfg, jindex = series
     rng = np.random.default_rng(8)
+    if module == "structure":
+        # row_slice and counts_between on a host-built scale, and on the
+        # full device build's scales, whose pieces stay on the device until
+        # row_slice materializes them on the host
+        from kvmatch_tpu_torch.index.device_build import build_index_device
+        pairs = ((index_from_arrays(jindex), jindex),
+                 (build_index_device(data, tconfig.IndexConfig(),
+                                     keep_device=True, device="cpu"),
+                  jdb.build_index_device(data, icfg, keep_device=True)))
+        for k, (got_index, want_index) in enumerate(pairs):
+            assert all((sc._left is None) == (k == 1)
+                       for sc in got_index.values())
+            for w, want in want_index.items():
+                got = got_index[w]
+                for r in rng.integers(0, want.num_rows, 20):
+                    for g, e in zip(got.row_slice(int(r)),
+                                    want.row_slice(int(r))):
+                        np.testing.assert_array_equal(g, e)
+                for b, e in rng.normal(0, 2, (20, 2)):
+                    assert got.counts_between(min(b, e), max(b, e)) == \
+                        want.counts_between(min(b, e), max(b, e))
+        return
+    if module == "engine_base":
+        port = QueryEngine(data, index=index_from_arrays(jindex),
+                           icfg=tconfig.IndexConfig(), device="cpu")
+        jax_eng = JRaw(data, index=jindex, icfg=icfg)
+        for w in icfg.scales:
+            _same_scales({w: port.scale(w)}, {w: jax_eng.scale(w)})
+        return
     if module == "codec":
         from kvmatch_tpu.utils import codec as jcodec
         from kvmatch_tpu_torch.utils import codec as tcodec

@@ -14,7 +14,11 @@ f32 operations in order.  K3 and DS equal their anti-diagonal plain versions
 cluster and global forms; K4 equals dtw_rows_plain bit for bit on rows one
 warp holds.  K2 (window distances): |d2 - d2_plain| <= 1e-5 L + 1e-5 d2 and
 mean/std within 1e-5 of the window's max |x| (summation order differs; see
-tests/test_torch_ed.py).  Engine answers EQUAL the oracle, and streamed
+tests/test_torch_ed.py).  The single-query ops (ed_distances,
+znorm_ed_distances, the region functions, dtw_banded_batch,
+dtw_banded_batch_multi, dtw_banded_batch_ds_multi) equal their _multi
+calls bit for bit and raise on bad input before any launch.  Engine
+answers EQUAL the oracle, and streamed
 answers the resident engine's; the full device build on the card equals its
 CPU run.
 """
@@ -582,3 +586,107 @@ def test_dtw_rows_workspace_strides_over_rows(dev):
     want = tdtw.dtw_banded_plain(*args, r).cpu().numpy().astype(np.float64)
     band = np.array([vf.guard_threshold(w, L, 1e-2) for w in want])
     assert np.all(np.abs(got - want) <= band)
+
+
+# The JAX package's single-query ops (ops/ed.py, ops/regions.py, ops/dtw.py)
+# on the card: each is its ``_multi`` form (or the DP wrapper) with a
+# one-row query batch or a query per row, so the two are equal bit for bit,
+# and each launches its kernel (the counters move) or raises.
+def _single_case(dev, n=200_000, L=1024, B=300, seed=11):
+    rng = np.random.default_rng(seed)
+    data = generate_series(n, seed=seed).astype(np.float32)
+    data[500:500 + L] = 1.5  # a flat window: z-norm d2 inf
+    offs = rng.integers(0, n - L + 1, B)
+    offs[:3] = [0, n - L, 500]
+    q = data[7000:7000 + L].astype(np.float64)
+    qh = (q - q.mean()) / q.std()
+    t = lambda x, **kw: torch.as_tensor(x, device=dev, **kw)  # noqa: E731
+    return (t(data), t(q, dtype=torch.float32), t(qh, dtype=torch.float32),
+            t(offs), L)
+
+
+def test_single_query_window_ops_equal_multi(dev):
+    data, q, qh, offs, L = _single_case(dev)
+    zeros = torch.zeros(offs.shape[0], dtype=torch.int32, device=dev)
+    before = ted.window_ed.launches
+    raw = ted.ed_distances(data, q, offs, L)
+    zn = ted.znorm_ed_distances(data, qh, offs, L)
+    assert ted.window_ed.launches == before + 2
+    assert torch.equal(raw, ted.ed_distances_multi(data, q[None], offs,
+                                                   zeros, L))
+    for g, w in zip(zn, ted.znorm_ed_distances_multi(data, qh[None], offs,
+                                                     zeros, L)):
+        assert torch.equal(g, w)
+    assert bool(torch.isinf(zn[0][2])) and int(torch.isinf(zn[0]).sum()) == 1
+
+
+def test_single_query_region_ops_equal_multi(dev):
+    from kvmatch_tpu_torch.ops import regions as treg
+    data, q, qh, offs, L = _single_case(dev)
+    starts, M = offs[:8].clamp(max=data.shape[0] - (512 + L - 1)), 512
+    zeros = torch.zeros(8, dtype=torch.int32, device=dev)
+    center = float(q.mean())
+    qc = q - center
+    for g, w in zip(treg.region_ed_distances(data, qc, starts, L, M, center),
+                    treg.region_ed_distances_multi(data, qc[None], starts,
+                                                   zeros, L, M, center)):
+        assert torch.equal(g, w)
+    got = treg.region_znorm_distances(data, qh, starts, L, M)
+    want = treg.region_znorm_distances_multi(data, qh[None], starts, zeros,
+                                             L, M)
+    assert len(got) == 3
+    for g, w in zip(got, want[:3]):
+        assert torch.equal(g, w)
+
+
+@pytest.mark.parametrize("variant", ["diag", "rows"])
+@pytest.mark.parametrize("L,r", [(1024, 0), (1024, 51), (1024, 1023),
+                                 (301, 500)])
+def test_single_query_dtw_ops_equal_multi(dev, variant, L, r, monkeypatch):
+    from kvmatch_tpu_torch.ops import dtw as tdtw
+    monkeypatch.setitem(tdtw.DTW_STATE, "variant", variant)
+    f32 = tdtw.dtw_diag if variant == "diag" else tdtw.dtw_rows
+    a, qm, _ = _dtw_case(64, L, 64, seed=L + r)
+    a, qm = (torch.as_tensor(x, device=dev) for x in (a, qm))
+    zeros = torch.zeros(64, dtype=torch.int32, device=dev)
+    rows = torch.arange(64, dtype=torch.int32, device=dev)
+    before = (f32.launches, tdtw.dtw_ds.launches)
+    one = tdtw.dtw_banded_batch(a, qm[3], r)
+    per_row = tdtw.dtw_banded_batch_multi(a, qm, r)
+    hi, lo = tdtw.dtw_banded_batch_ds_multi(a, qm, r)
+    assert (f32.launches, tdtw.dtw_ds.launches) == (before[0] + 2,
+                                                    before[1] + 1)
+    assert torch.equal(one, f32(a, qm[3:4].contiguous(), zeros, r))
+    assert torch.equal(per_row, f32(a, qm, rows, r))
+    for g, w in zip((hi, lo), tdtw.dtw_ds(a, qm, rows, r)):
+        assert torch.equal(g, w)
+    d64 = _f64_dp(a.cpu().numpy(), qm.cpu().numpy(), rows.cpu().numpy(), r)
+    eps32 = float(np.finfo(np.float32).eps)
+    ds = tdtw.ds_value(hi.cpu().numpy(), lo.cpu().numpy())
+    assert np.all(np.abs(ds - d64) <= 8.0 * eps32 * (d64 + 1.0))
+
+
+def test_single_query_ops_raise_on_bad_input(dev):
+    """Bad input raises before any launch; nothing runs the plain version."""
+    from kvmatch_tpu_torch.ops import dtw as tdtw
+    data, q, qh, offs, L = _single_case(dev, n=20_000, B=16)
+    kernels = (ted.window_ed, tdtw.dtw_diag, tdtw.dtw_rows, tdtw.dtw_ds)
+    before = [k.launches for k in kernels]
+    with pytest.raises(ValueError, match="int64 offsets"):
+        ted.ed_distances(data, q, offs.to(torch.int32), L)
+    with pytest.raises(ValueError, match="int64 offsets"):
+        ted.znorm_ed_distances(data.double(), qh, offs, L)
+    with pytest.raises(ValueError, match=r"\(Q, L\)"):
+        ted.znorm_ed_distances(data, qh[:100], offs, L)
+    a = torch.randn(8, 200, device=dev)
+    with pytest.raises(ValueError, match="f32 rows"):
+        tdtw.dtw_banded_batch(a.double(), a[0].double(), 5)
+    with pytest.raises(ValueError, match=r"\(Q, L\)"):
+        tdtw.dtw_banded_batch(a, a[0, :100], 5)
+    with pytest.raises(ValueError, match="a query per row"):
+        tdtw.dtw_banded_batch_multi(a, a[:4], 5)
+    with pytest.raises(ValueError, match="a query per row"):
+        tdtw.dtw_banded_batch_ds_multi(a, a[:, :100], 5)
+    with pytest.raises(ValueError, match="contiguous"):
+        tdtw.dtw_banded_batch_ds_multi(a[:, ::2], a[:, ::2], 5)
+    assert [k.launches for k in kernels] == before

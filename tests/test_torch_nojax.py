@@ -10,7 +10,11 @@ persistence, the command line, the twins and the full scan, codec,
 storage, experiments, profiling); a fifth the sharded build, the
 sharded steps and their recovery (``parallel.dryrun``) and the sharded
 ``HbmStore``; a sixth one tiny section each of the measurement layer
-(``bench``, ``selectivity``, ``utils.kernel_bench``).  A static check finds no
+(``bench``, ``selectivity``, ``utils.kernel_bench``); a seventh the
+single-query ops (``ops.ed``, ``ops.regions``, ``ops.dtw``), the scalar f64
+DP ``oracle.dtw_banded``, the interval and rounding helpers,
+``IndexScale.row_slice`` / ``counts_between`` and ``BaseEngine.scale``.
+A static check finds no
 import of ``kvmatch_tpu`` in the port's sources or in chip_smoke.py."""
 
 import ast
@@ -194,10 +198,57 @@ assert int(pos[0]) == 5000
 """ + VERDICT
 
 
+SINGLE_PROBE = r"""
+import sys
+preloaded = "jax" in sys.modules
+import numpy as np
+import torch
+torch.set_num_threads(1)
+from kvmatch_tpu_torch import QueryEngine, generate_series, oracle
+from kvmatch_tpu_torch.ops import dtw, ed, regions
+from kvmatch_tpu_torch.plan import envelope
+from kvmatch_tpu_torch.utils import intervals, rounding
+data = generate_series(8_000, seed=3)
+dev = torch.as_tensor(data.astype(np.float32))
+q = dev[1000:1128]
+qh = (q - q.mean()) / q.std(unbiased=False)
+offs = torch.tensor([0, 1000, 7000])
+assert float(ed.ed_distances(dev, q, offs, 128)[1]) == 0.0
+assert ed.znorm_ed_distances(dev, qh, offs, 128)[0].shape == (3,)
+starts = torch.tensor([900, 5000])
+assert regions.region_ed_distances(dev, q, starts, 128, 256)[0].shape == \
+    (2, 256)
+assert len(regions.region_znorm_distances(dev, qh, starts, 128, 256)) == 3
+a = dev[torch.arange(1000, 1004)[:, None] + torch.arange(128)]
+d = dtw.dtw_banded_batch(a, q, 6)
+assert float(d[0]) == 0.0
+assert dtw.dtw_banded_batch_multi(a, a, 6).abs().max() == 0.0
+assert dtw.dtw_banded_batch_ds_multi(a, a, 6)[0].shape == (4,)
+lo, hi = (torch.as_tensor(x) for x in envelope(q.numpy(), 6))
+assert bool((dtw.lb_kim(a, q) <= d + 1e-3).all())
+assert bool((dtw.lb_keogh(a, lo, hi) <= d + 1e-3).all())
+assert oracle.dtw_banded(a[1].double().numpy(), q.double().numpy(), 6) == \
+    dtw._dtw_banded_batch_f64_np(a[1:2].numpy(), q.numpy(), 6)[0]
+cs = intervals.merge_intervals({"left": np.array([3, 40]),
+                                "right": np.array([20, 60]),
+                                "eps": np.zeros(2)})
+assert intervals.intersect(cs, cs)[0]["left"].tolist() == [3, 40]
+assert intervals.clip_first_segment(cs, 1, 25, 50, 40)["right"].tolist() == \
+    [11]
+assert rounding.snap_up(0.5, np.array([-1.0, 0.5, 2.0]), 1) == 2.0
+assert rounding.to_upper(1.5, 1) == 2.0 and rounding.grid_width(1) == 0.5
+eng = QueryEngine(data, device="cpu")
+sc = eng.scale(100)
+assert sc.counts_between(-1e9, 1e9)[1] == sc.n - 100 + 1
+assert sc.row_slice(0)[0].size == sc.row_ptr[1]
+""" + VERDICT
+
+
 @pytest.mark.parametrize("probe", [PROBE, DTW_PROBE, STREAM_PROBE,
-                                   SLICE_PROBE, SHARDED_PROBE, BENCH_PROBE],
+                                   SLICE_PROBE, SHARDED_PROBE, BENCH_PROBE,
+                                   SINGLE_PROBE],
                          ids=["ed", "dtw", "stream", "slice", "sharded",
-                              "bench"])
+                              "bench", "single"])
 def test_port_runs_without_jax(probe):
     env = dict(os.environ, PYTHONPATH=str(REPO))
     out = subprocess.run([sys.executable, "-c", probe], cwd=REPO, env=env,
