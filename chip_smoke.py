@@ -146,8 +146,15 @@ JSON line tagged with the card's name and power limit and its seconds
                 the cNSM-ED step's K2 calls); the halo bytes;
                 dryrun_multichip(SHARDS); launches counted as above.
 
-Then the kernel table ({"kernels": [...]}), the nvidia-smi name/power line
-and, last, {"ok": true, "device": {...}}.  The env line carries each
+The plain DP versions the kernels are held to (ops/dtw.py: dtw_diag_plain,
+dtw_ds_diag_plain, dtw_rows_plain, dtw_banded_ds_plain) run their steps in
+blocks, each full block a replayed CUDA graph, bit-equal to their eager
+loop (tests/test_torch_plain_blocks.py); each call here must replay one.
+
+Then the time line ({"phase": "time", ...}: the seconds of each phase, of
+each plain DP call and of the whole run), the kernel table
+({"kernels": [...]}), the nvidia-smi name/power line and, last,
+{"ok": true, "device": {...}}.  The env line carries each
 kernel's registers and spill bytes (cuobjdump -res-usage).  A failing
 phase raises and the script exits non-zero without the last line; so does a run that loaded jax
 or a module of the JAX package kvmatch_tpu (the port stands alone), a
@@ -163,6 +170,7 @@ import sys
 import time
 from pathlib import Path
 
+START = time.perf_counter()
 REPO = Path(__file__).resolve().parent
 if not (REPO / "kvmatch_tpu_torch" / "csrc").is_dir():
     print(f"chip_smoke: {REPO} is not a checkout of the repository",
@@ -174,6 +182,10 @@ from kvmatch_tpu_torch.utils.kernel_bench import (  # noqa: E402
     DP_OPS, DS_OPS, K1_OPS, K1_OPS_FULL, K1_TRACK_OPS, K2_QUERIES, K2_SHAPES,
     band_cells, bound, card_line, k2_work, timed_ms, window_kernel_times)
 
+# Seconds of each phase, and of each plain DP call (plain_call), for the
+# time line.
+PHASE_S: dict = {}
+PLAIN_S: dict = {}
 L_MAIN = 8192
 N_MAIN = 100_000_000
 ALPHA, BETA, EPS = 1.2, 5.0, 4.0
@@ -237,6 +249,26 @@ DTW_EXACT_SHAPES = (("rsm_dtw", 1_000_000, L_RSM_DTW, RHO_RSM, EPS_RSM),
 
 def emit(obj: dict) -> None:
     print(json.dumps(obj), flush=True)
+
+
+def plain_call(plain, args, what: str):
+    """One synchronized call of a plain DP version of ops/dtw.py: (its
+    result, ms).  Its seconds add to PLAIN_S under ``what`` and its name;
+    a version that runs its steps as CUDA graphs (``graph_replays``) must
+    have replayed one."""
+    import torch
+    replays = getattr(plain, "graph_replays", None)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    out = plain(*args)
+    torch.cuda.synchronize()
+    sec = time.perf_counter() - t0
+    if replays is not None and plain.graph_replays <= replays:
+        raise AssertionError(f"{plain.__name__} ({what}): no CUDA graph "
+                             f"replayed")
+    key = f"{what}: {plain.__name__}"
+    PLAIN_S[key] = PLAIN_S.get(key, 0.0) + sec
+    return out, sec * 1e3
 
 
 def self_queries(data, n_queries: int, length: int, seed: int):
@@ -441,10 +473,8 @@ def check_bitwise(data_dev, queries, device, kernel: str = "K3",
                        and 2 * min(r, L - 1) + 1 > td.K4_WARP_LANES)
         plain = own if bitwise else td.dtw_banded_plain
         got = fn(z, qhat, qids, r)
-        t0 = time.perf_counter()
-        want = plain(z, qhat, qids, r)
-        torch.cuda.synchronize(device)
-        plain_ms = (time.perf_counter() - t0) * 1e3
+        want, plain_ms = plain_call(plain, (z, qhat, qids, r),
+                                    f"{kernel} bitwise L{L}_r{r}")
         got, want = ((got, want) if kernel == "DS" else ((got,), (want,)))
         res = dict(rows=batch, bit_equal=bitwise, finite=bool(
             torch.isfinite(got[0]).all()), plain=plain.__name__,
@@ -500,10 +530,10 @@ def check_dtw_kernels(data_dev, queries, device, batch: int = DTW_BATCH,
     out = {}
     for name, rows, qm in (("raw", x, qraw), ("znorm", z, qhat)):
         args = (rows, qm, qids, r)
-        t0 = time.perf_counter()
-        plain = td.dtw_banded_plain(*args).double()
-        torch.cuda.synchronize(device)
-        res = dict(plain_ms=(time.perf_counter() - t0) * 1e3)
+        plain, plain_ms = plain_call(td.dtw_banded_plain, args,
+                                     f"dtw {name}")
+        plain = plain.double()
+        res = dict(plain_ms=plain_ms)
         band = verify.guard_threshold(plain, L, 1e-2)
         got = {}
         for fn in (td.dtw_diag, td.dtw_rows):
@@ -520,7 +550,9 @@ def check_dtw_kernels(data_dev, queries, device, batch: int = DTW_BATCH,
                        / band).max())
         if not cross <= 1.0:
             raise AssertionError(f"K3 vs K4 {name}: {cross} of the band")
-        d64 = td.dtw_banded_plain(rows.double(), qm.double(), qids, r)
+        d64, _ = plain_call(td.dtw_banded_plain,
+                            (rows.double(), qm.double(), qids, r),
+                            f"dtw {name} f64")
         tol = 8.0 * eps32 * (d64 + 1.0)
         hi, lo = td.dtw_ds(*args)
         err = (hi.double() + lo.double() - d64).abs()
@@ -536,12 +568,11 @@ def check_dtw_kernels(data_dev, queries, device, batch: int = DTW_BATCH,
         if name == "raw":
             # The DS plain version: L rows of log-step pair scans, about 2M
             # small launches; timed once, on the raw rows.
-            t0 = time.perf_counter()
-            hi, lo = td.dtw_banded_ds_plain(*args)
-            torch.cuda.synchronize(device)
+            (hi, lo), plain_ms = plain_call(td.dtw_banded_ds_plain, args,
+                                            f"dtw {name}")
             err = (hi.double() + lo.double() - d64).abs()
             res["dtw_ds"].update(
-                plain_ms=(time.perf_counter() - t0) * 1e3,
+                plain_ms=plain_ms,
                 plain_max_err_over_bound=float((err / tol).max()))
     cells = batch * band_cells(L, r)
     io = batch * L * 4 + Q * L * 4 + batch * 8
@@ -772,10 +803,7 @@ def global_form(data_dev, device, case=GLOBAL_CASE) -> dict:
         if fn.global_launches - before != 1:
             raise AssertionError(f"{fn.__name__} L={L} r={r}: no launch in "
                                  f"the global form")
-        t0 = time.perf_counter()
-        want = plain(*args)
-        torch.cuda.synchronize(device)
-        plain_ms = (time.perf_counter() - t0) * 1e3
+        want, plain_ms = plain_call(plain, args, f"global L{L}_r{r}")
         got, want = ((got, want) if fn is td.dtw_ds else ((got,), (want,)))
         differ = sum(int((g != w).sum()) for g, w in zip(got, want))
         if differ:
@@ -824,10 +852,7 @@ def wide_band(data_dev, device, cases=WIDE_BAND_CASES,
         res = dict(rows=batch)
         for fn, plain in ((td.dtw_diag, td.dtw_diag_plain),
                           (td.dtw_ds, td.dtw_ds_diag_plain)):
-            t0 = time.perf_counter()
-            want = plain(*args)
-            torch.cuda.synchronize(device)
-            plain_ms = (time.perf_counter() - t0) * 1e3
+            want, plain_ms = plain_call(plain, args, f"wide L{L}_r{r}")
             want = want if isinstance(want, tuple) else (want,)
             differ = sum(int((g != w).sum()) for g, w in zip(got[fn], want))
             if differ:
@@ -836,10 +861,9 @@ def wide_band(data_dev, device, cases=WIDE_BAND_CASES,
             res[fn.__name__] = dict(bit_equal=True, plain_ms=plain_ms,
                                     ms=timed_ms(lambda fn=fn: fn(*args), 1,
                                                 device))
-        t0 = time.perf_counter()
-        want = td.dtw_banded_plain(*args).double()
-        torch.cuda.synchronize(device)
-        plain_ms = (time.perf_counter() - t0) * 1e3
+        want, plain_ms = plain_call(td.dtw_banded_plain, args,
+                                    f"wide L{L}_r{r}")
+        want = want.double()
         band = verify.guard_threshold(want, L, 1e-2)
         k4 = td.dtw_rows(*args).double()
         ratio = float(((k4 - want).abs() / band).max())
@@ -1275,8 +1299,12 @@ def single_phase(data8, dev8, queries, device, kernels, launches: dict,
     one_ids = ted._one_query(z)
     row_ids = torch.arange(n_dp, dtype=torch.int32, device=device)
     z64_rows = z.double()
-    d_one = td.dtw_banded_plain(z64_rows, qh32[None].double(), one_ids, r)
-    d_row = td.dtw_banded_plain(z64_rows, qb.double(), row_ids, r)
+    d_one, _ = plain_call(td.dtw_banded_plain,
+                          (z64_rows, qh32[None].double(), one_ids, r),
+                          "single one query f64")
+    d_row, _ = plain_call(td.dtw_banded_plain,
+                          (z64_rows, qb.double(), row_ids, r),
+                          "single query per row f64")
     zn_np, qh_np, qb_np = (t.cpu().numpy().astype(np.float64)
                            for t in (z, qh32, qb))
     nat_one = td.dtw_banded_batch_f64(zn_np[:n_f64], qh_np, r)
@@ -2660,7 +2688,7 @@ def main() -> int:
     t0 = time.perf_counter()
     so = kernels.build()
     kernels.lib()
-    build_s = time.perf_counter() - t0
+    build_s = PHASE_S["kernel_build"] = time.perf_counter() - t0
     emit(dict(phase="env", card=card, device=kind,
               count=torch.cuda.device_count(), torch=torch.__version__,
               cuda=torch.version.cuda, python=sys.version.split()[0],
@@ -2669,7 +2697,7 @@ def main() -> int:
 
     # The n=1e8 serving state: one upload, the stats-only build, the engine.
     icfg = IndexConfig()
-    t0 = time.perf_counter()
+    t0 = t_build = time.perf_counter()
     data8 = generate_series(N_MAIN, seed=20260817)
     gen_s = time.perf_counter() - t0
     t0 = time.perf_counter()
@@ -2685,6 +2713,7 @@ def main() -> int:
                            qcfg=QueryConfig(dense_probe_min_count=0),
                            device_data=dev8)
     offs8, q8 = self_queries(data8, 8, L_MAIN, seed=2)
+    PHASE_S["build"] = time.perf_counter() - t_build
     emit(dict(phase="build", card=card, n=N_MAIN, generate_s=gen_s,
               h2d_s=h2d_s, build_s_cold=builds[0]["build_seconds"],
               build_s=builds[1]["build_seconds"],
@@ -2696,7 +2725,7 @@ def main() -> int:
         res = fn()
         line = dict(phase=name, card=card, **tags)
         line.update(res)
-        line["phase_s"] = time.perf_counter() - t0
+        line["phase_s"] = PHASE_S[name] = time.perf_counter() - t0
         emit(line)
         return res
 
@@ -2992,6 +3021,9 @@ def main() -> int:
                 L=glob["L"], r=glob["r"], rows=glob["rows"], ms=g["ms"],
                 plain_ms=g["plain_ms"], bound_ms=g["bound_ms"],
                 bound_by=g["bound_by"])
+    emit(dict(phase="time", card=card, phase_s=PHASE_S, plain_s=PLAIN_S,
+              plain_total_s=sum(PLAIN_S.values()),
+              total_s=time.perf_counter() - START))
     emit({"kernels": rows})
     print(card, flush=True)
     emit({"ok": True, "device": {"platform": "gpu", "kind": kind,

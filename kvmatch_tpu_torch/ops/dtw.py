@@ -65,6 +65,21 @@ K4_WARP_LANES = 32 * 30
 
 
 # ----------------------------------------------------------- plain versions
+# The plain versions of K3, K4 and DS walk their steps (anti-diagonals, or
+# DP rows) in blocks.  The step-dependent inputs of a block are staged by a
+# few batched ops into buffers whose shapes and addresses do not depend on
+# the step; then a step body runs the same elementwise operations, in the
+# same order, as each step of the walk always has, so every value is the
+# same bit for bit.  On a CUDA device the steps of a full block are
+# captured once a call as a CUDA graph and replayed for every full block:
+# the host pays about 12 us a launch, a replayed node costs the card about
+# 1-2 us.  The tail block, and every block on the CPU, runs eagerly.
+#: Most steps of a block.
+BLOCK_STEPS = 64
+#: Most bytes of a block's staged inputs.
+BLOCK_BYTES = 1 << 26
+
+
 def _band_limits(i: int, r: int, L: int):
     """Valid band lanes [lo, hi] of DP row i (j = i - r + k in [0, L))."""
     return max(0, r - i), min(2 * r, L - 1 - i + r)
@@ -83,6 +98,81 @@ def _row_inputs(a, qm, qids, r):
     r = min(r, L - 1)
     q = qm[qids.long()]
     return B, L, r, 2 * r + 1, F.pad(q, (r, r))
+
+
+def _block_steps(step_bytes: int, even: bool = False) -> int:
+    """Steps a block: at most BLOCK_STEPS, and at most BLOCK_BYTES of staged
+    inputs at ``step_bytes`` a step, but at least one; an even number, at
+    least two, when ``even``."""
+    steps = max(1, min(BLOCK_STEPS, BLOCK_BYTES // max(1, step_bytes)))
+    return max(2, steps - steps % 2) if even else steps
+
+
+def _capture(block, state, steps: int):
+    """``block(state, steps)`` captured as a CUDA graph (which runs
+    nothing), after a warm-up of two steps on copies of ``state`` on a side
+    stream.  Only this thread's calls are checked during the capture."""
+    dev = state[0].device
+    side = torch.cuda.Stream(dev)
+    side.wait_stream(torch.cuda.current_stream(dev))
+    with torch.cuda.stream(side):
+        block([x.clone() for x in state], min(2, steps))
+    torch.cuda.current_stream(dev).wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph, capture_error_mode="thread_local"):
+        block(state, steps)
+    return graph
+
+
+def _run_blocks(fn, begin: int, end: int, steps: int, stage, step, state):
+    """Steps ``begin`` .. ``end`` - 1 in blocks of ``steps``: ``stage(s0,
+    k)`` writes the inputs of steps s0 .. s0 + k - 1 to rows 0 .. k - 1 of
+    the staged buffers, then ``step(t, state)`` runs step s0 + t for each
+    t < k, in place on the tensors of ``state``.  On a CUDA device the
+    steps of a full block are captured once as a CUDA graph and every full
+    block replays it, each replay counted in ``fn.graph_replays``; a
+    capture or a replay that fails raises.  The tail block, and every block
+    on the CPU, runs eagerly."""
+    def block(st, k):
+        for t in range(k):
+            step(t, st)
+    graph = None
+    for s0 in range(begin, end, steps):
+        k = min(steps, end - s0)
+        stage(s0, k)
+        if k < steps or state[0].device.type != "cuda":
+            block(state, k)
+            continue
+        if graph is None:
+            graph = _capture(block, state, steps)
+        graph.replay()
+        fn.graph_replays += 1
+
+
+def _staged_rows(a, qwin, r: int, W: int):
+    """The staged inputs of the row forms, rows i of ``a`` (B, L) against
+    ``qwin`` (B, L, K), whose row i holds the K band lanes q[i - r + k].
+    Returns (steps, d, dead, stage): ``stage(i0, k)`` writes, for rows i =
+    i0 .. i0 + k - 1, d[i - i0] = (a[:, i] - q[i - r + k])^2 with 0 on the
+    dead lanes (j = i - r + k outside [0, L), or k >= W) and dead[i - i0] =
+    those lanes."""
+    B, L = a.shape
+    K = qwin.shape[2]
+    dt, dev = torch.promote_types(a.dtype, qwin.dtype), a.device
+    steps = _block_steps(B * K * dt.itemsize)
+    d = torch.empty((steps, B, K), dtype=dt, device=dev)
+    dead = torch.empty((steps, K), dtype=torch.bool, device=dev)
+    lanes = torch.arange(K, device=dev)
+    j0, past_w = lanes - r, lanes >= W
+    rows = torch.arange(steps, device=dev)[:, None]
+    at, qt = a.t(), qwin.transpose(0, 1)
+
+    def stage(i0, k):
+        torch.sub(at[i0:i0 + k, :, None], qt[i0:i0 + k], out=d[:k]).square_()
+        j = j0 + (rows[:k] + i0)
+        torch.logical_or((j < 0) | (j >= L), past_w, out=dead[:k])
+        d[:k].masked_fill_(dead[:k, None], 0.0)
+    return steps, d, dead, stage
 
 
 def dtw_banded_plain(a: torch.Tensor, qm: torch.Tensor, qids: torch.Tensor,
@@ -113,31 +203,41 @@ def dtw_banded_plain(a: torch.Tensor, qm: torch.Tensor, qids: torch.Tensor,
 
 
 def _diagonals(a, qm, qids, r):
-    """The anti-diagonal walk shared by the two diag plain versions: yields
-    (s, c, sl, df) for s = 0 .. 2L-2, where the lanes k = p + 2t of diagonal
-    s (p = (s + r) & 1, t = 0, 1, ...) sit at the strided slice ``sl(o)`` of
-    a (B, W + 2) carry, shifted by ``o`` lanes (k + o + 1), c = s & 1 is the
-    carry the diagonal rewrites, and df = a[i] - q[j] per lane with
-    i = (s + r - k) / 2 and j = s - i.  The rows are reversed and padded with
-    +inf past both ends, so a lane outside the matrix gets df = inf or NaN
-    without a mask (the caller maps that to BIG), as the kernel's sentinels
-    do."""
+    """The anti-diagonal walk shared by the two diag plain versions, over
+    the 2L-1 diagonals s = i + j.  The lanes k = p + 2t of diagonal s (p =
+    (s + r) & 1, t < ``nt[p]``) sit at the strided slice ``_lanes(p, nt[p],
+    o)`` of a (B, W + 2) carry, shifted by ``o`` lanes (k + o + 1), and
+    s & 1 is the carry the diagonal rewrites.  Returns (steps, nt, df,
+    stage): ``stage(s0, k)`` writes df[s - s0] = a[i] - q[j] per lane of the
+    diagonals s = s0 .. s0 + k - 1 (i = (s + r - k) / 2, j = s - i; a
+    parity-1 diagonal in its first nt[1] lanes).  The rows are reversed and
+    padded with +inf past both ends, so a lane outside the matrix gets df =
+    inf or NaN without a mask (the caller maps that to BIG), as the
+    kernel's sentinels do.  ``steps`` is even, so every block starts on an
+    even diagonal and its step t has the parities of diagonal t."""
     B, L = a.shape
-    r = min(r, L - 1)
     W = 2 * r + 1
+    nt = ((W + 1) // 2, W // 2)  # lanes of parity 0 and 1
+    dt, dev = torch.promote_types(a.dtype, qm.dtype), a.device
+    steps = _block_steps(B * nt[0] * dt.itemsize, even=True)
+    df = torch.empty((steps, B, nt[0]), dtype=dt, device=dev)
+    # lane t of diagonal s holds i = i0 - t, j = s - i0 + t
+    s = torch.arange(2 * L - 1, device=dev)
+    i0 = (s + r) >> 1
+    ai, qj = W + L - 1 - i0, W + s - i0
     arev = F.pad(a.flip(1), (W, W), value=float("inf"))
     q = F.pad(qm[qids.long()], (W, W), value=float("inf"))
-    nt = ((W + 1) // 2, W // 2)  # lanes of parity 0 and 1
-    for s in range(2 * L - 1):
-        p = (s + r) & 1
-        n = nt[p]
-        i0 = (s + r - p) >> 1     # lane t holds i = i0 - t, j = s - i0 + t
-        ai, qj = W + L - 1 - i0, W + s - i0
-        df = arev[:, ai:ai + n] - q[:, qj:qj + n]
+    au = arev.unfold(1, nt[0], 1).transpose(0, 1)
+    qu = q.unfold(1, nt[0], 1).transpose(0, 1)
 
-        def sl(o, p=p, n=n):
-            return slice(p + o + 1, p + o + 1 + 2 * n, 2)
-        yield s, s & 1, sl, df
+    def stage(s0, k):
+        torch.sub(au[ai[s0:s0 + k]], qu[qj[s0:s0 + k]], out=df[:k])
+    return steps, nt, df, stage
+
+
+def _lanes(p: int, n: int, o: int) -> slice:
+    """The n lanes k = p + 2t of a diagonal in a carry, shifted by o."""
+    return slice(p + o + 1, p + o + 1 + 2 * n, 2)
 
 
 def dtw_diag_plain(a: torch.Tensor, qm: torch.Tensor, qids: torch.Tensor,
@@ -149,19 +249,28 @@ def dtw_diag_plain(a: torch.Tensor, qm: torch.Tensor, qids: torch.Tensor,
     D_s[k] = min(d(i, j) + min(D_{s-1}[k-1], D_{s-1}[k+1], D_{s-2}[k]), BIG),
     BIG outside the matrix.  The same f32 operations as the kernel, so the
     two are equal bit for bit; its sums run in another order than
-    ``dtw_banded_plain``'s row form, within the guard band of it."""
+    ``dtw_banded_plain``'s row form, within the guard band of it.  The
+    diagonals run in blocks (``_run_blocks``; on the card replayed CUDA
+    graphs, counted in ``dtw_diag_plain.graph_replays``)."""
     B, L = a.shape
     r = min(r, L - 1)
     carry = [torch.full((B, 2 * r + 3), BIG, dtype=a.dtype, device=a.device)
              for _ in range(2)]
     carry[0][:, r + 1] = 0.0  # D_{-2}: the seed of cell (0, 0)
     big = torch.tensor(BIG, dtype=a.dtype, device=a.device)
-    for s, c, sl, df in _diagonals(a, qm, qids, r):
-        cur, prev = carry[c], carry[1 - c]
-        m = torch.minimum(torch.minimum(prev[:, sl(-1)], prev[:, sl(1)]),
-                          cur[:, sl(0)])
+    steps, nt, df, stage = _diagonals(a, qm, qids, r)
+
+    def step(t, carry):
+        p = (t + r) & 1
+        n = nt[p]
+        cur, prev = carry[t & 1], carry[1 - (t & 1)]
+        m = torch.minimum(torch.minimum(prev[:, _lanes(p, n, -1)],
+                                        prev[:, _lanes(p, n, 1)]),
+                          cur[:, _lanes(p, n, 0)])
+        d = df[t, :, :n]
         # fmin: a lane outside the matrix has df*df + m = inf or NaN -> BIG
-        cur[:, sl(0)] = torch.fmin(df * df + m, big)
+        cur[:, _lanes(p, n, 0)] = torch.fmin(d * d + m, big)
+    _run_blocks(dtw_diag_plain, 0, 2 * L - 1, steps, stage, step, carry)
     return carry[(2 * L - 2) & 1][:, r + 1]
 
 
@@ -193,21 +302,21 @@ def dtw_rows_plain(a: torch.Tensor, qm: torch.Tensor, qids: torch.Tensor,
     order (min is exact), here ``torch.cummin`` and ``_warp_scan``.  The
     same f32 operations as the kernel, so the two are equal bit for bit on
     rows one warp holds (2r + 1 <= K4_WARP_LANES); wider rows take K4's
-    block form, whose sums run in another order (within the guard band)."""
+    block form, whose sums run in another order (within the guard band).
+    The rows after the first run in blocks (``_run_blocks``; on the card
+    replayed CUDA graphs, counted in ``dtw_rows_plain.graph_replays``)."""
     B, L, r, W, _ = _row_inputs(a, qm, qids, r)
     C = k4_chunk(W)
     K = 32 * C
     dt, dev = a.dtype, a.device
     qpad = F.pad(qm[qids.long()], (r, K))  # qpad[:, i + k] = q[i - r + k]
-    k = torch.arange(K, device=dev)
     first = torch.full((B, K), BIG, dtype=dt, device=dev)
     first[:, r] = 0.0
-    P = first
-    for i in range(L):
-        j = i - r + k
-        valid = (j >= 0) & (j < L) & (k < W)
-        d = torch.where(valid, (a[:, i:i + 1] - qpad[:, i:i + K]).square_(),
-                        0.0).view(B, 32, C)
+    steps, d_rows, dead, stage = _staged_rows(a, qpad.unfold(1, K, 1), r, W)
+
+    def step(t, state, first_row=False):
+        P, = state
+        d = d_rows[t].view(B, 32, C)
         c = torch.empty_like(d)
         run = torch.zeros((B, 32), dtype=dt, device=dev)
         for u in range(C):
@@ -215,7 +324,7 @@ def dtw_rows_plain(a: torch.Tensor, qm: torch.Tensor, qids: torch.Tensor,
             c[:, :, u] = run
         off = F.pad(_warp_scan(run, torch.add)[:, :-1], (1, 0))
         Cc = (off[:, :, None] + c).view(B, K)
-        M = first if i == 0 else torch.minimum(
+        M = first if first_row else torch.minimum(
             P, F.pad(P[:, 1:], (0, 1), value=BIG))
         g = torch.cummin((M - F.pad(Cc[:, :-1], (1, 0))).view(B, 32, C),
                          dim=2).values
@@ -223,8 +332,12 @@ def dtw_rows_plain(a: torch.Tensor, qm: torch.Tensor, qids: torch.Tensor,
                     value=float("inf"))
         D = torch.clamp_max(Cc + torch.minimum(pre[:, :, None], g).view(B, K),
                             BIG)
-        P = torch.where(valid, D, BIG)
-    return P[:, r]
+        P.copy_(D.masked_fill_(dead[t], BIG))
+    state = [first.to(d_rows.dtype, copy=True)]
+    stage(0, 1)
+    step(0, state, first_row=True)
+    _run_blocks(dtw_rows_plain, 1, L, steps, stage, step, state)
+    return state[0][:, r]
 
 
 def _ds_two_sum(ah, al, bh, bl):
@@ -262,32 +375,38 @@ def dtw_banded_ds_plain(a: torch.Tensor, qm: torch.Tensor, qids: torch.Tensor,
     dtw_banded_batch_ds_multi, every DP value an unevaluated f32 pair
     (hi, lo); the row's cumsum and cummin are log-step scans of
     ``_ds_two_sum`` / ``_ds_min``.  Returns (hi, lo), each (B,) f32.  The
-    CPU route of ``dtw_ds``; the kernel's own form is ``dtw_ds_diag_plain``."""
+    CPU route of ``dtw_ds``; the kernel's own form is ``dtw_ds_diag_plain``.
+    The rows after the first run in blocks (``_run_blocks``; on the card
+    replayed CUDA graphs, counted in ``dtw_banded_ds_plain.graph_replays``)."""
     B, L, r, W, qpad = _row_inputs(a, qm, qids, r)
     dev = a.device
     zeros = torch.zeros((B, W), dtype=torch.float32, device=dev)
     first = torch.full((B, W), BIG, dtype=torch.float32, device=dev)
     first[:, r] = 0.0
-    Ph, Pl = first, zeros
-    for i in range(L):
-        lo, hi = _band_limits(i, r, L)
-        d = (a[:, i:i + 1] - qpad[:, i:i + W]).square_()
-        _mask_outside(d, lo, hi, 0.0)
-        if i == 0:
+    steps, d_rows, dead, stage = _staged_rows(a, qpad.unfold(1, W, 1), r, W)
+
+    def step(t, state, first_row=False):
+        Ph, Pl = state
+        if first_row:
             Mh, Ml = first, zeros
         else:
             Mh, Ml = _ds_min(Ph, Pl, F.pad(Ph[:, 1:], (0, 1), value=BIG),
                              F.pad(Pl[:, 1:], (0, 1)))
-        Ch, Cl = _ds_scan(d, zeros, _ds_two_sum)
+        Ch, Cl = _ds_scan(d_rows[t], zeros, _ds_two_sum)
         Gh, Gl = _ds_two_sum(Mh, Ml, -F.pad(Ch[:, :-1], (1, 0)),
                              -F.pad(Cl[:, :-1], (1, 0)))
         Gh, Gl = _ds_scan(Gh, Gl, _ds_min)
         Dh, Dl = _ds_two_sum(Ch, Cl, Gh, Gl)
-        Dh = torch.clamp_max_(Dh, BIG)
-        _mask_outside(Dh, lo, hi, BIG)
+        Dh = torch.clamp_max_(Dh, BIG).masked_fill_(dead[t], BIG)
         Dl = torch.where(Dh < BIG, Dl, 0.0)
-        Ph, Pl = Dh, Dl
-    return Ph[:, r], Pl[:, r]
+        Ph.copy_(Dh)
+        Pl.copy_(Dl)
+    dt = torch.promote_types(d_rows.dtype, torch.float32)
+    state = [first.to(dt, copy=True), zeros.to(dt, copy=True)]
+    stage(0, 1)
+    step(0, state, first_row=True)
+    _run_blocks(dtw_banded_ds_plain, 1, L, steps, stage, step, state)
+    return state[0][:, r], state[1][:, r]
 
 
 def dtw_ds_diag_plain(a: torch.Tensor, qm: torch.Tensor, qids: torch.Tensor,
@@ -297,7 +416,9 @@ def dtw_ds_diag_plain(a: torch.Tensor, qm: torch.Tensor, qids: torch.Tensor,
     A cell is (vh, vl) = ds_two_sum(ds_min(ds_min(D_{s-1}[k-1],
     D_{s-1}[k+1]), D_{s-2}[k]), (d, 0)), capped to (BIG, 0) where
     !(vh < BIG) and outside the matrix: the kernel's pair operations, so
-    the two are equal bit for bit.  Returns (hi, lo), each (B,) f32."""
+    the two are equal bit for bit.  Returns (hi, lo), each (B,) f32.  The
+    diagonals run in blocks (``_run_blocks``; on the card replayed CUDA
+    graphs, counted in ``dtw_ds_diag_plain.graph_replays``)."""
     B, L = a.shape
     r = min(r, L - 1)
     dev = a.device
@@ -307,18 +428,29 @@ def dtw_ds_diag_plain(a: torch.Tensor, qm: torch.Tensor, qids: torch.Tensor,
           for _ in range(2)]
     hi[0][:, r + 1] = 0.0  # D_{-2}: the seed of cell (0, 0)
     zero = torch.zeros((), dtype=a.dtype, device=dev)
-    for s, c, sl, df in _diagonals(a, qm, qids, r):
-        p = 1 - c
-        mh, ml = _ds_min(hi[p][:, sl(-1)], lo[p][:, sl(-1)], hi[p][:, sl(1)],
-                         lo[p][:, sl(1)])
-        mh, ml = _ds_min(mh, ml, hi[c][:, sl(0)], lo[c][:, sl(0)])
+    steps, nt, df, stage = _diagonals(a, qm, qids, r)
+
+    def step(t, state):
+        hi, lo = state[:2], state[2:]
+        c, p = t & 1, (t + r) & 1
+        n = nt[p]
+        k, kl, kr = (_lanes(p, n, o) for o in (0, -1, 1))
+        mh, ml = _ds_min(hi[1 - c][:, kl], lo[1 - c][:, kl], hi[1 - c][:, kr],
+                         lo[1 - c][:, kr])
+        mh, ml = _ds_min(mh, ml, hi[c][:, k], lo[c][:, k])
+        d = df[t, :, :n]
         # a lane outside the matrix has vh = inf or NaN: not < BIG
-        vh, vl = _ds_two_sum(mh, ml, df * df, zero)
+        vh, vl = _ds_two_sum(mh, ml, d * d, zero)
         ok = vh < BIG
-        hi[c][:, sl(0)] = torch.where(ok, vh, BIG)
-        lo[c][:, sl(0)] = torch.where(ok, vl, 0.0)
+        hi[c][:, k] = torch.where(ok, vh, BIG)
+        lo[c][:, k] = torch.where(ok, vl, 0.0)
+    _run_blocks(dtw_ds_diag_plain, 0, 2 * L - 1, steps, stage, step, hi + lo)
     last = (2 * L - 2) & 1
     return hi[last][:, r + 1], lo[last][:, r + 1]
+
+
+dtw_diag_plain.graph_replays = dtw_rows_plain.graph_replays = 0
+dtw_banded_ds_plain.graph_replays = dtw_ds_diag_plain.graph_replays = 0
 
 
 # ------------------------------------------------------------ the kernels

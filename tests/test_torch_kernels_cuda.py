@@ -12,15 +12,18 @@ compiled without multiply-add contraction and repeats the plain version's
 f32 operations in order.  K3 and DS equal their anti-diagonal plain versions
 (dtw_diag_plain, dtw_ds_diag_plain) bit for bit, in the one-warp, one-block,
 cluster and global forms; K4 equals dtw_rows_plain bit for bit on rows one
-warp holds.  K2 (window distances): |d2 - d2_plain| <= 1e-5 L + 1e-5 d2 and
-mean/std within 1e-5 of the window's max |x| (summation order differs; see
-tests/test_torch_ed.py).  The single-query ops (ed_distances,
-znorm_ed_distances, the region functions, dtw_banded_batch,
-dtw_banded_batch_multi, dtw_banded_batch_ds_multi) equal their _multi
-calls bit for bit and raise on bad input before any launch.  Engine
-answers EQUAL the oracle, and streamed
-answers the resident engine's; the full device build on the card equals its
-CPU run.
+warp holds.  The plain DP versions themselves (dtw_diag_plain,
+dtw_ds_diag_plain, dtw_rows_plain, dtw_banded_ds_plain) run their full
+blocks of steps as replayed CUDA graphs and equal their loop form
+(tests/test_torch_plain_blocks.py) bit for bit.  K2 (window distances):
+|d2 - d2_plain| <= 1e-5 L + 1e-5 d2 and mean/std within 1e-5 of the
+window's max |x| (summation order differs; see tests/test_torch_ed.py).
+The single-query ops (ed_distances, znorm_ed_distances, the region
+functions, dtw_banded_batch, dtw_banded_batch_multi,
+dtw_banded_batch_ds_multi) equal their _multi calls bit for bit and raise
+on bad input before any launch.  Engine answers EQUAL the oracle, and
+streamed answers the resident engine's; the full device build on the card
+equals its CPU run.
 """
 
 import numpy as np
@@ -586,6 +589,32 @@ def test_dtw_rows_workspace_strides_over_rows(dev):
     want = tdtw.dtw_banded_plain(*args, r).cpu().numpy().astype(np.float64)
     band = np.array([vf.guard_threshold(w, L, 1e-2) for w in want])
     assert np.all(np.abs(got - want) <= band)
+
+
+@pytest.mark.parametrize("name", ["dtw_diag_plain", "dtw_ds_diag_plain",
+                                  "dtw_rows_plain", "dtw_banded_ds_plain"])
+@pytest.mark.parametrize("B,L,r", [(256, 1024, 51), (256, 1024, 409),
+                                   (2, 4096, 4095)])
+def test_plain_graphs_equal_loop_form(dev, name, B, L, r):
+    """The plain DP versions on the card, their full blocks of steps
+    replayed CUDA graphs (``graph_replays`` goes up), bit for bit against
+    their loop form (tests/test_torch_plain_blocks.py) on the card."""
+    from kvmatch_tpu_torch.ops import dtw as tdtw
+    from test_torch_plain_blocks import LOOP_BY_NAME
+    a, qm, qids = _znormed_case(B, L, 2, seed=L + r)
+    args = tuple(torch.as_tensor(x, device=dev) for x in (a, qm, qids))
+    fn = getattr(tdtw, name)
+    before = fn.graph_replays
+    got = fn(*args, r)
+    torch.cuda.synchronize(dev)
+    assert fn.graph_replays > before
+    want = LOOP_BY_NAME[name](*args, r)
+    got, want = ((got, want) if isinstance(got, tuple)
+                 else ((got,), (want,)))
+    assert (want[0] < tdtw.BIG).all()
+    for g, w in zip(got, want):
+        assert g.dtype == w.dtype and torch.equal(g.view(torch.int32),
+                                                  w.view(torch.int32))
 
 
 # The JAX package's single-query ops (ops/ed.py, ops/regions.py, ops/dtw.py)
