@@ -30,6 +30,10 @@ caller passes ``device="cpu"``:
 * ``query_batch_device``: batched querying with the device probe for every
   query, with phase timings.
 
+While a torch profiler records, each request records the spans of
+``utils/profiling.py`` (``kv.query``, ``kv.plan``, ``kv.probe``,
+``kv.verify`` and their stages) into ``QueryStats.trace``.
+
 Subclasses provide the hooks ``_plan_inputs`` and ``_cost_batch_multi``
 (planning), ``_scan``, ``_combine``, ``_intersect_native`` and ``_scan_join``
 (host phase 1) and ``_verify_multi`` (phase 2).
@@ -61,6 +65,7 @@ from ..plan import (QuerySegment, determine_query_plan,
                     determine_query_plans_batched)
 from ..state import host_series, series_to_device
 from ..utils import intervals as iv
+from ..utils.profiling import fetch, request, span
 from ..utils.sparse_prefix import sparse_prefixes
 
 __all__ = ["BaseEngine", "QueryResult", "QueryStats", "_Ctx"]
@@ -86,7 +91,6 @@ class QueryStats:
     n_disjoint: int = 0
     n_answers: int = 0
     n_scans: int = 0
-    n_joins: int = 0           # segments served by the fused join kernels
     n_segments_used: int = 0
     n_device_checked: int = 0
     n_host_rechecked: int = 0
@@ -94,6 +98,9 @@ class QueryStats:
     # tiny-load fast path (QueryConfig.host_verify_max_points).
     n_host_checked: int = 0
     early_terminated: bool = False
+    # The request's span records (utils/profiling.py), shared by the
+    # request's queries; None unless a profiler recorded.
+    trace: Optional[list] = None
 
 
 @dataclasses.dataclass
@@ -362,9 +369,10 @@ class BaseEngine:
 
     # ------------------------------------------------------------------ plans
     def _plan(self, ctx: _Ctx) -> List[QuerySegment]:
-        lo, hi, fn = self._plan_inputs(ctx)
-        segments = determine_query_plan(ctx.length, lo, hi, fn,
-                                        self.icfg, self.qcfg)
+        with span("kv.plan"):
+            lo, hi, fn = self._plan_inputs(ctx)
+            segments = determine_query_plan(ctx.length, lo, hi, fn,
+                                            self.icfg, self.qcfg)
         if not segments:
             raise self._no_plan(ctx.length)
         return segments
@@ -372,13 +380,14 @@ class BaseEngine:
     def _plan_batch(self, ctxs) -> list:
         """Plan a same-length query batch with the stacked DP (identical
         output to per-query _plan; the 30x5 transition ops amortize)."""
-        parts = [self._plan_inputs(c) for c in ctxs]
-        lo = np.stack([pt[0] for pt in parts])
-        hi = np.stack([pt[1] for pt in parts])
-        plans = determine_query_plans_batched(
-            ctxs[0].length, lo, hi, [pt[2] for pt in parts],
-            self.icfg, self.qcfg,
-            cost_batch_multi=self._cost_batch_multi(ctxs))
+        with span("kv.plan"):
+            parts = [self._plan_inputs(c) for c in ctxs]
+            lo = np.stack([pt[0] for pt in parts])
+            hi = np.stack([pt[1] for pt in parts])
+            plans = determine_query_plans_batched(
+                ctxs[0].length, lo, hi, [pt[2] for pt in parts],
+                self.icfg, self.qcfg,
+                cost_batch_multi=self._cost_batch_multi(ctxs))
         if not all(plans):
             raise self._no_plan(ctxs[0].length)
         return plans
@@ -550,9 +559,11 @@ class BaseEngine:
         clustered enough, else to the gather route (``_verify_gather``,
         kernel K2).  Both routes end in the exact f64 confirm."""
         L = ctxs[0].length
-        for (l, r), ctx in zip(cand_ivs, ctxs):
-            ctx.stats.n_device_checked = int(np.sum(r - l + 1)) if l.size else 0
-        region = self._region_plan(cand_ivs, L)
+        with span("kv.verify.plan"):
+            for (l, r), ctx in zip(cand_ivs, ctxs):
+                ctx.stats.n_device_checked = \
+                    int(np.sum(r - l + 1)) if l.size else 0
+            region = self._region_plan(cand_ivs, L)
         if region is None:
             return self._verify_gather(cand_ivs, ctxs)
         return self._verify_regions(cand_ivs, ctxs, region)
@@ -578,8 +589,8 @@ class BaseEngine:
         replicate the boundary point, which reproduces the clamped global
         envelope exactly.  Groups are cut under STREAM_MAX_STAGE staged
         points.  ``stream_counts`` holds the last call's groups, staged
-        points and bytes, and the seconds of host staging, the copy to the
-        device and the verification."""
+        points and bytes; the spans ``kv.verify.stage`` and
+        ``kv.verify.h2d`` time each group's host staging and copy."""
         L = ctxs[0].length
         if self.host_only:
             total = sum(int(np.sum(r - l + 1)) for l, r in cand_ivs if l.size)
@@ -595,8 +606,7 @@ class BaseEngine:
         # region-row tail reads stay inside the buffer (masked columns).
         G = 1 << int(np.ceil(np.log2(max(L, 2 * self.REGION_M))))
         tail = L - 1 + G + halo
-        counts = dict(groups=0, staged_points=0, staged_bytes=0,
-                      host_stage_s=0.0, h2d_s=0.0, verify_s=0.0)
+        counts = dict(groups=0, staged_points=0, staged_bytes=0)
         self.stream_counts = counts
         nz = [(l, r) for l, r in cand_ivs if l.size]
         if not nz:
@@ -630,29 +640,28 @@ class BaseEngine:
         acc_host = [0] * len(ctxs)
         stages: dict = {}
         for g0, g1 in zip(bounds[:-1], bounds[1:]):
-            t0 = time.perf_counter()
             g_stg_lo = stg_lo[g0:g1]
             g_ext = ext[g0:g1]
             loc0 = np.concatenate(([0], np.cumsum(g_ext)[:-1]))
-            buf = np.empty(int(g_ext.sum()), np.float64)
-            for i in range(g_ext.size):
-                a = int(g_stg_lo[i])
-                b = a + int(g_ext[i])
-                dst = buf[int(loc0[i]): int(loc0[i]) + (b - a)]
-                s, e = max(a, 0), min(b, self.n)
-                dst[s - a: s - a + (e - s)] = self.data[s:e]
-                if s > a:
-                    dst[: s - a] = self.data[0]
-                if b > e:
-                    dst[e - a:] = self.data[self.n - 1]
-            host32 = torch.empty(buf.size, dtype=torch.float32,
-                                 pin_memory=self.device.type == "cuda")
-            host32.numpy()[:] = buf
-            t1 = time.perf_counter()
-            dev32 = host32.to(self.device, non_blocking=True)
-            if self.device.type == "cuda":
-                torch.cuda.synchronize(self.device)
-            t2 = time.perf_counter()
+            with span("kv.verify.stage"):
+                buf = np.empty(int(g_ext.sum()), np.float64)
+                for i in range(g_ext.size):
+                    a = int(g_stg_lo[i])
+                    b = a + int(g_ext[i])
+                    dst = buf[int(loc0[i]): int(loc0[i]) + (b - a)]
+                    s, e = max(a, 0), min(b, self.n)
+                    dst[s - a: s - a + (e - s)] = self.data[s:e]
+                    if s > a:
+                        dst[: s - a] = self.data[0]
+                    if b > e:
+                        dst[e - a:] = self.data[self.n - 1]
+                host32 = torch.empty(buf.size, dtype=torch.float32,
+                                     pin_memory=self.device.type == "cuda")
+                host32.numpy()[:] = buf
+            with span("kv.verify.h2d"):
+                dev32 = host32.to(self.device, non_blocking=True)
+                if self.device.type == "cuda":
+                    torch.cuda.synchronize(self.device)
             sub = self._stream_sub(buf, dev32)
             lo_g, hi_g = int(run_lo[g0]), int(run_hi[g1 - 1])
             local_ivs = []
@@ -663,9 +672,6 @@ class BaseEngine:
                 local_ivs.append((li - g_stg_lo[ridx] + loc0[ridx],
                                   ri - g_stg_lo[ridx] + loc0[ridx]))
             sub_res = sub._verify_multi(local_ivs, ctxs)
-            counts["verify_s"] += time.perf_counter() - t2
-            counts["host_stage_s"] += t1 - t0
-            counts["h2d_s"] += t2 - t1
             counts["groups"] += 1
             counts["staged_points"] += buf.size
             counts["staged_bytes"] += 4 * buf.size
@@ -767,7 +773,6 @@ class BaseEngine:
                     nxt = self._scan_join(seg, cs, ctx)
                 if nxt is not None:
                     ctx.stats.n_scans += 1
-                    ctx.stats.n_joins += 1
                 else:
                     positions = self._scan(seg, ctx)
                     ctx.stats.n_scans += 1
@@ -908,18 +913,21 @@ class BaseEngine:
         n_off, flags = dense_probe_flags(data_p, segs, eps2, cons, self.n,
                                          self.icfg, L, norm, bstack=bstack,
                                          stats3=stats3)
-        return n_off.cpu().numpy(), flags.cpu().numpy(), FLAG
+        return (*fetch("kv.probe.wait", n_off, flags), FLAG)
 
     def _dense_probe_retry(self, ctxs, seg_lists):
         """Flag-route dense phase 1 for every query of the group: returns
         {query_index_in_group: (left i64, right i64)}.  Flag over-coverage
         is rejected by the exact phase 2."""
-        n_off, flags, fgran = self._device_dense_phase1_flags(ctxs, seg_lists)
-        m = self.n - ctxs[0].length + 1
-        out = {}
-        for qi, ctx in enumerate(ctxs):
-            ctx.stats.n_candidates = int(n_off[qi])
-            out[qi] = self._flags_to_intervals(flags[qi], m, fgran)
+        with span("kv.probe"):
+            n_off, flags, fgran = self._device_dense_phase1_flags(ctxs,
+                                                                  seg_lists)
+            m = self.n - ctxs[0].length + 1
+            out = {}
+            with span("kv.probe.intervals"):
+                for qi, ctx in enumerate(ctxs):
+                    ctx.stats.n_candidates = int(n_off[qi])
+                    out[qi] = self._flags_to_intervals(flags[qi], m, fgran)
         return out
 
     def _flags_to_intervals(self, flags_row: np.ndarray, m: int,
@@ -950,7 +958,8 @@ class BaseEngine:
             ctx.stats.n_scans = len(segments)
             ctx.stats.n_segments_used = len(segments)
             return c_l, c_r
-        cs, last_segment = self._phase1(segments, ctx)
+        with span("kv.probe"):
+            cs, last_segment = self._phase1(segments, ctx)
         return self._candidate_intervals(cs, last_segment, ctx.length)
 
     # ------------------------------------------------------------------ driver
@@ -966,24 +975,26 @@ class BaseEngine:
         stats = QueryStats()
         ctx = _Ctx(query=query, length=query.size, epsilon=float(epsilon),
                    eps2=float(epsilon) ** 2, params=params, stats=stats)
-        t0 = time.perf_counter()
+        with request() as stats.trace:
+            t0 = time.perf_counter()
 
-        segments = self._plan(ctx)
-        c_l, c_r = self._phase1_routed(segments, ctx)
+            segments = self._plan(ctx)
+            c_l, c_r = self._phase1_routed(segments, ctx)
 
-        t2 = time.perf_counter()
-        stats.n_candidates = int(np.sum(c_r - c_l + 1)) if c_l.size else 0
-        stats.n_disjoint = int(c_l.size)
-        if c_l.size:
-            ans_off, ans_dist = self._verify_intervals(c_l, c_r, ctx)
-        else:
-            ans_off, ans_dist = np.empty(0, np.int64), np.empty(0)
-        stats.t_phase2_ms = (time.perf_counter() - t2) * 1e3
+            t2 = time.perf_counter()
+            stats.n_candidates = int(np.sum(c_r - c_l + 1)) if c_l.size else 0
+            stats.n_disjoint = int(c_l.size)
+            if c_l.size:
+                with span("kv.verify"):
+                    ans_off, ans_dist = self._verify_intervals(c_l, c_r, ctx)
+            else:
+                ans_off, ans_dist = np.empty(0, np.int64), np.empty(0)
+            stats.t_phase2_ms = (time.perf_counter() - t2) * 1e3
 
-        order = np.argsort(ans_dist, kind="stable")
-        ans_off, ans_dist = ans_off[order], ans_dist[order]
-        stats.n_answers = int(ans_off.size)
-        stats.t_total_ms = (time.perf_counter() - t0) * 1e3
+            order = np.argsort(ans_dist, kind="stable")
+            ans_off, ans_dist = ans_off[order], ans_dist[order]
+            stats.n_answers = int(ans_off.size)
+            stats.t_total_ms = (time.perf_counter() - t0) * 1e3
         return QueryResult(offsets=ans_off, distances=ans_dist, stats=stats)
 
     # ------------------------------------------------------------ batched driver
@@ -995,51 +1006,60 @@ class BaseEngine:
         queries = np.atleast_2d(np.asarray(queries, np.float64))
         nq = queries.shape[0]
         eps = np.broadcast_to(np.asarray(epsilon, np.float64), (nq,))
-        ctxs: List[_Ctx] = []
-        cand_ivs: List[Tuple[np.ndarray, np.ndarray]] = []
-        t0 = time.perf_counter()
-        for qi in range(nq):
-            ctxs.append(_Ctx(query=queries[qi], length=queries.shape[1],
-                             epsilon=float(eps[qi]), eps2=float(eps[qi]) ** 2,
-                             params=dict(params), stats=QueryStats()))
-        seg_lists = self._plan_batch(ctxs)
-        # Dense plans run the device probe, DENSE_PROBE_GROUP queries a pass;
-        # the rest take host phase 1.
-        dense_q = [qi for qi in range(nq) if self._dense_route(seg_lists[qi])]
-        dense_res: dict = {}
-        for g in range(0, len(dense_q), self.DENSE_PROBE_GROUP):
-            grp = dense_q[g: g + self.DENSE_PROBE_GROUP]
-            t0d = time.perf_counter()
-            grp_res = self._dense_probe_retry([ctxs[qi] for qi in grp],
-                                              [seg_lists[qi] for qi in grp])
-            dt = (time.perf_counter() - t0d) * 1e3 / len(grp)
-            for j, qi in enumerate(grp):
-                ctxs[qi].stats.t_phase1_ms = dt
-                ctxs[qi].stats.n_scans = len(seg_lists[qi])
-                ctxs[qi].stats.n_segments_used = len(seg_lists[qi])
-                dense_res[qi] = grp_res[j]
-        for qi in range(nq):
-            ctx = ctxs[qi]
-            if qi in dense_res:
-                c_l, c_r = dense_res[qi]
-            else:
-                cs, last_segment = self._phase1(seg_lists[qi], ctx)
-                c_l, c_r = self._candidate_intervals(cs, last_segment, ctx.length)
-            ctx.stats.n_candidates = int(np.sum(c_r - c_l + 1)) if c_l.size else 0
-            ctx.stats.n_disjoint = int(c_l.size)
-            cand_ivs.append((c_l, c_r))
-        t_verify = time.perf_counter()
-        per_query = self._verify_multi(cand_ivs, ctxs)
-        t_end = time.perf_counter()
-        results = []
-        for qi, (ans_off, ans_dist) in enumerate(per_query):
-            order = np.argsort(ans_dist, kind="stable")
-            stats = ctxs[qi].stats
-            stats.n_answers = int(ans_off.size)
-            stats.t_phase2_ms = (t_end - t_verify) * 1e3 / nq
-            stats.t_total_ms = (t_end - t0) * 1e3 / nq
-            results.append(QueryResult(offsets=ans_off[order],
-                                       distances=ans_dist[order], stats=stats))
+        with request() as trace:
+            ctxs: List[_Ctx] = []
+            cand_ivs: List[Tuple[np.ndarray, np.ndarray]] = []
+            t0 = time.perf_counter()
+            for qi in range(nq):
+                ctxs.append(_Ctx(query=queries[qi], length=queries.shape[1],
+                                 epsilon=float(eps[qi]),
+                                 eps2=float(eps[qi]) ** 2,
+                                 params=dict(params), stats=QueryStats()))
+            seg_lists = self._plan_batch(ctxs)
+            # Dense plans run the device probe, DENSE_PROBE_GROUP queries a
+            # pass; the rest take host phase 1.
+            dense_q = [qi for qi in range(nq)
+                       if self._dense_route(seg_lists[qi])]
+            dense_res: dict = {}
+            for g in range(0, len(dense_q), self.DENSE_PROBE_GROUP):
+                grp = dense_q[g: g + self.DENSE_PROBE_GROUP]
+                t0d = time.perf_counter()
+                grp_res = self._dense_probe_retry([ctxs[qi] for qi in grp],
+                                                  [seg_lists[qi] for qi in grp])
+                dt = (time.perf_counter() - t0d) * 1e3 / len(grp)
+                for j, qi in enumerate(grp):
+                    ctxs[qi].stats.t_phase1_ms = dt
+                    ctxs[qi].stats.n_scans = len(seg_lists[qi])
+                    ctxs[qi].stats.n_segments_used = len(seg_lists[qi])
+                    dense_res[qi] = grp_res[j]
+            for qi in range(nq):
+                ctx = ctxs[qi]
+                if qi in dense_res:
+                    c_l, c_r = dense_res[qi]
+                else:
+                    with span("kv.probe"):
+                        cs, last_segment = self._phase1(seg_lists[qi], ctx)
+                    c_l, c_r = self._candidate_intervals(cs, last_segment,
+                                                         ctx.length)
+                ctx.stats.n_candidates = \
+                    int(np.sum(c_r - c_l + 1)) if c_l.size else 0
+                ctx.stats.n_disjoint = int(c_l.size)
+                cand_ivs.append((c_l, c_r))
+            t_verify = time.perf_counter()
+            with span("kv.verify"):
+                per_query = self._verify_multi(cand_ivs, ctxs)
+            t_end = time.perf_counter()
+            results = []
+            for qi, (ans_off, ans_dist) in enumerate(per_query):
+                order = np.argsort(ans_dist, kind="stable")
+                stats = ctxs[qi].stats
+                stats.n_answers = int(ans_off.size)
+                stats.t_phase2_ms = (t_end - t_verify) * 1e3 / nq
+                stats.t_total_ms = (t_end - t0) * 1e3 / nq
+                stats.trace = trace
+                results.append(QueryResult(offsets=ans_off[order],
+                                           distances=ans_dist[order],
+                                           stats=stats))
         return results
 
     # ------------------------------------------------ device-probe batch
@@ -1056,35 +1076,39 @@ class BaseEngine:
         queries = np.atleast_2d(np.asarray(queries, np.float64))
         nq, L = queries.shape
         eps = np.broadcast_to(np.asarray(epsilon, np.float64), (nq,))
-        t0 = time.perf_counter()
-        ctxs = [_Ctx(query=queries[qi], length=L, epsilon=float(eps[qi]),
-                     eps2=float(eps[qi]) ** 2, params=dict(params),
-                     stats=QueryStats()) for qi in range(nq)]
-        seg_lists = self._plan_batch(ctxs)
-        cand_ivs = []
-        for g in range(0, nq, self.DENSE_PROBE_GROUP):
-            grp = list(range(g, min(g + self.DENSE_PROBE_GROUP, nq)))
-            t1 = time.perf_counter()
-            res = self._dense_probe_retry([ctxs[qi] for qi in grp],
-                                          [seg_lists[qi] for qi in grp])
-            dt = (time.perf_counter() - t1) * 1e3 / len(grp)
-            for j, qi in enumerate(grp):
-                ctxs[qi].stats.t_phase1_ms = dt
-                ctxs[qi].stats.n_scans = len(seg_lists[qi])
-                ctxs[qi].stats.n_segments_used = len(seg_lists[qi])
-                cand_ivs.append(res[j])
-        t_verify = time.perf_counter()
-        per_query = self._verify_multi(cand_ivs, ctxs)
-        t_end = time.perf_counter()
-        results = []
-        for qi, (ans_off, ans_dist) in enumerate(per_query):
-            order = np.argsort(ans_dist, kind="stable")
-            stats = ctxs[qi].stats
-            stats.n_answers = int(ans_off.size)
-            stats.t_phase2_ms = (t_end - t_verify) * 1e3 / nq
-            stats.t_total_ms = (t_end - t0) * 1e3 / nq
-            results.append(QueryResult(offsets=ans_off[order],
-                                       distances=ans_dist[order], stats=stats))
+        with request() as trace:
+            t0 = time.perf_counter()
+            ctxs = [_Ctx(query=queries[qi], length=L, epsilon=float(eps[qi]),
+                         eps2=float(eps[qi]) ** 2, params=dict(params),
+                         stats=QueryStats()) for qi in range(nq)]
+            seg_lists = self._plan_batch(ctxs)
+            cand_ivs = []
+            for g in range(0, nq, self.DENSE_PROBE_GROUP):
+                grp = list(range(g, min(g + self.DENSE_PROBE_GROUP, nq)))
+                t1 = time.perf_counter()
+                res = self._dense_probe_retry([ctxs[qi] for qi in grp],
+                                              [seg_lists[qi] for qi in grp])
+                dt = (time.perf_counter() - t1) * 1e3 / len(grp)
+                for j, qi in enumerate(grp):
+                    ctxs[qi].stats.t_phase1_ms = dt
+                    ctxs[qi].stats.n_scans = len(seg_lists[qi])
+                    ctxs[qi].stats.n_segments_used = len(seg_lists[qi])
+                    cand_ivs.append(res[j])
+            t_verify = time.perf_counter()
+            with span("kv.verify"):
+                per_query = self._verify_multi(cand_ivs, ctxs)
+            t_end = time.perf_counter()
+            results = []
+            for qi, (ans_off, ans_dist) in enumerate(per_query):
+                order = np.argsort(ans_dist, kind="stable")
+                stats = ctxs[qi].stats
+                stats.n_answers = int(ans_off.size)
+                stats.t_phase2_ms = (t_end - t_verify) * 1e3 / nq
+                stats.t_total_ms = (t_end - t0) * 1e3 / nq
+                stats.trace = trace
+                results.append(QueryResult(offsets=ans_off[order],
+                                           distances=ans_dist[order],
+                                           stats=stats))
         return results
 
     def query_at(self, offset: int, length: int, epsilon: float, **params) -> QueryResult:

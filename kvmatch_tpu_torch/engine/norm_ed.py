@@ -27,7 +27,8 @@ from ..ops.regions import (region_znorm_distances_multi,
 from ..plan import QuerySegment, unit_sums
 from ..utils import intervals as iv
 from ..utils import rounding
-from .base import _EMPTY, NEAR_K, BaseEngine, _Ctx, _np
+from ..utils.profiling import fetch, span
+from .base import _EMPTY, NEAR_K, BaseEngine, _Ctx
 
 
 class NormQueryEngine(BaseEngine):
@@ -342,15 +343,17 @@ class NormQueryEngine(BaseEngine):
         verify; None when the load is outside the tier or too many
         candidates survive (kvmatch_tpu/engine/norm_ed.py:435)."""
         L = ctxs[0].length
-        pre = self._host_prefilter_prefix(cand_ivs, L, want_sq=True)
-        if pre is None:
-            return None
-        surv = []
-        for (l, r), c in zip(cand_ivs, ctxs):
-            offs = iv.expand_offsets({"left": l, "right": r})
-            c.stats.n_host_checked = int(offs.size)
-            offs = self._constraint_prefilter(offs, c, prefix=pre)
-            surv.append(self._paa_z_prefilter(offs, c, c.eps2, prefix=pre))
+        with span("kv.verify.plan"):
+            pre = self._host_prefilter_prefix(cand_ivs, L, want_sq=True)
+            if pre is None:
+                return None
+            surv = []
+            for (l, r), c in zip(cand_ivs, ctxs):
+                offs = iv.expand_offsets({"left": l, "right": r})
+                c.stats.n_host_checked = int(offs.size)
+                offs = self._constraint_prefilter(offs, c, prefix=pre)
+                surv.append(self._paa_z_prefilter(offs, c, c.eps2,
+                                                  prefix=pre))
         if sum(o.size for o in surv) * L > self.qcfg.host_confirm_max_points:
             return None
         return [self._confirm_znorm_exact(o, c) for o, c in zip(surv, ctxs)]
@@ -364,20 +367,25 @@ class NormQueryEngine(BaseEngine):
         if self._host_verify_ok(cand_ivs, L):
             # Tiny load: prefilters from prefix sums + the exact f64 host
             # kernel, no device launch.
-            prefix = None
-            if self.n > self.PREFILTER_CUMSUM_MAX_N:
-                prefix = self._host_prefilter_prefix(cand_ivs, L, want_sq=True)
-            pre_ok = prefix is not None or self.n <= self.PREFILTER_CUMSUM_MAX_N
-            out = []
-            for (l, r), c in zip(cand_ivs, ctxs):
-                offs = iv.expand_offsets({"left": l, "right": r})
-                c.stats.n_host_checked = int(offs.size)
-                if pre_ok:
-                    offs = self._paa_z_prefilter(
-                        self._constraint_prefilter(offs, c, prefix=prefix),
-                        c, c.eps2, prefix=prefix)
-                out.append(self._confirm_znorm_exact(offs, c))
-            return out
+            with span("kv.verify.plan"):
+                prefix = None
+                if self.n > self.PREFILTER_CUMSUM_MAX_N:
+                    prefix = self._host_prefilter_prefix(cand_ivs, L,
+                                                         want_sq=True)
+                pre_ok = (prefix is not None
+                          or self.n <= self.PREFILTER_CUMSUM_MAX_N)
+                surv = []
+                for (l, r), c in zip(cand_ivs, ctxs):
+                    offs = iv.expand_offsets({"left": l, "right": r})
+                    c.stats.n_host_checked = int(offs.size)
+                    if pre_ok:
+                        offs = self._paa_z_prefilter(
+                            self._constraint_prefilter(offs, c,
+                                                       prefix=prefix),
+                            c, c.eps2, prefix=prefix)
+                    surv.append(offs)
+            return [self._confirm_znorm_exact(o, c)
+                    for o, c in zip(surv, ctxs)]
         if self.host_only:
             tier = self._host_znorm_prefilter_tier(cand_ivs, ctxs)
             if tier is not None:
@@ -406,34 +414,45 @@ class NormQueryEngine(BaseEngine):
         cons_dev = self._dev(cons, torch.float32)
         th_dev = self._dev(threshs, torch.float32)
 
-        def near_fn(s_, q_, vf_, vt_):
-            cnt, rows, cols = region_znorm_near_multi(
-                data_dev, qm, self._dev(s_, torch.int64),
-                self._dev(q_, torch.int32), self._dev(vf_, torch.int64),
-                self._dev(vt_, torch.int64), th_dev, cons_dev, L, M, NEAR_K)
-            return cnt, _np(rows), _np(cols)
+        with span("kv.verify.near") as sp:
+            def near_fn(s_, q_, vf_, vt_):
+                args = (self._dev(s_, torch.int64), self._dev(q_, torch.int32),
+                        self._dev(vf_, torch.int64),
+                        self._dev(vt_, torch.int64))
+                with sp.device(self.device):
+                    cnt, rows, cols = region_znorm_near_multi(
+                        data_dev, qm, *args, th_dev, cons_dev, L, M, NEAR_K)
+                return (cnt, *fetch("kv.verify.wait", rows, cols))
 
-        near = vf.run_region_near(near_fn, starts, vfrom, vto, qids, NEAR_K,
-                                  width=M + L - 1)
+            near = vf.run_region_near(near_fn, starts, vfrom, vto, qids,
+                                      NEAR_K, width=M + L - 1)
         if near is None:
             # Overflowed the near-set capacity: full-matrix fallback with the
             # same guarded constraint and distance test on the host.
-            d2, mu, sd, derr = vf.run_bucketed(
-                lambda s_, q_: tuple(_np(a) for a in
-                                     region_znorm_distances_multi(
-                    data_dev, qm, self._dev(s_, torch.int64),
-                    self._dev(q_, torch.int32), L, M)),
-                starts.size, starts, qids, lo=32, hi=2048, width=M + L - 1)
-            a_r, b_r, mq_r, sq_r, cg_r = (cons[qids, k][:, None]
-                                          for k in range(5))
-            ratio = sd / sq_r
-            ok = ((np.abs(mu - mq_r) <= b_r + cg_r) & (ratio <= a_r + cg_r)
-                  & (ratio >= 1.0 / a_r - cg_r) & (sd > 0))
-            col = np.arange(M)[None, :]
-            nearm = (ok & (col >= vfrom[:, None]) & (col < vto[:, None])
-                     & (d2 <= threshs[qids][:, None] + derr))
-            rows, cols = np.nonzero(nearm)
-            near = (starts[rows] + cols, qids[rows])
+            with span("kv.verify.near") as sp:
+                def dist_fn(s_, q_):
+                    args = (self._dev(s_, torch.int64),
+                            self._dev(q_, torch.int32))
+                    with sp.device(self.device):
+                        out = region_znorm_distances_multi(data_dev, qm,
+                                                           *args, L, M)
+                    return fetch("kv.verify.wait", *out)
+
+                d2, mu, sd, derr = vf.run_bucketed(
+                    dist_fn, starts.size, starts, qids, lo=32, hi=2048,
+                    width=M + L - 1)
+            with span("kv.verify.plan"):
+                a_r, b_r, mq_r, sq_r, cg_r = (cons[qids, k][:, None]
+                                              for k in range(5))
+                ratio = sd / sq_r
+                ok = ((np.abs(mu - mq_r) <= b_r + cg_r)
+                      & (ratio <= a_r + cg_r)
+                      & (ratio >= 1.0 / a_r - cg_r) & (sd > 0))
+                col = np.arange(M)[None, :]
+                nearm = (ok & (col >= vfrom[:, None]) & (col < vto[:, None])
+                         & (d2 <= threshs[qids][:, None] + derr))
+                rows, cols = np.nonzero(nearm)
+                near = (starts[rows] + cols, qids[rows])
         near_off, near_qid = near
         return [self._confirm_znorm_exact(np.sort(near_off[near_qid == qi]),
                                           ctx)
@@ -444,23 +463,29 @@ class NormQueryEngine(BaseEngine):
         then K2 on the survivors (int64 offsets end to end)."""
         L = ctxs[0].length
         threshs = self._guarded_threshs(ctxs)
-        cand_offs = [self._paa_z_prefilter(
-            self._constraint_prefilter(
-                iv.expand_offsets({"left": l, "right": r}), c),
-            c, float(th))
-            for (l, r), c, th in zip(cand_ivs, ctxs, threshs)]
-        counts = [o.size for o in cand_offs]
-        total = int(sum(counts))
+        with span("kv.verify.plan"):
+            cand_offs = [self._paa_z_prefilter(
+                self._constraint_prefilter(
+                    iv.expand_offsets({"left": l, "right": r}), c),
+                c, float(th))
+                for (l, r), c, th in zip(cand_ivs, ctxs, threshs)]
+            counts = [o.size for o in cand_offs]
+            total = int(sum(counts))
         if total == 0:
             return [_EMPTY for _ in ctxs]
         offsets = np.concatenate(cand_offs).astype(np.int64)
         qids = np.repeat(np.arange(len(ctxs), dtype=np.int32), counts)
         qm = self._qhats(ctxs)
-        d2, mu, sd = vf.run_bucketed(
-            lambda o, q: tuple(_np(a) for a in znorm_ed_distances_multi(
-                self.data_dev, qm, self._dev(o, torch.int64),
-                self._dev(q, torch.int32), L)),
-            total, offsets, qids, lo=self.qcfg.verify_batch, width=L)
+        with span("kv.verify.near") as sp:
+            def k2(o, q):
+                args = (self._dev(o, torch.int64), self._dev(q, torch.int32))
+                with sp.device(self.device):
+                    out = znorm_ed_distances_multi(self.data_dev, qm, *args,
+                                                   L)
+                return fetch("kv.verify.wait", *out)
+
+            d2, mu, sd = vf.run_bucketed(k2, total, offsets, qids,
+                                         lo=self.qcfg.verify_batch, width=L)
         results = []
         start = 0
         for qi, ctx in enumerate(ctxs):
@@ -497,7 +522,8 @@ class NormQueryEngine(BaseEngine):
             keep = ok_h & (d2h <= ctx.eps2)
             return p[keep], np.sqrt(d2h[keep])
 
-        return self._chunked_confirm(near, piece)
+        with span("kv.verify.confirm"):
+            return self._chunked_confirm(near, piece)
 
     def _confirm_znorm(self, offsets, d2, mu, sd, ctx: _Ctx):
         """Guarded device pre-filter -> exact f64 host confirmation."""

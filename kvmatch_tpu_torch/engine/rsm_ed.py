@@ -24,7 +24,8 @@ from ..ops.regions import region_ed_distances_multi, region_ed_near_multi
 from ..plan import QuerySegment, unit_sums
 from ..utils import intervals as iv
 from ..utils import rounding
-from .base import _EMPTY, NEAR_K, BaseEngine, _Ctx, _np
+from ..utils.profiling import fetch, span
+from .base import _EMPTY, NEAR_K, BaseEngine, _Ctx
 
 
 class QueryEngine(BaseEngine):
@@ -129,7 +130,8 @@ class QueryEngine(BaseEngine):
             keep = d2h <= ctx.eps2
             return p[keep], np.sqrt(d2h[keep])
 
-        return self._chunked_confirm(near, piece)
+        with span("kv.verify.confirm"):
+            return self._chunked_confirm(near, piece)
 
     def _paa_prefilter(self, offsets: np.ndarray, ctx: _Ctx, thresh: float,
                        blocks: int = 16, env=None, prefix=None) -> np.ndarray:
@@ -175,14 +177,16 @@ class QueryEngine(BaseEngine):
         is outside the tier (QueryConfig.host_prefilter_max_offsets) or too
         many candidates survive (kvmatch_tpu/engine/rsm_ed.py:191)."""
         L = ctxs[0].length
-        pre = self._host_prefilter_prefix(cand_ivs, L, want_sq=False)
-        if pre is None:
-            return None
-        surv = []
-        for (l, r), c in zip(cand_ivs, ctxs):
-            offs = iv.expand_offsets({"left": l, "right": r})
-            c.stats.n_host_checked = int(offs.size)
-            surv.append(self._paa_prefilter(offs, c, c.eps2, prefix=pre[0]))
+        with span("kv.verify.plan"):
+            pre = self._host_prefilter_prefix(cand_ivs, L, want_sq=False)
+            if pre is None:
+                return None
+            surv = []
+            for (l, r), c in zip(cand_ivs, ctxs):
+                offs = iv.expand_offsets({"left": l, "right": r})
+                c.stats.n_host_checked = int(offs.size)
+                surv.append(self._paa_prefilter(offs, c, c.eps2,
+                                                prefix=pre[0]))
         if sum(o.size for o in surv) * L > self.qcfg.host_confirm_max_points:
             return None
         return [self._confirm_ed(o, c) for o, c in zip(surv, ctxs)]
@@ -196,19 +200,23 @@ class QueryEngine(BaseEngine):
         if self._host_verify_ok(cand_ivs, L):
             # Tiny load: PAA prefilter + the exact f64 host kernel, no device
             # launch.
-            prefix = None
-            if self.n > self.PREFILTER_CUMSUM_MAX_N:
-                pre = self._host_prefilter_prefix(cand_ivs, L, want_sq=False)
-                prefix = pre[0] if pre is not None else None
-            paa_ok = prefix is not None or self.n <= self.PREFILTER_CUMSUM_MAX_N
-            out = []
-            for (l, r), c in zip(cand_ivs, ctxs):
-                offs = iv.expand_offsets({"left": l, "right": r})
-                c.stats.n_host_checked = int(offs.size)
-                if paa_ok:
-                    offs = self._paa_prefilter(offs, c, c.eps2, prefix=prefix)
-                out.append(self._confirm_ed(offs, c))
-            return out
+            with span("kv.verify.plan"):
+                prefix = None
+                if self.n > self.PREFILTER_CUMSUM_MAX_N:
+                    pre = self._host_prefilter_prefix(cand_ivs, L,
+                                                      want_sq=False)
+                    prefix = pre[0] if pre is not None else None
+                paa_ok = (prefix is not None
+                          or self.n <= self.PREFILTER_CUMSUM_MAX_N)
+                surv = []
+                for (l, r), c in zip(cand_ivs, ctxs):
+                    offs = iv.expand_offsets({"left": l, "right": r})
+                    c.stats.n_host_checked = int(offs.size)
+                    if paa_ok:
+                        offs = self._paa_prefilter(offs, c, c.eps2,
+                                                   prefix=prefix)
+                    surv.append(offs)
+            return [self._confirm_ed(o, c) for o, c in zip(surv, ctxs)]
         if self.host_only:
             tier = self._host_ed_prefilter_tier(cand_ivs, ctxs)
             if tier is not None:
@@ -229,27 +237,37 @@ class QueryEngine(BaseEngine):
                        torch.float32)
         th_dev = self._dev(threshs, torch.float32)
 
-        def near_fn(s_, q_, vf_, vt_):
-            cnt, rows, cols = region_ed_near_multi(
-                data_dev, qm, self._dev(s_, torch.int64),
-                self._dev(q_, torch.int32), self._dev(vf_, torch.int64),
-                self._dev(vt_, torch.int64), th_dev, L, M, NEAR_K, center)
-            return cnt, _np(rows), _np(cols)
+        with span("kv.verify.near") as sp:
+            def near_fn(s_, q_, vf_, vt_):
+                args = (self._dev(s_, torch.int64), self._dev(q_, torch.int32),
+                        self._dev(vf_, torch.int64),
+                        self._dev(vt_, torch.int64))
+                with sp.device(self.device):
+                    cnt, rows, cols = region_ed_near_multi(
+                        data_dev, qm, *args, th_dev, L, M, NEAR_K, center)
+                return (cnt, *fetch("kv.verify.wait", rows, cols))
 
-        near = vf.run_region_near(near_fn, starts, vfrom, vto, qids, NEAR_K,
-                                  width=M + L - 1)
+            near = vf.run_region_near(near_fn, starts, vfrom, vto, qids,
+                                      NEAR_K, width=M + L - 1)
         if near is None:
             # Overflowed the near-set capacity: full-matrix fallback.
-            d2, err = vf.run_bucketed(
-                lambda s_, q_: tuple(_np(a) for a in region_ed_distances_multi(
-                    data_dev, qm, self._dev(s_, torch.int64),
-                    self._dev(q_, torch.int32), L, M, center)),
-                starts.size, starts, qids, lo=32, hi=2048, width=M + L - 1)
-            col = np.arange(M)[None, :]
-            nearm = ((col >= vfrom[:, None]) & (col < vto[:, None])
-                     & (d2 <= threshs[qids][:, None] + err))
-            rows, cols = np.nonzero(nearm)
-            near = (starts[rows] + cols, qids[rows])
+            with span("kv.verify.near") as sp:
+                def dist_fn(s_, q_):
+                    args = (self._dev(s_, torch.int64),
+                            self._dev(q_, torch.int32))
+                    with sp.device(self.device):
+                        out = region_ed_distances_multi(data_dev, qm, *args,
+                                                        L, M, center)
+                    return fetch("kv.verify.wait", *out)
+
+                d2, err = vf.run_bucketed(dist_fn, starts.size, starts, qids,
+                                          lo=32, hi=2048, width=M + L - 1)
+            with span("kv.verify.plan"):
+                col = np.arange(M)[None, :]
+                nearm = ((col >= vfrom[:, None]) & (col < vto[:, None])
+                         & (d2 <= threshs[qids][:, None] + err))
+                rows, cols = np.nonzero(nearm)
+                near = (starts[rows] + cols, qids[rows])
         near_off, near_qid = near
         return [self._confirm_ed(np.sort(near_off[near_qid == qi]), ctx)
                 for qi, ctx in enumerate(ctxs)]
@@ -259,21 +277,26 @@ class QueryEngine(BaseEngine):
         survivors (int64 offsets end to end)."""
         L = ctxs[0].length
         threshs = self._guarded_threshs(ctxs)
-        cand_offs = [self._paa_prefilter(
-            iv.expand_offsets({"left": l, "right": r}), c, float(th))
-            for (l, r), c, th in zip(cand_ivs, ctxs, threshs)]
-        counts = [o.size for o in cand_offs]
-        total = int(sum(counts))
+        with span("kv.verify.plan"):
+            cand_offs = [self._paa_prefilter(
+                iv.expand_offsets({"left": l, "right": r}), c, float(th))
+                for (l, r), c, th in zip(cand_ivs, ctxs, threshs)]
+            counts = [o.size for o in cand_offs]
+            total = int(sum(counts))
         if total == 0:
             return [_EMPTY for _ in ctxs]
         offsets = np.concatenate(cand_offs).astype(np.int64)
         qids = np.repeat(np.arange(len(ctxs), dtype=np.int32), counts)
         qm = self._dev(np.stack([c.query for c in ctxs]), torch.float32)
-        d2 = vf.run_bucketed(
-            lambda o, q: _np(ed_distances_multi(
-                self.data_dev, qm, self._dev(o, torch.int64),
-                self._dev(q, torch.int32), L)),
-            total, offsets, qids, lo=self.qcfg.verify_batch, width=L)
+        with span("kv.verify.near") as sp:
+            def k2(o, q):
+                args = (self._dev(o, torch.int64), self._dev(q, torch.int32))
+                with sp.device(self.device):
+                    out = ed_distances_multi(self.data_dev, qm, *args, L)
+                return fetch("kv.verify.wait", out)[0]
+
+            d2 = vf.run_bucketed(k2, total, offsets, qids,
+                                 lo=self.qcfg.verify_batch, width=L)
         results = []
         start = 0
         for qi, ctx in enumerate(ctxs):

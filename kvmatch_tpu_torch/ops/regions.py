@@ -20,6 +20,7 @@ from typing import Tuple
 import numpy as np
 import torch
 
+from ..utils.profiling import span
 from .ed import _gather, _one_query
 
 # f32 round-off amplification constant of the error bounds.
@@ -123,8 +124,10 @@ def region_znorm_distances(data, query_hat, starts, length: int,
 def _near_compact(near: torch.Tensor, near_k: int):
     """(count, rows, cols) of the True cells of a 2-D mask in ascending
     row-major order, at most ``near_k`` of them; callers read [:count] and
-    fall back when count > near_k (the contract of the JAX _near_compact)."""
-    idx = torch.nonzero(near)
+    fall back when count > near_k (the contract of the JAX _near_compact).
+    ``nonzero`` waits for the mask: a read-back of its count."""
+    with span("kv.verify.wait"):
+        idx = torch.nonzero(near)
     count = int(idx.shape[0])
     idx = idx[:near_k]
     return count, idx[:, 0].to(torch.int32), idx[:, 1].to(torch.int32)

@@ -38,6 +38,7 @@ from ..ops.dtw import _dtw_f32, _znorm_rows
 from ..ops.ed import _gather, window_ed
 from ..ops.probe import FLAG, PROBE_BLOCK, probe_flags
 from ..ops.sliding import build_buckets, sliding_window_stats_fwd
+from ..utils.profiling import span
 from .mesh import Mesh
 
 MAX_SEGMENTS = 30
@@ -245,7 +246,9 @@ def dense_probe_flags(data_padded: torch.Tensor, segs: DenseSegments,
     one K1 launch; without it, bucket windows are built per PROBE_BLOCK
     positions.  For cNSM (``norm``) the window-constraint AND is applied with
     ``stats3`` (make_cons_stats) or per-block statistics.  Counts stay
-    probe-only, as in the JAX package."""
+    probe-only, as in the JAX package.  While a profiler records, the
+    spans ``kv.probe.k1`` and ``kv.probe.cons`` time the two parts' launches
+    on the device."""
     scales = tuple(icfg.scales)
     w_max = max(scales)
     dev = data_padded.device
@@ -259,27 +262,30 @@ def dense_probe_flags(data_padded: torch.Tensor, segs: DenseSegments,
     counts = torch.zeros(Q, dtype=torch.int32, device=dev)
     kw = dict(length=length, unit=icfg.unit, d=icfg.d,
               slack=icfg.probe_guard, norm=norm)
-    if bstack is not None:
-        probe_flags(bstack, 0, segs, eps2, cons, 0, npos_all, m, flags,
-                    counts, **kw)
-    else:
-        for p0 in range(0, npos_all, PROBE_BLOCK):
-            npos = min(PROBE_BLOCK, npos_all - p0)
-            bwin = make_bucket_stack(
-                data_padded[p0: p0 + npos + length + w_max], icfg, scales)
-            probe_flags(bwin, p0, segs, eps2, cons, p0, npos, m, flags,
+    with span("kv.probe.k1") as sp, sp.device(dev):
+        if bstack is not None:
+            probe_flags(bstack, 0, segs, eps2, cons, 0, npos_all, m, flags,
                         counts, **kw)
+        else:
+            for p0 in range(0, npos_all, PROBE_BLOCK):
+                npos = min(PROBE_BLOCK, npos_all - p0)
+                bwin = make_bucket_stack(
+                    data_padded[p0: p0 + npos + length + w_max], icfg,
+                    scales)
+                probe_flags(bwin, p0, segs, eps2, cons, p0, npos, m, flags,
+                            counts, **kw)
     if norm:
-        for p0 in range(0, npos_all, PROBE_BLOCK):
-            npos = min(PROBE_BLOCK, npos_all - p0)
-            if stats3 is not None:
-                s1, s2, amax = stats3[:, p0: p0 + npos]
-            else:
-                s1, s2, lo, hi = sliding_window_stats_fwd(
-                    data_padded[p0: p0 + npos + length - 1], length)
-                amax = torch.maximum(torch.abs(lo), torch.abs(hi))
-            flags[:, p0 // FLAG:(p0 + npos) // FLAG] &= _cons_ok_flags(
-                s1, s2, amax, cons, p0, m, length)
+        with span("kv.probe.cons") as sp, sp.device(dev):
+            for p0 in range(0, npos_all, PROBE_BLOCK):
+                npos = min(PROBE_BLOCK, npos_all - p0)
+                if stats3 is not None:
+                    s1, s2, amax = stats3[:, p0: p0 + npos]
+                else:
+                    s1, s2, lo, hi = sliding_window_stats_fwd(
+                        data_padded[p0: p0 + npos + length - 1], length)
+                    amax = torch.maximum(torch.abs(lo), torch.abs(hi))
+                flags[:, p0 // FLAG:(p0 + npos) // FLAG] &= _cons_ok_flags(
+                    s1, s2, amax, cons, p0, m, length)
     return counts, flags
 
 
