@@ -21,6 +21,11 @@ JSON line tagged with the card's name and power limit and its seconds
                 K2_SHAPES: held to its plain version, and timed alone on
                 the card (torch.profiler, a trace a shape), beside the
                 wrapper's host time and torch.cdist's device time;
+                K2's f64 form (window_ed_f64, the exact confirm on the
+                card) at each (B, L) of K2_F64_SHAPES, the benchmark cells'
+                confirm loads: d2 and std within 1e-12 relative of
+                window_ed_plain's f64 mode, the mean within 1e-12 of the
+                window's max |x|, timed alone beside the plain version;
                 K3 (dtw_diag), K4 (dtw_rows) and the double-single DP
                 (dtw_ds) on one bucket of B=1024 windows, L=8192, r=409,
                 raw and z-normed, and K3 on a 16,384-row chunk; K3 and DS
@@ -54,8 +59,14 @@ JSON line tagged with the card's name and power limit and its seconds
 5. main      -- cNSM-ED at n=1e8, L=8192, 8 self-queries, eps=4,
                 alpha=1.2, beta=5 (bench.py's north star): one warm batch,
                 3 timed batches, then each query alone through engine.query
-                (the latency path); launch counts of K1 and K2 over both,
-                and the (B, L) of each path's K2 calls;
+                (the latency path), all confirmed on the host (the f64
+                series is not f32's); then the same batch on the card's f32
+                copy as the shadow, whose exact confirm runs on the card:
+                the exactness check's seconds, one warm and 3 timed
+                batches with the card confirm, one with the host confirm,
+                equal answers, distances within 1e-8; launch counts of K1,
+                K2 and K2's f64 form over all of it, and the (B, L) of each
+                path's K2 calls;
    main_dtw  -- cNSM-DTW at n=1e8, L=8192, rho=409 on the same series,
                 index and the 8 queries (MAIN_DTW_QUERIES): one warm batch,
                 MAIN_DTW_REPS timed batches with their stage counts and
@@ -179,8 +190,9 @@ if not (REPO / "kvmatch_tpu_torch" / "csrc").is_dir():
 sys.path.insert(0, str(REPO))
 # The one roofline of the port (bound_ms, bound_by) and its timer.
 from kvmatch_tpu_torch.utils.kernel_bench import (  # noqa: E402
-    DP_OPS, DS_OPS, K1_OPS, K1_OPS_FULL, K1_TRACK_OPS, K2_QUERIES, K2_SHAPES,
-    band_cells, bound, card_line, k2_work, timed_ms, window_kernel_times)
+    DP_OPS, DS_OPS, K1_OPS, K1_OPS_FULL, K1_TRACK_OPS, K2_F64_SHAPES,
+    K2_QUERIES, K2_SHAPES, band_cells, bound, card_line, k2_work, timed_ms,
+    window_f64_times, window_kernel_times)
 
 # Seconds of each phase, and of each plain DP call (plain_call), for the
 # time line.
@@ -430,6 +442,55 @@ def check_window_kernel(data_dev, queries, device, batch: int) -> dict:
         for name in ("raw", "znorm"):
             entry[name].update(held[tag][name])
     return out
+
+
+def check_window_f64(data_dev, device) -> dict:
+    """K2's f64 form (``window_ed_f64``, the card's exact confirm) against
+    window_ed_plain's f64 mode at each (B, L) of K2_F64_SHAPES, the cells'
+    confirm loads, on rows of K2_QUERIES z-normalized series windows: d2 and
+    std within 1e-12 relative (d2 within 1e-12 L near 0), the mean within
+    1e-12 of the window's max |x|; raises beyond them.  Then its times by
+    ``window_f64_times`` (the kernel alone, the wrapper's host time, the
+    plain version's, the bound)."""
+    import numpy as np
+    import torch
+    from kvmatch_tpu_torch.ops.ed import _gather, window_ed_f64, window_ed_plain
+    n = data_dev.shape[0]
+    rng = np.random.default_rng(17)
+    held = {}
+    for B, L in K2_F64_SHAPES:
+        offs = torch.as_tensor(rng.integers(0, n - L + 1, B), device=device)
+        qids = torch.as_tensor(np.sort(rng.integers(0, K2_QUERIES, B))
+                               .astype(np.int32), device=device)
+        q = _gather(data_dev, torch.as_tensor(rng.integers(
+            0, n - L + 1, K2_QUERIES), device=device), L).double()
+        qh = ((q - q.mean(1, keepdim=True))
+              / q.std(1, unbiased=False, keepdim=True)).contiguous()
+        got = window_ed_f64(data_dev, qh, offs, qids, L)
+        want = torch.stack(window_ed_plain(data_dev, qh, offs, qids, L,
+                                           znorm=True))
+        if got.dtype != torch.float64:
+            raise AssertionError(f"K2 f64 B={B} L={L}: {got.dtype} out")
+        finite = torch.isfinite(want[0])
+        if not torch.equal(torch.isfinite(got[0]), finite):
+            raise AssertionError(f"K2 f64 B={B} L={L}: infinite rows differ")
+        d2_err = ((got[0] - want[0]).abs()
+                  / torch.clamp(want[0].abs(), min=L))[finite]
+        std_err = (got[2] - want[2]).abs() / want[2].abs().clamp(
+            min=torch.finfo(torch.float64).tiny)
+        scale = _gather(data_dev, offs, L).abs().amax(dim=1).double()
+        mean_err = (got[1] - want[1]).abs() / scale
+        errs = dict(d2_err_rel=float(d2_err.max()),
+                    std_err_rel=float(std_err.max()),
+                    mean_err_rel=float(mean_err.max()))
+        if max(errs.values()) > 1e-12:
+            raise AssertionError(f"K2 f64 B={B} L={L}: {errs} beyond 1e-12")
+        held[f"B{B}_L{L}"] = errs
+    t0 = time.perf_counter()
+    shapes = window_f64_times(data_dev)
+    for tag, entry in shapes.items():
+        entry.update(held[tag])
+    return dict(shapes=shapes, times_s=time.perf_counter() - t0)
 
 
 def znormed_windows(data_dev, device, rng, L: int, batch: int):
@@ -918,8 +979,55 @@ def main_path(eng, offs, queries, reps: int = 3):
         p2_ms_per_query=statistics.fmean(r.stats.t_phase2_ms for r in res),
         cands_per_query=statistics.fmean(r.stats.n_candidates for r in res),
         host_rechecks=sum(r.stats.n_host_rechecked for r in res),
+        device_confirmed=sum(r.stats.n_device_confirmed for r in res),
         answers=[int(r.offsets.size) for r in res], self_found=found,
         n_queries=len(queries)), res
+
+
+def card_confirm(eng, offs, queries) -> dict:
+    """The serving batch on an f32-exact series, whose exact f64 confirm
+    runs on the card (K2's f64 form): the cost of the engine's exactness
+    check (``confirm_on_device``, the first ask), ``main_path`` with the
+    card confirm, then one batch with the host confirm; the answer sets
+    equal and the distances within 1e-8 of each other (z-normalized, at
+    most EPS).  Raises beyond that, or if the card confirmed no row, the
+    host rechecked one, or the two confirms took different rows."""
+    import numpy as np
+    import torch
+    torch.cuda.synchronize(eng.device)
+    t0 = time.perf_counter()
+    on = eng.confirm_on_device
+    torch.cuda.synchronize(eng.device)
+    check_s = time.perf_counter() - t0
+    if not on:
+        raise AssertionError("the f32-exact engine does not confirm on the "
+                             "card")
+    card, res = main_path(eng, offs, queries)
+    eng.confirm_on_device = False
+    try:
+        t0 = time.perf_counter()
+        host = eng.query_batch(queries, EPS, alpha=ALPHA, beta=BETA)
+        host_s = time.perf_counter() - t0
+    finally:
+        eng.confirm_on_device = True
+    dist_gap = 0.0
+    for qi, (a, b) in enumerate(zip(res, host)):
+        ia, ib = np.argsort(a.offsets), np.argsort(b.offsets)
+        if not np.array_equal(a.offsets[ia], b.offsets[ib]):
+            raise AssertionError(f"query {qi}: the card confirm's answers "
+                                 f"differ from the host confirm's")
+        if a.offsets.size:
+            dist_gap = max(dist_gap, float(np.max(
+                np.abs(a.distances[ia] - b.distances[ib]))))
+    host_rows = sum(r.stats.n_host_rechecked for r in host)
+    if (card["host_rechecks"] or not card["device_confirmed"]
+            or host_rows != card["device_confirmed"] or dist_gap > 1e-8):
+        raise AssertionError(
+            f"card confirm: {card['device_confirmed']} rows on the card, "
+            f"{card['host_rechecks']} on the host, {host_rows} host rows "
+            f"with the host confirm, dist gap {dist_gap}")
+    return dict(card, check_s=check_s, host_confirm_qps=len(queries) / host_s,
+                host_confirm_rows=host_rows, dist_gap=dist_gap)
 
 
 def single_queries(eng, queries, batch_res) -> dict:
@@ -1105,7 +1213,7 @@ def routing_ab(eng, offs, queries, reps: int = 3) -> dict:
 # ------------------------------------------------------------- phase 7 ----
 SPANS = ("_plan_batch", "_device_dense_phase1_flags", "_flags_to_intervals",
          "_verify_multi", "_verify_regions", "_verify_gather",
-         "_confirm_znorm_exact", "_confirm_znorm")
+         "_guarded_near", "_confirm_znorm_device", "_confirm_znorm_exact")
 
 
 def profile_batch(eng, queries) -> dict:
@@ -2666,6 +2774,7 @@ def kernel_registers(so) -> dict:
 
 
 def main() -> int:
+    import numpy as np
     import torch
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device (torch.cuda.is_available() is "
@@ -2678,7 +2787,7 @@ def main() -> int:
                                    generate_series, kernels)
     from kvmatch_tpu_torch.index.device_build import build_index_device_stats
     from kvmatch_tpu_torch.ops.dtw import dtw_diag, dtw_ds, dtw_rows
-    from kvmatch_tpu_torch.ops.ed import window_ed
+    from kvmatch_tpu_torch.ops.ed import window_ed, window_ed_f64
     from kvmatch_tpu_torch.ops.probe import probe_flags
     from kvmatch_tpu_torch.state import series_to_device
 
@@ -2713,6 +2822,14 @@ def main() -> int:
                            qcfg=QueryConfig(dense_probe_min_count=0),
                            device_data=dev8)
     offs8, q8 = self_queries(data8, 8, L_MAIN, seed=2)
+    # The same engine over the card's f32 copy as its shadow: f32-exact, so
+    # its exact confirm runs on the card (K2's f64 form), as the benchmark's
+    # f32 series does; eng8's f64 series confirms on the host.
+    data8f = dev8.cpu().numpy().astype(np.float64)
+    eng8f = NormQueryEngine(data8f, index=index8, icfg=icfg,
+                            qcfg=QueryConfig(dense_probe_min_count=0),
+                            device_data=dev8)
+    q8f = self_queries(data8f, 8, L_MAIN, seed=2)[1]
     PHASE_S["build"] = time.perf_counter() - t_build
     emit(dict(phase="build", card=card, n=N_MAIN, generate_s=gen_s,
               h2d_s=h2d_s, build_s_cold=builds[0]["build_seconds"],
@@ -2746,12 +2863,13 @@ def main() -> int:
         k1_raw_plans=check_probe_kernel(raw8, stack8, q8, device,
                                         norm=False),
         k2=check_window_kernel(dev8, q8, device, K2_BATCH),
+        k2_f64=check_window_f64(dev8, device),
         dtw=check_dtw_kernels(dev8, q8, device),
         k3_bitwise=check_bitwise(dev8, q8, device),
         ds_bitwise=check_bitwise(dev8, q8, device, "DS"),
         k4_bitwise=check_bitwise(dev8, q8, device, "K4")))
-    k1, k1d, k1r, k2, kd = (kern[k] for k in (
-        "k1", "k1_dtw_plans", "k1_raw_plans", "k2", "dtw"))
+    k1, k1d, k1r, k2, k2f, kd = (kern[k] for k in (
+        "k1", "k1_dtw_plans", "k1_raw_plans", "k2", "k2_f64", "dtw"))
     k2_main = k2["shapes"][f"B{K2_BATCH}_L{L_MAIN}"]
     phase("fft", lambda: fft_error(dev8, q8, device))
     oracles: dict = {}  # the n=1e6 oracle's sets, for the streamed engines
@@ -2764,19 +2882,26 @@ def main() -> int:
     torch.cuda.reset_peak_memory_stats(device)
     probe_flags.launches = 0
     window_ed.launches = 0
+    window_ed_f64.launches = 0
 
     def ed_main():
         window_ed.shapes.clear()
         main, batch_res = main_path(eng8, offs8, q8)
+        if eng8.confirm_on_device or main["device_confirmed"]:
+            raise AssertionError("the f64 series confirmed on the card")
         shapes = dict(batch=dict(window_ed.shapes))
         window_ed.shapes.clear()
         main.update(single_queries(eng8, q8, batch_res))
         main["k2_shapes"] = dict(shapes, singles=dict(window_ed.shapes))
+        window_ed_f64.shapes.clear()
+        main["card_confirm"] = card_confirm(eng8f, offs8, q8f)
+        main["card_confirm"]["k2_f64_shapes"] = dict(window_ed_f64.shapes)
         return main
     main = phase("main", ed_main, n=N_MAIN, L=L_MAIN, eps=EPS, alpha=ALPHA,
                  beta=BETA)
     launches = dict(probe_flags=probe_flags.launches,
-                    window_ed=window_ed.launches)
+                    window_ed=window_ed.launches,
+                    window_ed_f64=window_ed_f64.launches)
     emit(dict(phase="main_launches", card=card, launches=launches,
               peak_device_bytes=torch.cuda.max_memory_allocated(device)))
     if main["self_found"] != main["n_queries"]:
@@ -2806,6 +2931,7 @@ def main() -> int:
                                  f"{r['self_found']}/{r['n_queries']}")
     need = dict(probe_flags=launches["probe_flags"],
                 window_ed=launches["window_ed"],
+                window_ed_f64=launches["window_ed_f64"],
                 dtw_diag=dtw_launches["dtw_diag"],
                 dtw_ds=dtw_launches["dtw_ds"], dtw_rows=rows_launches)
     for name, count in need.items():
@@ -2901,6 +3027,9 @@ def main() -> int:
         raise AssertionError(f"the port loaded jax or the JAX package: "
                              f"{loaded[:5]}")
     per_batch = mdtw["cnsm"]["launches_per_batch"]
+    k2f_shapes = k2f["shapes"]
+    k2f_tag = "B{}_L{}".format(*max(K2_F64_SHAPES))
+    k2f_big = k2f_shapes[k2f_tag]
 
     def with_bound(entry, work, per_batch_launches):
         return dict(entry, bound_ms=work["bound_ms"],
@@ -2966,6 +3095,26 @@ def main() -> int:
                                  sharded_north_star=shard["norm"][
                                      "k2_shapes"])), k2["znorm"],
             per_batch["window_ed"]),
+        dict(name="window_ed_f64", route="cuda",
+             source="kvmatch_tpu_torch/csrc/window_ed.cu",
+             replaces=None, launches=launches["window_ed_f64"],
+             launched_on="main",
+             max_err_rel=max(max(e[k] for k in ("d2_err_rel", "std_err_rel",
+                                                "mean_err_rel"))
+                             for e in k2f_shapes.values()),
+             tolerance="d2 and std within 1e-12 relative of the plain f64 "
+                       "mode (d2 1e-12 L near 0), mean within 1e-12 max|x|",
+             ms=k2f_big["device_ms"], plain_ms=k2f_big["plain_ms"],
+             library_ms=None, bound_ms=k2f_big["bound_ms"],
+             bound_by=k2f_big["bound_by"],
+             share_of_bound=k2f_big["share_of_bound"],
+             timing=f"device time alone (torch.profiler), {k2f_tag}",
+             device_ms_by_shape={
+                 tag: {k: e[k] for k in (
+                     "device_ms", "host_us", "plain_ms", "bound_ms",
+                     "bound_by", "share_of_bound", "traces")}
+                 for tag, e in k2f_shapes.items()},
+             launched_shapes=main["card_confirm"]["k2_f64_shapes"]),
         dict(dp_entry("dtw_diag", "kvmatch_tpu/ops/dtw_pallas.py:176",
                       "dtw_diag", dtw_launches["dtw_diag"], "main_dtw",
                       kd["dp_bound"]),

@@ -93,7 +93,10 @@ class QueryStats:
     n_scans: int = 0
     n_segments_used: int = 0
     n_device_checked: int = 0
+    # Windows confirmed exactly in f64 on the host, and on the device
+    # (cNSM-ED's confirm, engine/norm_ed.py:_confirm_znorm_device).
     n_host_rechecked: int = 0
+    n_device_confirmed: int = 0
     # Candidates verified ENTIRELY on host (exact f64, no device launch) by the
     # tiny-load fast path (QueryConfig.host_verify_max_points).
     n_host_checked: int = 0
@@ -638,6 +641,7 @@ class BaseEngine:
         results = [[] for _ in ctxs]
         acc_dev = [0] * len(ctxs)
         acc_host = [0] * len(ctxs)
+        acc_conf = [0] * len(ctxs)
         stages: dict = {}
         for g0, g1 in zip(bounds[:-1], bounds[1:]):
             g_stg_lo = stg_lo[g0:g1]
@@ -671,6 +675,8 @@ class BaseEngine:
                 ridx = np.searchsorted(run_lo[g0:g1], li, side="right") - 1
                 local_ivs.append((li - g_stg_lo[ridx] + loc0[ridx],
                                   ri - g_stg_lo[ridx] + loc0[ridx]))
+            for c in ctxs:  # a group's route sets what it confirms
+                c.stats.n_host_rechecked = c.stats.n_device_confirmed = 0
             sub_res = sub._verify_multi(local_ivs, ctxs)
             counts["groups"] += 1
             counts["staged_points"] += buf.size
@@ -681,6 +687,7 @@ class BaseEngine:
             for qi, (lo_offs, dists) in enumerate(sub_res):
                 acc_dev[qi] += ctxs[qi].stats.n_device_checked
                 acc_host[qi] += ctxs[qi].stats.n_host_rechecked
+                acc_conf[qi] += ctxs[qi].stats.n_device_confirmed
                 if lo_offs.size:
                     ridx = np.searchsorted(loc0, lo_offs, side="right") - 1
                     results[qi].append((lo_offs - loc0[ridx] + g_stg_lo[ridx],
@@ -691,6 +698,7 @@ class BaseEngine:
         for qi, parts in enumerate(results):
             ctxs[qi].stats.n_device_checked = acc_dev[qi]
             ctxs[qi].stats.n_host_rechecked = acc_host[qi]
+            ctxs[qi].stats.n_device_confirmed = acc_conf[qi]
             if parts:
                 out.append((np.concatenate([p[0] for p in parts]),
                             np.concatenate([p[1] for p in parts])))

@@ -7,11 +7,14 @@ constraint and PAA prefilters, the exact f64 confirms) are carried over from
 the JAX package's module; ``_verify_multi`` runs phase 2 on the port's
 tensors: the FFT
 region near-set for clustered candidates and kernel K2 (ops/ed.py) for
-scattered ones, then the exact f64 confirmation on the host.
+scattered ones, then the exact f64 confirmation: on the device by K2's f64
+form when the device's f32 series holds the host shadow's values exactly
+(``confirm_on_device``), else on the host.
 """
 
 from __future__ import annotations
 
+import functools
 import math
 import types
 from typing import Dict
@@ -21,7 +24,7 @@ import torch
 
 from .. import native
 from .. import verify as vf
-from ..ops.ed import znorm_ed_distances_multi
+from ..ops.ed import window_ed_f64, znorm_ed_distances_multi
 from ..ops.regions import (region_znorm_distances_multi,
                            region_znorm_near_multi)
 from ..plan import QuerySegment, unit_sums
@@ -31,12 +34,54 @@ from ..utils.profiling import fetch, span
 from .base import _EMPTY, NEAR_K, BaseEngine, _Ctx
 
 
+def host_znorm_stats(data: np.ndarray, offsets: np.ndarray,
+                     q_hat: np.ndarray):
+    """(d2, mean, std) in f64 on the host of the windows
+    ``data[o : o + L]`` against the z-normalized query ``q_hat`` (L,): the
+    host confirm's arithmetic (one-pass variance E[x^2] - mean^2)."""
+    x = data[offsets[:, None] + np.arange(q_hat.size)[None, :]].astype(
+        np.float64, copy=False)
+    mu = x.mean(axis=1)
+    sd = np.sqrt(np.maximum(np.mean(x * x, axis=1) - mu * mu, 0.0))
+    diff = (x - mu[:, None]) / np.where(sd > 0, sd, 1.0)[:, None] \
+        - q_hat[None, :]
+    return np.einsum("ij,ij->i", diff, diff), mu, sd
+
+
 class NormQueryEngine(BaseEngine):
     payloads = ("eps", "ex_lo", "ex2_lo", "ex_up", "ex2_up", "beta")
     # The host constraint prefilter makes the scattered path much cheaper than
     # raw traffic suggests; demand a bigger region advantage before switching.
     REGION_TRAFFIC_FUDGE = 8.0
     use_dtw_cost_model = True  # reference uses the DTW-fit coefficients here
+    #: Points a step of ``confirm_on_device``'s comparison.
+    SHADOW_CHUNK = 1 << 24
+
+    @functools.cached_property
+    def confirm_on_device(self) -> bool:
+        """Whether the exact f64 confirm runs on the device
+        (``window_ed_f64``): the f32 series phase 2 reads there (resident,
+        or staged from the shadow when streamed), promoted to f64, equals
+        the host shadow ``self.data`` point for point, so the device reads
+        the values the host confirm would read.  An f32 shadow (a streamed
+        f32 series) holds by construction; a resident series is compared
+        with its shadow chunk by chunk on its device, a streamed f64 one with
+        its own f32 rounding.  False for a host-only engine.  Decided at the
+        first confirm that asks."""
+        if self.host_only:
+            return False
+        if self.data.dtype == np.float32:
+            return True
+        for s in range(0, self.n, self.SHADOW_CHUNK):
+            host = torch.from_numpy(self.data[s:s + self.SHADOW_CHUNK])
+            if self.data_dev is None:
+                held = host.to(torch.float32)
+            else:
+                host = host.to(self.data_dev.device)
+                held = self.data_dev[s:s + self.SHADOW_CHUNK]
+            if not torch.equal(held.to(torch.float64), host):
+                return False
+        return True
 
     # ---------------------------------------------------------------- bounds
     def _probe_bounds(self, mean_lo, mean_hi, w: int, ctx: _Ctx):
@@ -394,10 +439,20 @@ class NormQueryEngine(BaseEngine):
             return self._verify_multi_streamed(cand_ivs, ctxs)
         return self._verify_routed(cand_ivs, ctxs)
 
-    def _qhats(self, ctxs) -> torch.Tensor:
-        return self._dev(np.stack([(c.query - c.params["_mu_q"])
-                                   / c.params["_sd_q"] for c in ctxs]),
-                         torch.float32)
+    @staticmethod
+    def _qhat(ctx: _Ctx) -> np.ndarray:
+        """The z-normalized query in f64."""
+        return (ctx.query - ctx.params["_mu_q"]) / ctx.params["_sd_q"]
+
+    def _qhats(self, ctxs, dtype=torch.float32) -> torch.Tensor:
+        return self._dev(np.stack([self._qhat(c) for c in ctxs]), dtype)
+
+    def _stream_sub(self, buf: np.ndarray, dev32: torch.Tensor):
+        """The parent's ``confirm_on_device`` holds for its staged groups:
+        ``dev32`` is cast from ``buf``, a copy of the parent's shadow."""
+        sub = super()._stream_sub(buf, dev32)
+        sub.confirm_on_device = self.confirm_on_device
+        return sub
 
     def _verify_regions(self, cand_ivs, ctxs, region):
         """Region route: z-norm FFT distances with the guarded constraint,
@@ -454,9 +509,8 @@ class NormQueryEngine(BaseEngine):
                 rows, cols = np.nonzero(nearm)
                 near = (starts[rows] + cols, qids[rows])
         near_off, near_qid = near
-        return [self._confirm_znorm_exact(np.sort(near_off[near_qid == qi]),
-                                          ctx)
-                for qi, ctx in enumerate(ctxs)]
+        return self._confirm_exact([np.sort(near_off[near_qid == qi])
+                                    for qi in range(len(ctxs))], ctxs)
 
     def _verify_gather(self, cand_ivs, ctxs):
         """Scattered route: exact host constraint prefilter + PAA z-bound,
@@ -486,13 +540,63 @@ class NormQueryEngine(BaseEngine):
 
             d2, mu, sd = vf.run_bucketed(k2, total, offsets, qids,
                                          lo=self.qcfg.verify_batch, width=L)
-        results = []
+        nears = []
         start = 0
         for qi, ctx in enumerate(ctxs):
             sl = slice(start, start + counts[qi])
             start += counts[qi]
-            results.append(self._confirm_znorm(
+            nears.append(self._guarded_near(
                 cand_offs[qi], d2[sl], mu[sl], sd[sl], ctx))
+        return self._confirm_exact(nears, ctxs)
+
+    @staticmethod
+    def _exact_keep(d2, mu, sd, ctx: _Ctx) -> np.ndarray:
+        """The exact f64 test of a window: the constraints on its mean and
+        std, std > 0 and d2 <= eps^2."""
+        alpha = ctx.params["alpha"]
+        mu_q, sd_q = ctx.params["_mu_q"], ctx.params["_sd_q"]
+        ratio = sd / sd_q
+        return ((np.abs(mu - mu_q) <= ctx.params["beta"]) & (ratio <= alpha)
+                & (ratio >= 1.0 / alpha) & (sd > 0) & (d2 <= ctx.eps2))
+
+    def _confirm_exact(self, nears, ctxs):
+        """Exact f64 confirm of each query's near offsets: on the device
+        when it holds the shadow's values, else on the host."""
+        if self.confirm_on_device:
+            return self._confirm_znorm_device(nears, ctxs)
+        return [self._confirm_znorm_exact(o, c) for o, c in zip(nears, ctxs)]
+
+    def _confirm_znorm_device(self, nears, ctxs):
+        """Exact f64 confirm of a batch on the device: the f64 z-normalized
+        queries, the near offsets of every query and their query ids copied
+        to the device, one launch of K2's f64 form (``window_ed_f64``) over
+        the resident series, one read-back of (d2, mean, std), then
+        ``_exact_keep`` on the host for the rows within eps.  Returns what
+        ``_confirm_znorm_exact`` returns, query by query."""
+        counts = [o.size for o in nears]
+        for n_q, ctx in zip(counts, ctxs):
+            ctx.stats.n_device_confirmed = int(n_q)
+        if sum(counts) == 0:
+            return [_EMPTY for _ in ctxs]
+        with span("kv.verify.confirm") as sp:
+            q_hat = self._qhats(ctxs, torch.float64)
+            offsets = self._dev(np.concatenate(nears), torch.int64)
+            qids = self._dev(np.repeat(np.arange(len(ctxs), dtype=np.int32),
+                                       counts), torch.int32)
+            with sp.device(self.device):
+                out = window_ed_f64(self.data_dev, q_hat, offsets, qids,
+                                    ctxs[0].length)
+            (d2, mu, sd), = fetch("kv.verify.wait", out)
+            results = []
+            start = 0
+            for o, ctx in zip(nears, ctxs):
+                near = start + np.flatnonzero(d2[start:start + o.size]
+                                              <= ctx.eps2)
+                start += o.size
+                keep = near[self._exact_keep(d2[near], mu[near], sd[near],
+                                             ctx)]
+                results.append((o[keep - (start - o.size)],
+                                np.sqrt(d2[keep])))
         return results
 
     def _confirm_znorm_exact(self, near: np.ndarray, ctx: _Ctx):
@@ -500,35 +604,21 @@ class NormQueryEngine(BaseEngine):
         ctx.stats.n_host_rechecked = int(near.size)
         if near.size == 0:
             return _EMPTY
-        alpha = ctx.params["alpha"]
-        beta = ctx.params["beta"]
-        mu_q, sd_q = ctx.params["_mu_q"], ctx.params["_sd_q"]
-        L = ctx.length
-        q_hat = (ctx.query - mu_q) / sd_q
-        cols = np.arange(L)
+        q_hat = self._qhat(ctx)
 
         def piece(p):
-            x = self.data[p[:, None] + cols[None, :]].astype(
-                np.float64, copy=False)
-            mu_h = x.mean(axis=1)
-            var_h = np.maximum(np.mean(x * x, axis=1) - mu_h * mu_h, 0.0)
-            sd_h = np.sqrt(var_h)
-            ratio_h = sd_h / sd_q
-            ok_h = (np.abs(mu_h - mu_q) <= beta) & (ratio_h <= alpha) & \
-                   (ratio_h >= 1.0 / alpha) & (sd_h > 0)
-            zt = (x - mu_h[:, None]) / np.where(sd_h > 0, sd_h, 1.0)[:, None]
-            diff = zt - q_hat[None, :]
-            d2h = np.einsum("ij,ij->i", diff, diff)
-            keep = ok_h & (d2h <= ctx.eps2)
+            d2h, mu_h, sd_h = host_znorm_stats(self.data, p, q_hat)
+            keep = self._exact_keep(d2h, mu_h, sd_h, ctx)
             return p[keep], np.sqrt(d2h[keep])
 
         with span("kv.verify.confirm"):
             return self._chunked_confirm(near, piece)
 
-    def _confirm_znorm(self, offsets, d2, mu, sd, ctx: _Ctx):
-        """Guarded device pre-filter -> exact f64 host confirmation."""
+    def _guarded_near(self, offsets, d2, mu, sd, ctx: _Ctx) -> np.ndarray:
+        """The gather route's guarded pre-filter of K2's f32 (d2, mean,
+        std): the offsets the exact confirm takes."""
         if offsets.size == 0:
-            return _EMPTY
+            return offsets
         alpha = ctx.params["alpha"]
         beta = ctx.params["beta"]
         mu_q, sd_q = ctx.params["_mu_q"], ctx.params["_sd_q"]
@@ -539,5 +629,4 @@ class NormQueryEngine(BaseEngine):
         ok = (np.abs(mu - mu_q) <= beta + cg) & (ratio <= alpha + cg) & \
              (ratio >= 1.0 / alpha - cg) & (sd > 0)
         thresh = ctx.eps2 + vf.guard_threshold(ctx.eps2, L, self.qcfg.verify_guard)
-        near = offsets[ok & (d2 <= thresh)]
-        return self._confirm_znorm_exact(near, ctx)
+        return offsets[ok & (d2 <= thresh)]

@@ -115,6 +115,12 @@ def lib() -> ctypes.CDLL:
             P, P, I, I,                 # offsets (int64), qids (int32), B, znorm
             P, P, P,                    # d2, mean, std
             P]                          # stream
+        cdll.kvm_window_ed_f64.restype = I
+        cdll.kvm_window_ed_f64.argtypes = [
+            P, L, P, I,                 # data (f32), n, queries (f64), L
+            P, P, I,                    # offsets (int64), qids (int32), B
+            P, P, P,                    # d2, mean, std (f64)
+            P]                          # stream
         for name, n_out in (("dtw_diag", 1), ("dtw_ds", 2), ("dtw_rows", 1)):
             fn = getattr(cdll, f"kvm_{name}")
             fn.restype = I

@@ -6,8 +6,10 @@ compares data[offsets[b] : offsets[b] + L] (offsets int64, clamped to
 [0, n - L] like jax.lax.dynamic_slice) with queries[qids[b]].  ``window_ed``
 launches the CUDA kernel (csrc/window_ed.cu) for CUDA tensors and runs
 ``window_ed_plain`` for CPU tensors; ``window_ed_plain`` is the plain PyTorch
-version on any device.  ``ed_distances`` and ``znorm_ed_distances`` take one
-query for the whole batch, as the JAX functions of those names do.
+version on any device.  ``window_ed_f64`` is K2's f64 form, the exact
+confirm of cNSM-ED's phase 2 on the card (the JAX package confirms on the
+host).  ``ed_distances`` and ``znorm_ed_distances`` take one query for the
+whole batch, as the JAX functions of those names do.
 
 The JAX package's tiled barrel-shift gather and shift tables are TPU devices
 and are not ported.
@@ -34,16 +36,24 @@ def _gather(data: torch.Tensor, offsets: torch.Tensor, length: int):
 
 
 def window_ed_plain(data, queries, offsets, qids, length: int, znorm: bool):
-    """Plain PyTorch version of K2: d2 (raw) or (d2, mean, std) (z-norm)."""
+    """Plain PyTorch version of K2: d2 (raw) or (d2, mean, std) (z-norm).
+    With f64 queries it is the plain version of K2's f64 form: the windows
+    promoted to f64, the sums over L divided by L."""
     x = _gather(data, offsets, length)
     q = queries[qids.long()]
     if not znorm:
         diff = x - q
         return torch.sum(diff * diff, dim=1)
-    inv_l = float(np.float32(1.0 / length))
-    mean = torch.sum(x, dim=1) * inv_l
-    centered = x - mean[:, None]
-    var = torch.sum(centered * centered, dim=1) * inv_l
+    if queries.dtype == torch.float64:
+        x = x.to(torch.float64)
+        mean = torch.sum(x, dim=1) / length
+        centered = x - mean[:, None]
+        var = torch.sum(centered * centered, dim=1) / length
+    else:
+        inv_l = float(np.float32(1.0 / length))
+        mean = torch.sum(x, dim=1) * inv_l
+        centered = x - mean[:, None]
+        var = torch.sum(centered * centered, dim=1) * inv_l
     std = torch.sqrt(var)
     safe = torch.where(std > 0, std, 1.0)
     zdiff = centered / safe[:, None] - q
@@ -94,6 +104,54 @@ window_ed.launches = 0
 #: Launches by shape, "B{rows}_L{length}_{raw|znorm}", counted with
 #: ``launches``.
 window_ed.shapes = {}
+
+
+def window_ed_f64(data, queries_hat, offsets, qids, length: int):
+    """K2's f64 form, the exact confirm of phase 2: the rows (d2, mean,
+    std) of one (3, B) f64 tensor, of the windows of the f32 series
+    ``data`` (promoted on load) against the f64 z-normalized rows
+    ``queries_hat``; d2 is inf where std == 0.  The CUDA kernel for CUDA
+    tensors, ``window_ed_plain``'s f64 mode for CPU tensors.  Raises on any
+    other dtype, shape or layout."""
+    dev = data.device
+    B = offsets.shape[0]
+    ok = (data.dtype == torch.float32 and data.dim() == 1
+          and data.is_contiguous() and queries_hat.device == dev
+          and queries_hat.dtype == torch.float64 and queries_hat.dim() == 2
+          and queries_hat.shape[1] == length and queries_hat.is_contiguous()
+          and offsets.device == dev and offsets.dtype == torch.int64
+          and offsets.dim() == 1 and offsets.is_contiguous()
+          and qids.device == dev and qids.dtype == torch.int32
+          and qids.shape == (B,) and qids.is_contiguous()
+          and 0 < length <= data.shape[0] and B > 0)
+    if not ok:
+        raise ValueError(
+            "window_ed_f64: need contiguous f32 data (n,), f64 queries "
+            "(Q, L), int64 offsets (B,), int32 qids (B,) on one device, "
+            f"0 < L <= n, B > 0 (got data {tuple(data.shape)} "
+            f"{data.dtype}, queries {tuple(queries_hat.shape)} "
+            f"{queries_hat.dtype}, offsets {offsets.dtype}, qids "
+            f"{qids.dtype}, L={length})")
+    if backend.route(data) == "plain":
+        return torch.stack(window_ed_plain(data, queries_hat, offsets, qids,
+                                           length, znorm=True))
+    out = torch.empty((3, B), dtype=torch.float64, device=dev)
+    ptr = out.data_ptr()
+    stream = torch.cuda.current_stream(dev).cuda_stream
+    code = kernels.lib().kvm_window_ed_f64(
+        data.data_ptr(), data.shape[0], queries_hat.data_ptr(), length,
+        offsets.data_ptr(), qids.data_ptr(), B, ptr, ptr + 8 * B,
+        ptr + 16 * B, stream)
+    window_ed_f64.launches += 1
+    key = f"B{B}_L{length}"
+    window_ed_f64.shapes[key] = window_ed_f64.shapes.get(key, 0) + 1
+    kernels.check(code, "window_ed_f64")
+    return out
+
+
+window_ed_f64.launches = 0
+#: Launches by shape, "B{rows}_L{length}", counted with ``launches``.
+window_ed_f64.shapes = {}
 
 
 def ed_distances_multi(data, queries, offsets, qids, length: int):

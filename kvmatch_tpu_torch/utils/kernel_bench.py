@@ -41,6 +41,7 @@ import torch
 # tensor cores -- the published peaks of one H100 SXM at 700 W.
 HBM_BYTES_PER_S = 3.35e12
 F32_OPS_PER_S = 67e12
+F64_OPS_PER_S = 33.5e12
 # f32 operations per unit of work, counted in the kernels' sources:
 # K1 per (position, query, plan segment) term of the bound: 1 convert, 4 for
 # the key bounds, 4 for delta, 3 for the bound sum; cNSM adds 2 + 4 for the
@@ -78,6 +79,9 @@ ROUNDS = 3
 #: JAX package's compare shapes, the kernels phase's (verify.bucket_size's
 #: cap at L = 8192) and the gather section's.
 K2_SHAPES = ((4096, 1024), (1024, 8192), (16384, 8192), (65536, 1024))
+#: K2's f64 form at the cells' confirm loads (B, L): about 700 rows a query
+#: of cnsm_ed.b1.sel3e-7, about 1,100 a batch of cnsm_ed.b8.sel3e-8.
+K2_F64_SHAPES = ((700, 4096), (1100, 4096))
 #: Queries of a K2 measurement (the north-star batch's 8).
 K2_QUERIES = 8
 #: Traces ``device_ms`` takes before it gives up on one that is whole.
@@ -102,10 +106,12 @@ def card_line() -> str:
     return out.stdout.strip().splitlines()[0].strip()
 
 
-def bound(nbytes: float, ops: float) -> dict:
-    """bound_ms and what sets it, from the work's bytes and f32 ops."""
+def bound(nbytes: float, ops: float, ops_per_s: float = F32_OPS_PER_S
+          ) -> dict:
+    """bound_ms and what sets it, from the work's bytes and its ops (f32,
+    unless ``ops_per_s`` gives another rate)."""
     t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
-    t_ops = ops / F32_OPS_PER_S * 1e3
+    t_ops = ops / ops_per_s * 1e3
     return dict(bound_ms=max(t_bytes, t_ops),
                 bound_by="bytes" if t_bytes >= t_ops else "operations",
                 bound_bytes=nbytes, bound_ops=ops)
@@ -117,6 +123,14 @@ def k2_work(B: int, L: int, Q: int, znorm: bool) -> dict:
     mean and std) written once; K2_OPS a window element."""
     return bound(B * (4 * L + 12) + Q * L * 4 + B * 4 * (3 if znorm else 1),
                  K2_OPS["znorm" if znorm else "raw"] * B * L)
+
+
+def k2_f64_work(B: int, L: int, Q: int) -> dict:
+    """``bound`` of K2's f64 form: its bytes as ``k2_work``'s z-norm form
+    with f64 query rows and outputs; its K2_OPS["znorm"] operations a window
+    element are f64, counted at F64_OPS_PER_S."""
+    return bound(B * (4 * L + 12) + Q * L * 8 + B * 8 * 3,
+                 K2_OPS["znorm"] * B * L, F64_OPS_PER_S)
 
 
 def band_cells(L: int, r: int) -> int:
@@ -535,10 +549,58 @@ def window_kernel_times(data_dev: torch.Tensor, shapes=K2_SHAPES,
     return out
 
 
+def window_f64_times(data_dev: torch.Tensor, shapes=K2_F64_SHAPES,
+                     calls: int = 20, seed: int = 5) -> Dict[str, dict]:
+    """K2's f64 form (``ops/ed.window_ed_f64``) on the card at each (B, L)
+    of ``shapes``, against K2_QUERIES f64 query rows, as
+    ``window_kernel_times`` times the f32 forms: ``device_ms`` (the kernel
+    alone), ``host_us`` (the wrapper's host time a call), the bound
+    (``k2_f64_work``) and its share, and ``plain_ms``, the plain version
+    (``window_ed_plain``'s f64 mode) a call by CUDA events."""
+    from ..ops.ed import _gather, window_ed_f64, window_ed_plain
+    device = data_dev.device
+    if device.type != "cuda":
+        raise ValueError("window_f64_times measures the kernel on the card")
+    n = int(data_dev.shape[0])
+    rng = np.random.default_rng(seed)
+    out: Dict[str, dict] = {}
+    for B, L in shapes:
+        sets = max(1, -(-K2_WALK_BYTES // (B * L * 4)))
+        offs = [_on(device, rng.integers(0, n - L + 1, B), torch.int64)
+                for _ in range(sets)]
+        qids = _on(device, np.sort(rng.integers(0, K2_QUERIES, B))
+                   .astype(np.int32))
+        q = _gather(data_dev, _on(device, rng.integers(
+            0, n - L + 1, K2_QUERIES), torch.int64), L).double()
+        qhat = ((q - q.mean(dim=1, keepdim=True))
+                / q.std(dim=1, unbiased=False, keepdim=True)).contiguous()
+
+        def fn(i):
+            return window_ed_f64(data_dev, qhat, offs[i % sets], qids, L)
+        work = k2_f64_work(B, L, K2_QUERIES)
+        (ms,), _, traces = device_ms(
+            [fn], calls, device, K2_KERNEL,
+            floors=[work["bound_ms"] / MAX_SHARE])
+        torch.cuda.synchronize(device)
+        t0 = time.perf_counter()
+        for i in range(calls):
+            fn(i)
+        host_s = time.perf_counter() - t0
+        torch.cuda.synchronize(device)
+        plain = timed_ms(lambda: window_ed_plain(
+            data_dev, qhat, offs[0], qids, L, znorm=True), 5, device)
+        out[f"B{B}_L{L}"] = dict(
+            device_ms=ms, host_us=host_s / calls * 1e6, plain_ms=plain,
+            share_of_bound=work["bound_ms"] / ms, traces=traces,
+            offset_sets=sets, **work)
+    return out
+
+
 def main(argv=None) -> int:
-    """Time K2 on the card (``window_kernel_times``) on the n-point series
-    of seed 20260817 (chip_smoke.py's), resident on the card; one JSON line
-    with the card's name and power limit."""
+    """Time K2 on the card (``window_kernel_times``, and its f64 form,
+    ``window_f64_times``) on the n-point series of seed 20260817
+    (chip_smoke.py's), resident on the card; one JSON line with the card's
+    name and power limit."""
     import argparse
     import json
     import sys
@@ -557,9 +619,10 @@ def main(argv=None) -> int:
     data = torch.as_tensor(generate_series(args.n, seed=20260817),
                            dtype=torch.float32, device=device)
     times = window_kernel_times(data, calls=args.calls)
+    f64 = window_f64_times(data, calls=args.calls)
     print(json.dumps(dict(card=card_line(),
                           device=torch.cuda.get_device_name(device),
-                          n=args.n, calls=args.calls, k2=times)))
+                          n=args.n, calls=args.calls, k2=times, k2_f64=f64)))
     return 0
 
 

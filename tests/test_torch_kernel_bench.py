@@ -233,12 +233,26 @@ def test_k2_work_counts_each_byte_once():
         4096 * (4 * 1024 + 12) + 8 * 1024 * 4 + 4096 * 4)
 
 
+def test_k2_f64_bound_counts_its_bytes():
+    """K2's f64 form: the f32 windows, offsets and query ids, f64 query rows
+    and three f64 outputs; its operations at the f64 rate."""
+    w = kb.k2_f64_work(1100, 4096, 8)
+    assert w["bound_bytes"] == (1100 * (4 * 4096 + 12) + 8 * 4096 * 8
+                                + 1100 * 24)
+    assert w["bound_ops"] == kb.K2_OPS["znorm"] * 1100 * 4096
+    assert w["bound_by"] == "bytes"
+    t_ops = w["bound_ops"] / kb.F64_OPS_PER_S * 1e3
+    assert t_ops < w["bound_ms"] == w["bound_bytes"] / kb.HBM_BYTES_PER_S * 1e3
+
+
 def test_k2_device_times_refuse_the_cpu(monkeypatch):
     """K2's device times are the card's: on a CPU tensor the timers raise,
     and the command exits 2 without a card."""
     data = torch.zeros(10_000)
     with pytest.raises(ValueError, match="card"):
         kb.window_kernel_times(data, shapes=((4, 100),))
+    with pytest.raises(ValueError, match="card"):
+        kb.window_f64_times(data, shapes=((4, 100),))
     with pytest.raises(ValueError, match="CUDA"):
         kb.device_ms([lambda i: None], 2, data.device)
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)

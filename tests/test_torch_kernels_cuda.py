@@ -18,6 +18,9 @@ blocks of steps as replayed CUDA graphs and equal their loop form
 (tests/test_torch_plain_blocks.py) bit for bit.  K2 (window distances):
 |d2 - d2_plain| <= 1e-5 L + 1e-5 d2 and mean/std within 1e-5 of the
 window's max |x| (summation order differs; see tests/test_torch_ed.py).
+K2's f64 form: d2 and std within 1e-12 relative of window_ed_plain's f64
+mode (d2 within 1e-12 L near 0), the mean within 1e-12 of the window's
+max |x|.
 The single-query ops (ed_distances, znorm_ed_distances, the region
 functions, dtw_banded_batch, dtw_banded_batch_multi,
 dtw_banded_batch_ds_multi) equal their _multi calls bit for bit and raise
@@ -280,7 +283,68 @@ def test_window_kernel_rejects_int32_offsets(dev):
                       False)
 
 
+@pytest.mark.parametrize("shift", [0, 1])
+@pytest.mark.parametrize("L,B", K2_CASES)
+def test_window_f64_kernel_equals_plain(dev, L, B, shift):
+    """K2's f64 form against window_ed_plain's f64 mode at K2's shapes,
+    offsets and edges: d2 within 1e-12 relative (1e-12 L near 0, its
+    z-space scale), std within 1e-12 relative and the mean within 1e-12 of
+    the window's max |x|; the flat window's std is 0 and its d2 inf."""
+    n, Q = 200_000, 5
+    rng = np.random.default_rng(11 * L + B + shift)
+    base = generate_series(n + shift, seed=9).astype(np.float32)
+    flat = 5000
+    base[shift + flat:shift + flat + L] = -1.25
+    data = torch.as_tensor(base, device=dev)[shift:]
+    special = [n - L + 7, 0, 1, 2, 3, n - L, n - L - 1, n - L - 2,
+               n - L - 3, -3, flat, n + 50]
+    offs = rng.integers(0, n - L + 1, B)
+    offs[:min(B, len(special))] = special[:B]
+    queries = np.stack([base[shift + o:shift + o + L].astype(np.float64)
+                        for o in rng.integers(0, n - L, Q)])
+    queries = (queries - queries.mean(1, keepdims=True)) / \
+        queries.std(1, keepdims=True)
+    args = (data, torch.as_tensor(queries, device=dev),
+            torch.as_tensor(offs, device=dev),
+            torch.as_tensor(rng.integers(0, Q, B).astype(np.int32),
+                            device=dev), L)
+    before = ted.window_ed_f64.launches
+    shape_before = ted.window_ed_f64.shapes.get(f"B{B}_L{L}", 0)
+    got = [t.cpu().numpy() for t in ted.window_ed_f64(*args)]
+    assert ted.window_ed_f64.launches == before + 1
+    assert ted.window_ed_f64.shapes[f"B{B}_L{L}"] == shape_before + 1
+    want = [t.cpu().numpy() for t in ted.window_ed_plain(*args, znorm=True)]
+    assert all(t.dtype == np.float64 for t in got)
+    finite = np.isfinite(want[0])
+    np.testing.assert_array_equal(np.isfinite(got[0]), finite)
+    if B > special.index(flat):
+        assert not finite[special.index(flat)]
+        assert got[2][special.index(flat)] == 0.0
+    np.testing.assert_allclose(got[0][finite], want[0][finite], rtol=1e-12,
+                               atol=1e-12 * L)
+    np.testing.assert_allclose(got[2], want[2], rtol=1e-12, atol=0)
+    start = np.clip(offs, 0, n - L)
+    scale = np.abs(base[shift + start[:, None] + np.arange(L)]).max(axis=1)
+    assert np.all(np.abs(got[1] - want[1]) <= 1e-12 * scale)
+
+
+def test_window_f64_kernel_rejects_bad_input(dev):
+    data = torch.zeros(1000, device=dev)
+    q = torch.zeros((1, 100), dtype=torch.float64, device=dev)
+    off = torch.zeros(4, dtype=torch.int64, device=dev)
+    qid = torch.zeros(4, dtype=torch.int32, device=dev)
+    before = ted.window_ed_f64.launches
+    for args in ((data, q.float(), off, qid), (data, q, qid, qid),
+                 (torch.zeros(2000, device=dev)[::2], q, off, qid),
+                 (data, q, off.cpu(), qid)):
+        with pytest.raises(ValueError, match="window_ed_f64"):
+            ted.window_ed_f64(*args, 100)
+    assert ted.window_ed_f64.launches == before
+
+
 def test_engines_on_the_card_equal_oracle(dev):
+    """The f64 series (its values not f32's) confirms on the host, its f32
+    copy on the card with K2's f64 form; both equal the oracle."""
     data = generate_series(200_000, seed=7)
     icfg = IndexConfig()
     host, data_dev = series_to_device(data, dev)
@@ -290,7 +354,14 @@ def test_engines_on_the_card_equal_oracle(dev):
                            device_data=data_dev)
     raw = QueryEngine(host, index=index, icfg=icfg, qcfg=qcfg,
                       device_data=data_dev)
+    data32 = data.astype(np.float32)
+    host32, dev32 = series_to_device(data32, dev)
+    norm32 = NormQueryEngine(
+        host32, index=build_index_device_stats(host32, icfg, data_dev=dev32),
+        icfg=icfg, qcfg=qcfg, device_data=dev32)
+    assert not norm.confirm_on_device and norm32.confirm_on_device
     k1, k2 = probe_flags.launches, ted.window_ed.launches
+    k2_f64 = ted.window_ed_f64.launches
     for off, L, eps in [(1234, 1600, 5.0), (30_000, 4096, 8.0),
                         (7777, 800, 1.0)]:
         q = data[off:off + L]
@@ -298,10 +369,19 @@ def test_engines_on_the_card_equal_oracle(dev):
         want, _ = oracle.nsm_ed(data, q, eps, alpha=1.5, beta=10.0,
                                 device=dev)
         assert set(res.offsets.tolist()) == set(want.tolist())
+        assert res.stats.n_device_confirmed == 0
         res = raw.query(q, 2 * eps)
         want, _ = oracle.rsm_ed(data, q, 2 * eps, device=dev)
         assert set(res.offsets.tolist()) == set(want.tolist())
+        q = host32[off:off + L]
+        res = norm32.query(q, eps, alpha=1.5, beta=10.0)
+        want, _ = oracle.nsm_ed(host32, q, eps, alpha=1.5, beta=10.0,
+                                device=dev)
+        assert set(res.offsets.tolist()) == set(want.tolist())
+        assert res.stats.n_device_confirmed > 0
+        assert res.stats.n_host_rechecked == 0
     assert probe_flags.launches > k1 and ted.window_ed.launches > k2
+    assert ted.window_ed_f64.launches > k2_f64
 
 
 # ------------------------------------------ full device build, streaming

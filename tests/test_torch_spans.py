@@ -16,6 +16,7 @@ import torch
 from kvmatch_tpu_torch import NormQueryEngine
 from kvmatch_tpu_torch.config import IndexConfig, QueryConfig
 from kvmatch_tpu_torch.data.generators import generate_series
+from kvmatch_tpu_torch.engine import norm_ed
 from kvmatch_tpu_torch.index.device_build import (build_index_device,
                                                   build_index_device_stats)
 from kvmatch_tpu_torch.state import series_to_device
@@ -41,8 +42,8 @@ PARENT = {"kv.query": None, "kv.plan": "kv.query", "kv.probe": "kv.query",
 STAMP_NS = 500_000
 
 
-def _engine(device):
-    data = generate_series(N, seed=5)
+def _engine(device, dtype=np.float64):
+    data = generate_series(N, seed=5).astype(dtype)
     host, dev = series_to_device(data, device)
     index = build_index_device_stats(host, IndexConfig(), data_dev=dev)
     return NormQueryEngine(host, index=index, qcfg=SERVE, device_data=dev)
@@ -51,6 +52,12 @@ def _engine(device):
 @pytest.fixture(scope="module")
 def eng():
     return _engine("cpu")
+
+
+@pytest.fixture(scope="module")
+def eng32():
+    """The series' f32 copy: the engine confirms on the device."""
+    return _engine("cpu", np.float32)
 
 
 def _query(eng, route):
@@ -163,15 +170,38 @@ def test_spans_nest_and_self_times_fit_the_request(eng, entry, tmp_path):
 
 
 @pytest.mark.parametrize("entry", ["region", "gather", "batch"])
-def test_confirm_rows_sum_to_host_rechecks(eng, entry, tmp_path):
-    """Each query with host rechecks (``n_host_rechecked``, the rows of its
-    exact confirm) has one ``kv.verify.confirm`` span; a query with none
-    has none."""
-    out, _ = _traced((lambda: _batch(eng)) if entry == "batch" else
-                     (lambda: [_query(eng, entry)]), tmp_path)
+def test_confirm_rows_sum_to_host_rechecks(eng, eng32, entry, tmp_path,
+                                           monkeypatch):
+    """On the host route (a series whose values f32 does not hold), each
+    query with host rechecks (``n_host_rechecked``, the rows of its exact
+    confirm) has one ``kv.verify.confirm`` span; a query with none has
+    none.  On the device route (the series' f32 copy) a batch has one span,
+    holding the one launch of K2's f64 form and its read-back, and the
+    launch's rows are the batch's ``n_device_confirmed``; no query
+    rechecks on the host."""
+    def run(e):
+        return _traced((lambda: _batch(e)) if entry == "batch" else
+                       (lambda: [_query(e, entry)]), tmp_path)[0]
+
+    assert not eng.confirm_on_device and eng32.confirm_on_device
+    out = run(eng)
     rec = out[0].stats.trace
     assert _names(rec).count("kv.verify.confirm") == \
         sum(r.stats.n_host_rechecked > 0 for r in out) > 0
+    rows = []
+
+    def spy(*a, _orig=norm_ed.window_ed_f64):
+        rows.append(a[2].shape[0])
+        return _orig(*a)
+    monkeypatch.setattr(norm_ed, "window_ed_f64", spy)
+    out = run(eng32)
+    rec = out[0].stats.trace
+    confirm = [i for i, s in enumerate(rec) if s["name"] == "kv.verify.confirm"]
+    assert len(confirm) == len(rows) == 1
+    assert sum(r.stats.n_device_confirmed for r in out) == rows[0] > 0
+    assert all(r.stats.n_host_rechecked == 0 for r in out)
+    assert [s["name"] for s in rec if s["parent"] == confirm[0]] == \
+        ["kv.verify.wait"]
 
 
 def test_no_profiler_records_nothing(eng, monkeypatch):
