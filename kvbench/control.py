@@ -43,16 +43,20 @@ class Float32Reference:
                          int(cfg["L"]), torch.float32)
 
     def query(self, q, eps, **params):
-        offs, dist = self.ref.answers(
-            self.rows, torch.as_tensor(np.asarray(q, np.float32),
-                                       device=self.rows.x.device),
-            float(eps), **params)
-        order = np.argsort(dist, kind="stable")
-        return types.SimpleNamespace(offsets=offs[order],
-                                     distances=dist[order], stats=None)
+        return self.query_batch([q], [eps], **params)[0]
 
     def query_batch(self, qs, eps, **params):
-        return [self.query(q, e, **params) for q, e in zip(qs, eps)]
+        dev = self.rows.x.device
+        out = []
+        for offs, dist in self.ref.answers(
+                self.rows, [torch.as_tensor(np.asarray(q, np.float32),
+                                            device=dev) for q in qs],
+                [float(e) for e in eps], **params):
+            order = np.argsort(dist, kind="stable")
+            out.append(types.SimpleNamespace(offsets=offs[order],
+                                             distances=dist[order],
+                                             stats=None))
+        return out
 
 
 def build_control(spec: dict, inputs: dict, device) -> dict:

@@ -12,13 +12,16 @@ edit here.
 
 One run of a cell:
 
-1. set-up (``setup_s`` from process start): the series (the frozen
-   generator, the configuration's ``series_seed``), the pool of
-   self-queries (the traffic's ``pool_seed``) cut into fixed batches, the
-   queries checked besides them (drawn from ``--seed``), each query's eps
-   (the frozen calibration over the reference's own FFT profile), then the
-   program's state: the series on the card, ``build_index_device_stats``
-   (``index.build_s``), the engine, and warm requests;
+1. set-up: the series (a frozen generator, the configuration's
+   ``series_seed``; ``generate_s``), the pool of self-queries (the
+   traffic's ``pool_seed``) cut into fixed batches, the queries checked
+   besides them (drawn from ``--seed``), each query's eps (the frozen
+   calibration over the reference's own FFT profile, one walk of the
+   series for every query; ``calibration_s``), then the program's state:
+   the series on the card, ``build_index_device_stats`` (``index.build_s``),
+   the engine, and warm requests.  ``setup_s`` is the time from process
+   start to the first timed request less ``generate_s`` and
+   ``calibration_s``: the harness's own work is not the program's;
 2. the window: one closed-loop client sends the pool's batches, each cycle
    through them in an order drawn from ``--seed``, until ``seconds`` have
    passed, and waits for the last one; with ``trace`` the window runs under
@@ -26,12 +29,13 @@ One run of a cell:
    the same entry, in batches of the same size, outside the window;
 3. the device's peak memory is read, the program's state freed, and the
    reference recomputes the answers of every query served from the series
-   alone; every response is compared with them.
+   alone, in one walk of the series; every response is compared with them.
 """
 
 from __future__ import annotations
 
 import gc
+import heapq
 import importlib.util
 import json
 import statistics
@@ -126,6 +130,20 @@ def seed_ints(seed: int) -> List[int]:
     return [s & 0xFFFFFFFF, s >> 32]
 
 
+def make_series(cfg: dict) -> np.ndarray:
+    """The configuration's float32 series from its ``series_seed``: by
+    ``frozen/generators.py:generate_series``, or by the module of
+    ``frozen/`` that its ``generator`` names (``generate(n, seed)``)."""
+    n, seed = int(cfg["n"]), int(cfg["series_seed"])
+    name = cfg.get("generator")
+    if name is None:
+        return generate_series(n, seed=seed, dtype=np.float32)
+    if not (HERE / "frozen" / f"{name}.py").is_file():
+        raise CellError(f"no generator {name!r} in frozen/")
+    return importlib.import_module(
+        f"{__package__}.frozen.{name}").generate(n, seed)
+
+
 def make_inputs(spec: dict, seed: int, device) -> dict:
     """The series (the configuration's ``series_seed``), the queries and
     their eps, and the order in which the window sends them.  The pool the
@@ -133,13 +151,15 @@ def make_inputs(spec: dict, seed: int, device) -> dict:
     that every seed does the same work in the window; the order of its
     batches and the ``check_queries`` self-queries sent after the window
     (indices ``pool`` on) are drawn from ``seed``.  Each set of offsets
-    takes one in each of as many equal strata of the series."""
+    takes one in each of as many equal strata of the series.  Every
+    query's eps comes from one walk of the reference over the series
+    (``calibration_s``, the series' copy to the device included)."""
     cfg, tr = spec["config"], spec["traffic"]
     n, L = int(cfg["n"]), int(cfg["L"])
     t0 = time.perf_counter()
-    series = generate_series(n, seed=int(cfg["series_seed"]),
-                             dtype=np.float32)
+    series = make_series(cfg)
     gen_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
     pool, b = int(tr["pool"]), int(tr["batch"])
     fixed = np.random.default_rng(int(tr["pool_seed"]))
     rng = np.random.default_rng(seed_ints(seed))
@@ -147,21 +167,15 @@ def make_inputs(spec: dict, seed: int, device) -> dict:
                            _strata(rng, n - L + 1, int(tr["check_queries"]))])
     batches = fixed.permutation(pool)[:pool // b * b].reshape(-1, b)
     cal = _reference(cfg["calibration"])
-    x = torch.as_tensor(series, device=device)
-    rows = Rows(x, L, torch.float64)
-    del x
-    params = cfg["params"]
-    eps = np.empty(offs.size)
-    t0 = time.perf_counter()
-    for j, o in enumerate(offs):
-        q = rows.x[o:o + L]
-        ds = cal.topk(rows, q, int(tr["answers"]), params["alpha"],
-                      params["beta"])
-        eps[j] = calibrate.eps_for_target(ds, int(tr["answers"]))
-    cal_s = time.perf_counter() - t0
+    rows = Rows(torch.as_tensor(series, device=device), L, torch.float64)
+    params, k = cfg["params"], int(tr["answers"])
+    ds = cal.topk(rows, [rows.x[o:o + L] for o in offs], k,
+                  params["alpha"], params["beta"])
+    eps = np.array([calibrate.eps_for_target(d, k) for d in ds])
     del rows
     _free(device)
     queries = np.stack([series[o:o + L] for o in offs]).astype(np.float64)
+    cal_s = time.perf_counter() - t0
     return dict(series=series, offs=offs, batches=batches, eps=eps,
                 queries=queries, calibration_s=cal_s, generate_s=gen_s,
                 rng=rng, cycles=[], extra=np.arange(pool, offs.size))
@@ -178,6 +192,16 @@ def _free(device) -> None:
     if torch.device(device).type == "cuda":
         torch.cuda.synchronize(device)
         torch.cuda.empty_cache()
+
+
+def _peak(device) -> int:
+    """The device's peak of allocated bytes since the last call, which
+    starts a new one (0 off a CUDA device)."""
+    if device.type != "cuda":
+        return 0
+    peak = torch.cuda.max_memory_allocated(device)
+    torch.cuda.reset_peak_memory_stats(device)
+    return peak
 
 
 def _sync(device) -> None:
@@ -361,13 +385,14 @@ def check(spec: dict, inputs: dict, reqs: List[dict], device,
     ref = _reference(cfg["semantics"])
     t0 = time.perf_counter()
     rows = Rows(torch.as_tensor(inputs["series"], device=device), L, dtype)
+    offs = [int(inputs["offs"][qi]) for qi in chosen]
+    want_all = ref.answers(rows, [rows.x[o:o + L] for o in offs],
+                           [float(inputs["eps"][qi]) for qi in chosen],
+                           **params)
     missing = extra = compared = answers = 0
     gap = 0.0
     counts, examples = [], []
-    for qi in chosen:
-        o = int(inputs["offs"][qi])
-        r_off, r_d = ref.answers(rows, rows.x[o:o + L],
-                                 float(inputs["eps"][qi]), **params)
+    for qi, o, (r_off, r_d) in zip(chosen, offs, want_all):
         counts.append(int(r_off.size))
         want = dict(zip(r_off.tolist(), r_d.tolist()))
         for res in served[qi]:
@@ -431,6 +456,28 @@ class Run:
         return busy / 1e9, (b1 - b0) / 1e9
 
 
+def innermost(spans: list, gaps: list) -> list:
+    """For each gap (start, end) of ``gaps``, sorted by start, the name of
+    the shortest span (name, start, end) of ``spans`` that holds the gap's
+    middle, the first of ``spans`` among equally long ones, or "client".
+    One sweep: the spans that have begun by a middle wait in a heap by
+    length, and those that ended before it leave the heap's top for good,
+    since the middles only grow."""
+    order = sorted(range(len(spans)), key=lambda j: spans[j][1])
+    heap: list = []
+    k, out = 0, []
+    for g0, g1 in gaps:
+        mid = (g0 + g1) / 2
+        while k < len(order) and spans[order[k]][1] <= mid:
+            n, s, t = spans[order[k]]
+            heapq.heappush(heap, (t - s, order[k], t, n))
+            k += 1
+        while heap and heap[0][2] < mid:
+            heapq.heappop(heap)
+        out.append(heap[0][3] if heap else "client")
+    return out
+
+
 def breakdown(run: Run) -> dict:
     """The device operations that took most time, and the device's idle
     time by the innermost host span it fell under."""
@@ -449,11 +496,8 @@ def breakdown(run: Run) -> dict:
         end = max(end, hi)
     if b1 > end:
         gaps.append((end, b1))
-    spans = sorted(run.spans, key=lambda x: x[2] - x[1])
     by_label: Dict[str, float] = {}
-    for g0, g1 in gaps:
-        mid = (g0 + g1) / 2
-        label = next((n for n, s, t in spans if s <= mid <= t), "client")
+    for (g0, g1), label in zip(gaps, innermost(run.spans, gaps)):
         by_label[label] = by_label.get(label, 0.0) + (g1 - g0) / 1e9
     gaps_top = sorted(by_label.items(), key=lambda kv: -kv[1])[:TOP]
     return dict(device_ops=[[k, v] for k, v in ops],
@@ -470,13 +514,12 @@ def run_cell(spec: dict, seed: int, seconds: float, trace: bool, device,
     program's."""
     device = torch.device(device)
     inputs = make_inputs(spec, seed, device)
-    if device.type == "cuda":
-        torch.cuda.reset_peak_memory_stats(device)
+    harness_peak = _peak(device)
     state = build(spec, inputs, device)
     served = serve(spec, state, inputs, seconds, trace, device)
-    peak = (torch.cuda.max_memory_allocated(device)
-            if device.type == "cuda" else 0)
-    setup = dict(setup_s=served["t_window_start"] - t_start,
+    peak = _peak(device)
+    setup = dict(setup_s=served["t_window_start"] - t_start
+                 - inputs["generate_s"] - inputs["calibration_s"],
                  index_build_s=state["index_build_s"],
                  calibration_s=inputs["calibration_s"],
                  generate_s=inputs["generate_s"],
@@ -486,6 +529,7 @@ def run_cell(spec: dict, seed: int, seconds: float, trace: bool, device,
     _free(device)
     every = served["requests"] + served["extra"]
     checks = check(spec, inputs, every, device)
+    harness_peak = max(harness_peak, _peak(device))
     failed = sum(len(r["idx"]) for r in every if r["res"] is None)
     attempted = sum(len(r["idx"]) for r in every)
     limits = spec["config"]["limits"]
@@ -507,6 +551,7 @@ def run_cell(spec: dict, seed: int, seconds: float, trace: bool, device,
     info = dict(seed=int(seed), requests=len(served["requests"]),
                 extra_requests=len(served["extra"]),
                 window_s=served["window_s"], **setup,
+                harness_peak_bytes=int(harness_peak),
                 **{k: v for k, v in checks.items() if k not in numbers})
     out["checks"] = {k: dict(value=v, limit=limits[k])
                      for k, v in numbers.items()}

@@ -1,7 +1,8 @@
 """Plain PyTorch pieces of the references: the series laid out in rows of
-windows, every window's mean and standard deviation, the FFT correlation of
-a z-normalised query with every window, and the exact statistics of a few
-windows.
+windows, walked one chunk of rows at a time; each chunk's window means and
+standard deviations and its rows' spectra; the FFT correlation of a
+z-normalised query with every window of a chunk; and the exact statistics
+of a few windows.
 
 Imports nothing of the program.  Everything runs in the ``dtype`` it is
 given: float64 for the reference, float32 for its control.
@@ -12,6 +13,11 @@ without wrap-around.  Each row is shifted by its own mean before the
 prefix sums and the FFT: a window's statistics and its correlation with a
 zero-mean query do not change under a common shift, and the shifted values
 are small, so their rounding is too.
+
+Only the series stays on the device for the whole walk.  A chunk's
+statistics and spectrum are made once, serve every query of the walk, and
+are dropped before the next chunk's are made, so device memory is the
+series and one chunk's buffers.
 """
 
 from __future__ import annotations
@@ -27,6 +33,10 @@ CHUNK_ELEMS = 1 << 24
 #: Relative slack of the constraint and distance prefilters in front of the
 #: exact statistics: a window within it of a boundary is recomputed.
 SLACK = 1e-6
+#: Relative margin of a chunk's skip (``Chunk.may_admit``), in unit
+#: roundoffs of the rows' dtype: far above the rounding of the constraint's
+#: arithmetic.
+SKIP_ROUNDINGS = 1e4
 
 
 def unit_roundoff(dtype) -> float:
@@ -53,13 +63,20 @@ def window_stats(x: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
     return mu, torch.sqrt(var)
 
 
+def mean_limit(mu, beta: float, slack: float = 0.0):
+    """The bound of |mu - mu_q| in ``constraint``, loosened by ``slack``."""
+    return beta * (1 + slack) + slack * (1 + torch.abs(mu))
+
+
 def constraint(mu, sd, mu_q, sd_q, alpha: float, beta: float,
-               slack: float = 0.0) -> torch.Tensor:
+               slack: float = 0.0, limit=None) -> torch.Tensor:
     """cNSM's constraint |mu - mu_q| <= beta, 1/alpha <= sd/sd_q <= alpha
-    (and sd > 0), loosened by the relative ``slack``."""
+    (and sd > 0), loosened by the relative ``slack``; ``limit`` is
+    ``mean_limit(mu, beta, slack)`` where the caller has it."""
+    if limit is None:
+        limit = mean_limit(mu, beta, slack)
     ratio = sd / sd_q
-    return ((torch.abs(mu - mu_q) <= beta * (1 + slack)
-             + slack * (1 + torch.abs(mu)))
+    return ((torch.abs(mu - mu_q) <= limit)
             & (ratio <= alpha * (1 + slack))
             & (ratio >= (1 - slack) / alpha) & (sd > 0))
 
@@ -71,87 +88,119 @@ def gather(x: torch.Tensor, offs: torch.Tensor, L: int) -> torch.Tensor:
 
 class Rows:
     """The series ``x`` (a 1-D tensor, cast to ``dtype`` on its device) in
-    rows of M windows of length L: per window its mean and standard
-    deviation, per row its norm after the shift and its real FFT of P
-    points."""
+    rows of M windows of length L, padded with its last value to whole
+    rows.  ``chunks()`` walks it one ``Chunk`` of rows at a time."""
 
     def __init__(self, x: torch.Tensor, L: int, dtype=torch.float64):
         self.dtype, self.L = dtype, L
-        self.x = x.to(dtype)
-        self.n = int(self.x.numel())
+        self.n = int(x.numel())
         self.m = self.n - L + 1
         self.P = fft_size(L)
         self.M = self.P - L + 1
         self.R = -(-self.m // self.M)
         self.chunk = max(1, CHUNK_ELEMS // self.P)
-        dev = self.x.device
-        tail = self.R * self.M + L - 1 - self.n
-        xp = torch.cat([self.x, self.x[-1:].expand(max(tail, 0))])
-        view = xp.as_strided((self.R, self.P), (self.M, 1))
-        self.mu = torch.empty((self.R, self.M), dtype=dtype, device=dev)
-        self.sd = torch.empty_like(self.mu)
-        self.norm = torch.empty(self.R, dtype=dtype, device=dev)
-        self.spec = torch.empty((self.R, self.P // 2 + 1),
-                                dtype=torch.complex128
-                                if dtype == torch.float64
-                                else torch.complex64, device=dev)
-        for g0, g1 in self.chunks():
-            seg = view[g0:g1]
-            shift = seg.mean(dim=1, keepdim=True)
-            y = seg - shift
-            s1, s2 = self._sums(y)
-            mu_y = s1 / L
-            self.mu[g0:g1] = mu_y + shift
-            self.sd[g0:g1] = torch.sqrt(torch.clamp(s2 / L - mu_y * mu_y,
-                                                    min=0.0))
-            self.norm[g0:g1] = torch.linalg.vector_norm(y, dim=1)
-            self.spec[g0:g1] = torch.fft.rfft(y, n=self.P, dim=1)
-        col = torch.arange(self.M, device=dev)
-        self.valid = (torch.arange(self.R, device=dev)[:, None] * self.M
-                      + col[None, :]) < self.m
+        xp = torch.empty(self.R * self.M + L - 1, dtype=dtype,
+                         device=x.device)
+        xp[:self.n] = x
+        xp[self.n:] = xp[self.n - 1]
+        self.x = xp[:self.n]
+        self.view = xp.as_strided((self.R, self.P), (self.M, 1))
 
     def chunks(self):
+        """The chunks of rows in order, each made as the walk reaches it."""
         for g0 in range(0, self.R, self.chunk):
-            yield g0, min(g0 + self.chunk, self.R)
-
-    def _sums(self, y: torch.Tensor):
-        """Sums of the values and of their squares over each window of the
-        rows ``y``, from prefix sums with a leading 0."""
-        L, M = self.L, self.M
-        c1, c2 = (torch.nn.functional.pad(torch.cumsum(v, dim=1), (1, 0))
-                  for v in (y, y * y))
-        return c1[:, L:L + M] - c1[:, :M], c2[:, L:L + M] - c2[:, :M]
-
-    def offsets(self, g0: int, mask: torch.Tensor) -> torch.Tensor:
-        """Window offsets of the True entries of ``mask`` (rows g0 ..)."""
-        r, c = torch.nonzero(mask, as_tuple=True)
-        return (r + g0) * self.M + c
+            yield Chunk(self, g0, min(g0 + self.chunk, self.R))
 
     def znormed(self, q: torch.Tensor):
-        """The z-normalised query (L,) and its zero-mean correlation
-        spectrum (P // 2 + 1,)."""
+        """The z-normalised query (L,), its zero-mean correlation spectrum
+        (P // 2 + 1,), its mean and its standard deviation."""
         mu_q, sd_q = query_stats(q)
         qh = (q - mu_q) / sd_q
         qc = qh - qh.mean()
         return qh, torch.fft.rfft(qc.flip(0), n=self.P), mu_q, sd_q
 
-    def profile(self, g0: int, g1: int, qspec: torch.Tensor):
-        """Approximate squared z-normalised distances of rows g0 .. g1 - 1
-        to the query, and a bound on their error: 2 L - 2 c / sd, with c
-        the FFT correlation of the shifted rows and the zero-mean query.
-        The bound covers the FFT's normwise error (50 u log2 P |row| |q|),
-        a relative ``SLACK`` of 2 L and the rounding of each window's
-        variance (4 u (mu / sd)^2 of it)."""
-        L, M = self.L, self.M
-        c = torch.fft.irfft(self.spec[g0:g1] * qspec, n=self.P,
-                            dim=1)[:, L - 1:L - 1 + M]
-        sd, mu = self.sd[g0:g1], self.mu[g0:g1]
-        safe = torch.where(sd > 0, sd, torch.ones_like(sd))
-        d2 = 2 * L - 2 * c / safe
-        u = unit_roundoff(self.dtype)
-        gamma = 50 * u * math.log2(self.P)
-        rel = torch.clamp(torch.abs(mu) / safe,
-                          max=float(torch.finfo(self.dtype).max) ** 0.25)
-        err = (2 * gamma * math.sqrt(L) * self.norm[g0:g1, None] / safe
-               + 2 * L * (SLACK + 4 * u * rel * rel))
-        return d2, err
+
+class Chunk:
+    """Rows g0 .. g1 - 1 of ``rows``: per window its mean and standard
+    deviation and whether it lies in the series, per row its norm after the
+    shift and its real FFT of P points."""
+
+    def __init__(self, rows: Rows, g0: int, g1: int):
+        L, M = rows.L, rows.M
+        self.rows, self.g0 = rows, g0
+        seg = rows.view[g0:g1]
+        shift = seg.mean(dim=1, keepdim=True)
+        y = seg - shift
+        c1, c2 = (torch.nn.functional.pad(torch.cumsum(v, dim=1), (1, 0))
+                  for v in (y, y * y))
+        s1, s2 = c1[:, L:L + M] - c1[:, :M], c2[:, L:L + M] - c2[:, :M]
+        del c1, c2
+        mu_y = s1 / L
+        self.mu = mu_y + shift
+        self.sd = torch.sqrt(torch.clamp(s2 / L - mu_y * mu_y, min=0.0))
+        self.norm = torch.linalg.vector_norm(y, dim=1)
+        self.spec = torch.fft.rfft(y, n=rows.P, dim=1)
+        dev = self.mu.device
+        self.valid = (torch.arange(g0, g1, device=dev)[:, None] * M
+                      + torch.arange(M, device=dev)[None, :]) < rows.m
+        self.safe = torch.where(self.sd > 0, self.sd,
+                                torch.ones_like(self.sd))
+        self.ranges = torch.stack([self.mu.min(), self.mu.max(),
+                                   self.sd.min(), self.sd.max()]).tolist()
+        self._limits = {}
+
+    def may_admit(self, mu_q: float, sd_q: float, alpha: float, beta: float,
+                  slack: float = 0.0) -> bool:
+        """False only where no window of the chunk can pass ``constraint``:
+        the chunk's means or standard deviations all lie farther from the
+        query's than the constraint allows, by a relative margin of
+        ``SKIP_ROUNDINGS`` unit roundoffs.  Rounding moves |mu - mu_q| and
+        sd / sd_q monotonically and by far less, so a skipped chunk's
+        windows would all be +inf, and the walk leaves it out."""
+        lo_mu, hi_mu, lo_sd, hi_sd = self.ranges
+        margin = SKIP_ROUNDINGS * unit_roundoff(self.rows.dtype)
+        limit = beta * (1 + slack) + slack * (1 + max(abs(lo_mu),
+                                                      abs(hi_mu)))
+        if max(lo_mu - mu_q, mu_q - hi_mu) > limit * (1 + margin):
+            return False
+        if not 0 < sd_q < math.inf:
+            return True
+        return (lo_sd / sd_q <= alpha * (1 + slack) * (1 + margin)
+                and hi_sd / sd_q >= (1 - slack) / alpha * (1 - margin))
+
+    def admitted(self, mu_q, sd_q, alpha: float, beta: float,
+                 slack: float = 0.0) -> torch.Tensor:
+        """The windows in the series that pass ``constraint``."""
+        key = (beta, slack)
+        if key not in self._limits:
+            self._limits[key] = mean_limit(self.mu, beta, slack)
+        return self.valid & constraint(self.mu, self.sd, mu_q, sd_q, alpha,
+                                      beta, slack, self._limits[key])
+
+    def distances(self, qspec: torch.Tensor) -> torch.Tensor:
+        """Approximate squared z-normalised distances of the windows to the
+        query: 2 L - 2 c / sd, with c the FFT correlation of the shifted
+        rows and the zero-mean query."""
+        L, M, P = self.rows.L, self.rows.M, self.rows.P
+        c = torch.fft.irfft(self.spec * qspec, n=P, dim=1)[:, L - 1:L - 1 + M]
+        # 2 L + (-2) (c / sd): the bits of 2 L - (2 c) / sd, as scaling by 2
+        # is exact, in one pass
+        return torch.addcdiv(c.new_full((), 2.0 * L), c, self.safe, value=-2)
+
+    def error(self) -> torch.Tensor:
+        """A bound on the error of ``distances``, the same for every query:
+        the FFT's normwise error (50 u log2 P |row| |q|), a relative
+        ``SLACK`` of 2 L and the rounding of each window's variance
+        (4 u (mu / sd)^2 of it)."""
+        L, dtype = self.rows.L, self.rows.dtype
+        u = unit_roundoff(dtype)
+        gamma = 50 * u * math.log2(self.rows.P)
+        rel = torch.clamp(torch.abs(self.mu) / self.safe,
+                          max=float(torch.finfo(dtype).max) ** 0.25)
+        return (2 * gamma * math.sqrt(L) * self.norm[:, None] / self.safe
+                + 2 * L * (SLACK + 4 * u * rel * rel))
+
+    def offsets(self, mask: torch.Tensor) -> torch.Tensor:
+        """Window offsets of the True entries of ``mask``."""
+        r, c = torch.nonzero(mask, as_tuple=True)
+        return (r + self.g0) * self.rows.M + c

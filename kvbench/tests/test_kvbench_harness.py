@@ -18,6 +18,8 @@ import re
 import shutil
 import subprocess
 import sys
+import time
+import types
 from pathlib import Path
 
 import numpy as np
@@ -31,6 +33,9 @@ from kvbench import control, harness  # noqa: E402
 from kvbench.frozen.calibrate import eps_for_target  # noqa: E402
 from kvbench.reference import cnsm_ed  # noqa: E402
 from kvbench.reference.common import Rows  # noqa: E402
+
+sys.path.insert(0, str(Path(__file__).resolve().parent))
+import per_query_reference  # noqa: E402
 
 BENCH = json.loads((ROOT / "BENCHMARK.json").read_text())
 CELLS = [w["name"] for w in BENCH["workloads"]]
@@ -212,6 +217,109 @@ def test_pool_is_fixed_and_checked_queries_drawn_from_the_seed(tiny):
                                   harness.request_plan(a2, 5))
 
 
+def test_series_generator_is_picked_by_the_configuration(tiny):
+    from kvbench.frozen import segments
+    from kvbench.frozen.generators import generate_series
+    cfg = dict(harness.load_cell(tiny, CELLS[0])["config"], n=20_000)
+    assert "generator" not in cfg
+    np.testing.assert_array_equal(
+        harness.make_series(cfg),
+        generate_series(20_000, cfg["series_seed"], dtype=np.float32))
+    np.testing.assert_array_equal(
+        harness.make_series(dict(cfg, generator="segments")),
+        segments.generate(20_000, cfg["series_seed"]))
+    with pytest.raises(harness.CellError):
+        harness.make_series(dict(cfg, generator="no_such_generator"))
+
+
+def test_setup_s_leaves_out_generation_and_calibration(tiny, monkeypatch):
+    """setup_s is the time to the first timed request less the harness's
+    own generation and calibration, which take most of make_inputs."""
+    seen = {}
+    make_inputs, serve = harness.make_inputs, harness.serve
+
+    def timed_inputs(*a, **kw):
+        t0 = time.perf_counter()
+        out = make_inputs(*a, **kw)
+        seen["make_inputs_s"] = time.perf_counter() - t0
+        return out
+
+    def kept_serve(*a, **kw):
+        served = serve(*a, **kw)
+        seen.update(served)
+        return served
+    monkeypatch.setattr(harness, "make_inputs", timed_inputs)
+    monkeypatch.setattr(harness, "serve", kept_serve)
+    spec = harness.load_cell(tiny, CELLS[0])
+    t_start = time.perf_counter()
+    out, info = harness.run_cell(spec, SEED, 0.3, False, "cpu", t_start)
+    own = info["generate_s"] + info["calibration_s"]
+    assert own >= 0.9 * seen["make_inputs_s"] > 0
+    assert info["setup_s"] == (seen["t_window_start"] - t_start
+                               - info["generate_s"] - info["calibration_s"])
+    assert out["metrics"]["setup_s"]["value"] == info["setup_s"] > 0
+    assert info["setup_s"] < seen["t_window_start"] - t_start - own * 0.99
+
+
+def _scan_breakdown_gaps(spans, gaps):
+    """The idle-gap labels as the breakdown took them before its sweep: for
+    each gap, a scan of the spans sorted by length."""
+    spans = sorted(spans, key=lambda x: x[2] - x[1])
+    by_label = {}
+    for g0, g1 in gaps:
+        mid = (g0 + g1) / 2
+        label = next((n for n, s, t in spans if s <= mid <= t), "client")
+        by_label[label] = by_label.get(label, 0.0) + (g1 - g0) / 1e9
+    return by_label
+
+
+@pytest.mark.parametrize("seed", range(4))
+def test_breakdown_sweep_equals_the_scan(seed):
+    """The sweep labels every idle gap as the scan over the spans sorted by
+    length did, on a run with nested, overlapping, touching and equally
+    long spans."""
+    rng = np.random.default_rng(seed)
+    spans = []
+    for r0 in range(0, 10_000_000, 50_000):        # requests, each nested
+        spans.append(("request", r0, r0 + 40_000))
+        for lo in sorted(rng.integers(r0, r0 + 30_000, 3)):
+            spans.append((str(rng.choice(["engine.plan", "probe",
+                                          "verify"])),
+                          int(lo), int(lo + rng.integers(1, 10_000))))
+    for _ in range(300):                            # overlapping anywhere
+        lo = int(rng.integers(0, 10_000_000))
+        spans.append(("verify", lo, lo + int(rng.integers(0, 200_000))))
+    spans += [("probe", 5_000, 9_000), ("verify", 5_000, 9_000),
+              ("probe", 9_000, 9_500)]              # equal, touching
+    rng.shuffle(spans)
+    spans = [(n, int(s), int(t)) for n, s, t in spans]
+    dev = []
+    for lo in np.sort(rng.integers(0, 10_000_000, 4_000)):
+        dev.append(("k", int(lo), int(lo + rng.integers(1, 3_000))))
+    run = types.SimpleNamespace(device_events=dev, spans=spans,
+                                window_ns=(1_000, 9_990_000))
+    out = harness.breakdown(run)
+    b0, b1 = run.window_ns
+    gaps, end = [], b0
+    for lo, hi in sorted((max(s, b0), min(t, b1)) for _, s, t in dev
+                         if t > b0 and s < b1):
+        if lo > end:
+            gaps.append((end, lo))
+        end = max(end, hi)
+    gaps.append((end, b1))
+    want = sorted(_scan_breakdown_gaps(spans, gaps).items(),
+                  key=lambda kv: -kv[1])[:harness.TOP]
+    assert out["idle_gaps"] == [[k, v] for k, v in want]
+    assert {k for k, _ in want} >= {"client", "request", "verify"}
+
+
+def test_breakdown_counts_a_span_that_ends_at_a_gaps_middle():
+    run = types.SimpleNamespace(
+        device_events=[("k", 100, 200), ("k", 300, 400)], window_ns=(100, 400),
+        spans=[("request", 0, 1000), ("verify", 250, 262), ("probe", 245, 250)])
+    assert harness.breakdown(run)["idle_gaps"] == [["probe", 100 / 1e9]]
+
+
 # ------------------------------------------------------------ the reference
 def _brute_ed(x, q, eps, alpha, beta):
     L = q.size
@@ -233,15 +341,80 @@ def test_ed_reference_equals_brute_force(seed):
     x = generate_series(30_000, seed, dtype=np.float32).astype(np.float64)
     rows = Rows(torch.as_tensor(x), 200)
     rng = np.random.default_rng(seed)
-    for o in rng.integers(0, x.size - 200, 3):
-        q = x[o:o + 200]
-        eps = eps_for_target(cnsm_ed.topk(rows, torch.as_tensor(q), 5, 1.2,
-                                          5.0), 5)
-        want, wd = _brute_ed(x, q, eps, 1.2, 5.0)
-        got, gd = cnsm_ed.answers(rows, torch.as_tensor(q), eps, 1.2, 5.0)
+    offs = rng.integers(0, x.size - 200, 3)
+    qs = [torch.as_tensor(x[o:o + 200]) for o in offs]
+    eps = [eps_for_target(d, 5)
+           for d in cnsm_ed.topk(rows, qs, 5, 1.2, 5.0)]
+    for o, e, (got, gd) in zip(offs, eps,
+                               cnsm_ed.answers(rows, qs, eps, 1.2, 5.0)):
+        want, wd = _brute_ed(x, x[o:o + 200], e, 1.2, 5.0)
         assert got.size >= 5
         np.testing.assert_array_equal(got, want)
         np.testing.assert_allclose(gd, wd, rtol=1e-9, atol=1e-9)
+
+
+@pytest.mark.parametrize("rows,finite", [(2048, 1.0), (300, 0.02),
+                                         (5, 0.5), (40, 0.0)])
+def test_smallest_equals_topk_of_the_flattened_rows(rows, finite):
+    rng = np.random.default_rng(rows)
+    d2 = torch.as_tensor(rng.uniform(0, 100, (rows, 97)))
+    d2[torch.as_tensor(rng.random((rows, 97)) >= finite)] = torch.inf
+    v, i = cnsm_ed.smallest(d2, 11)
+    w, j = torch.topk(d2.reshape(-1), 11, largest=False)
+    assert torch.equal(v, w)
+    fin = torch.isfinite(w)
+    assert torch.equal(i[fin], j[fin])
+    assert torch.equal(d2.reshape(-1)[i], v)
+
+
+def _chunk_elems(monkeypatch, elems):
+    from kvbench.reference import common
+    monkeypatch.setattr(common, "CHUNK_ELEMS", elems)
+    monkeypatch.setattr(per_query_reference, "CHUNK_ELEMS", elems)
+
+
+@pytest.mark.parametrize("n,chunk_elems,chunks", [(60_000, 1 << 24, 1),
+                                                  (60_000, 3 * 4096, 6),
+                                                  (1_000_000, 4096, 257)])
+@pytest.mark.parametrize("dtype", [torch.float64, torch.float32])
+def test_one_pass_reference_equals_per_query_form(monkeypatch, n,
+                                                  chunk_elems, chunks,
+                                                  dtype):
+    """One walk for every query gives the per-query walks' bits: the eps'
+    profile and every answer with its distance, in f64 and in the
+    control's f32, over one chunk of rows, over many, and over chunks
+    short enough against the segments that the walk skips some."""
+    from kvbench.frozen.generators import generate_series
+    from kvbench.reference.common import Chunk
+    _chunk_elems(monkeypatch, chunk_elems)
+    skipped = []
+    may_admit = Chunk.may_admit
+
+    def counted(self, *a):
+        ok = may_admit(self, *a)
+        skipped.append(not ok)
+        return ok
+    monkeypatch.setattr(Chunk, "may_admit", counted)
+    L, k = 200, 5
+    x = torch.as_tensor(generate_series(n, 4, dtype=np.float32))
+    old = per_query_reference.Rows(x, L, dtype)
+    new = Rows(x, L, dtype)
+    assert -(-new.R // new.chunk) == chunks
+    offs = harness._strata(np.random.default_rng(9), new.m, 6)
+    ds = cnsm_ed.topk(new, [new.x[o:o + L] for o in offs], k, 1.2, 5.0)
+    for o, d in zip(offs, ds):
+        np.testing.assert_array_equal(
+            d, per_query_reference.topk(old, old.x[o:o + L], k, 1.2, 5.0))
+    eps = [eps_for_target(d, k) * 1.5 for d in ds]
+    got = cnsm_ed.answers(new, [new.x[o:o + L] for o in offs], eps, 1.2,
+                          5.0)
+    for o, e, (g_off, g_d) in zip(offs, eps, got):
+        w_off, w_d = per_query_reference.answers(old, old.x[o:o + L], e,
+                                                 1.2, 5.0)
+        assert w_off.size >= k
+        np.testing.assert_array_equal(g_off, w_off)
+        np.testing.assert_array_equal(g_d, w_d)
+    assert any(skipped) == (chunks > 6)
 
 
 # ---------------------------------------------------------------- imports
@@ -269,7 +442,7 @@ def test_run_loads_no_jax_and_reference_no_program(tmp_path):
         "from kvbench.reference.common import Rows; "
         "x = torch.as_tensor(np.cumsum(np.random.default_rng(0)"
         ".standard_normal(5000))); r = Rows(x, 64); "
-        "cnsm_ed.answers(r, x[:64], 3.0, 1.5, 5.0); "
+        "cnsm_ed.answers(r, [x[:64]], [3.0], 1.5, 5.0); "
         "print(json.dumps(sorted({m.split('.')[0] for m in sys.modules})))")
     assert "kvmatch_tpu_torch" not in tops and "kvmatch_tpu" not in tops
 
