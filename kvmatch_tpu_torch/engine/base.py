@@ -60,7 +60,7 @@ from ..ops.regions import coalesce_intervals, pack_regions
 from ..ops.sliding import sliding_min_max
 from ..parallel.query import (FLY_FILL, dense_probe_flags, fly_pad_for,
                               make_bucket_stack, make_cons_stats,
-                              pack_segments_batch)
+                              pack_segments_batch, probe_rebuilds)
 from ..plan import (QuerySegment, determine_query_plan,
                     determine_query_plans_batched)
 from ..state import host_series, series_to_device
@@ -100,6 +100,10 @@ class QueryStats:
     # Candidates verified ENTIRELY on host (exact f64, no device launch) by the
     # tiny-load fast path (QueryConfig.host_verify_max_points).
     n_host_checked: int = 0
+    # PROBE_BLOCK rebuilds of the dense probe pass that served the query
+    # (its group's, shared by the group's queries; 0 on the cached path):
+    # parallel/query.py:probe_rebuilds.
+    n_probe_blocks: int = 0
     early_terminated: bool = False
     # The request's span records (utils/profiling.py), shared by the
     # request's queries; None unless a profiler recorded.
@@ -921,6 +925,9 @@ class BaseEngine:
         n_off, flags = dense_probe_flags(data_p, segs, eps2, cons, self.n,
                                          self.icfg, L, norm, bstack=bstack,
                                          stats3=stats3)
+        blocks = probe_rebuilds(self.n, L, norm, bstack, stats3)
+        for c in ctxs:
+            c.stats.n_probe_blocks = blocks
         return (*fetch("kv.probe.wait", n_off, flags), FLAG)
 
     def _dense_probe_retry(self, ctxs, seg_lists):

@@ -5,8 +5,8 @@ caller passes ``device="cpu"``):
 
 * ``build_index_device_stats`` (serving mode) computes, per scale, the exact
   per-bucket offset and capped-interval histograms that the planner reads
-  (IndexScale.counts_between_batch) -- one bucket pass, one cummax-RLE, one
-  sort of a composite key and one searchsorted.  No intervals are
+  (IndexScale.counts_between_batch) -- one bucket pass, one run-length
+  pass, one sort of a composite key and one searchsorted.  No intervals are
   materialized; the returned scales are ``stats_only`` and phase 1 must run
   as the device dense probe.
 * ``build_index_device`` (the full index family) runs, per scale,
@@ -73,8 +73,13 @@ SPILL_N = 40_000_000
 MAX_POSITIONS = (1 << 31) - 1
 
 
-def _prefix_max(x: torch.Tensor) -> torch.Tensor:
-    return torch.cummax(x, dim=0).values
+def _run_start(change: torch.Tensor) -> torch.Tensor:
+    """int32: for each position, the last position at or before it where
+    ``change`` is True (``change[0]`` is), the start of its run of equal
+    bucket ids.  A device-wide cumsum and a gather: ``torch.cummax`` over
+    a 1-D tensor scans it in one block of threads, 3.7 s at 1.4e9 points."""
+    first = torch.nonzero(change).squeeze(1).to(torch.int32)
+    return first[torch.cumsum(change, 0, dtype=torch.int32) - 1]
 
 
 def _bucket_prog(data: torch.Tensor, w: int, u: int, pos_of_d: int
@@ -89,12 +94,14 @@ def _bucket_prog(data: torch.Tensor, w: int, u: int, pos_of_d: int
     return b
 
 
-def _bucket_range(data: np.ndarray, cfg: IndexConfig):
+def _bucket_range(data_dev: torch.Tensor, cfg: IndexConfig):
     """(bucket_lo, bucket_hi) bounding every mean bucket of the series, from
-    the host data range; raises when it passes the histogram capacity NB."""
+    the range of the f32 values the buckets are made of; raises when it
+    passes the histogram capacity NB."""
     s = 10.0 ** (cfg.pos_of_d - 1)
-    bucket_lo = int(2 * np.floor(float(data.min()) * s)) - 2
-    bucket_hi = int(2 * np.floor(float(data.max()) * s)) + 3
+    lo, hi = (float(v) for v in torch.aminmax(data_dev))
+    bucket_lo = int(2 * np.floor(lo * s)) - 2
+    bucket_hi = int(2 * np.floor(hi * s)) + 3
     if bucket_hi - bucket_lo >= NB:
         raise ValueError(
             f"mean-bucket range {bucket_hi - bucket_lo} exceeds the device "
@@ -118,7 +125,7 @@ def _scale_pipeline_a(b: torch.Tensor, bucket_lo: int, cap: int):
     pos = torch.arange(m, dtype=torch.int32, device=dev)
     change = torch.ones(m, dtype=torch.bool, device=dev)
     change[1:] = b[1:] != b[:-1]
-    run_start = _prefix_max(torch.where(change, pos, -1))
+    run_start = _run_start(change)
     start = change | ((pos - run_start) % cap == 0)
     del run_start, change
     il = pos[start]
@@ -296,7 +303,7 @@ def _scale_pipeline_stats(b: torch.Tensor, bucket_lo: int, n_valid: int,
     valid = pos < n_valid
     change = torch.cat([torch.ones(1, dtype=torch.bool, device=dev),
                         b[1:] != b[:-1]])
-    run_start = _prefix_max(torch.where(change, pos, -1))
+    run_start = _run_start(change)
     start = (change | ((pos - run_start) % cap == 0)) & valid
     comp = torch.where(valid,
                        torch.clamp(b - bucket_lo, 0, nbs - 1) * 2
@@ -322,7 +329,6 @@ def build_index_device_stats(data, cfg: IndexConfig = DEFAULT_INDEX_CONFIG,
     scales = tuple(cfg.scales)
     u = min(scales)
     cap = cfg.maximum_diff - 1
-    bucket_lo, bucket_hi = _bucket_range(data, cfg)
     t0 = time.perf_counter()
     if data_dev is None:
         data_dev = torch.as_tensor(data, dtype=torch.float32,
@@ -330,6 +336,7 @@ def build_index_device_stats(data, cfg: IndexConfig = DEFAULT_INDEX_CONFIG,
     if data_dev.device.type == "cuda":
         torch.cuda.synchronize(data_dev.device)
     t_h2d = time.perf_counter() - t0
+    bucket_lo, bucket_hi = _bucket_range(data_dev, cfg)
 
     nbs = 1 << max(bucket_hi - bucket_lo + 2, 2).bit_length()
     t0 = time.perf_counter()
@@ -395,12 +402,12 @@ def build_index_device(data, cfg: IndexConfig = DEFAULT_INDEX_CONFIG,
     scales = tuple(cfg.scales)
     u = min(scales)
     cap = cfg.maximum_diff - 1
-    bucket_lo, _ = _bucket_range(data, cfg)
     spill = n > SPILL_N
     t0 = time.perf_counter()
     if data_dev is None:
         data_dev = torch.as_tensor(data, dtype=torch.float32,
                                    device=backend.resolve_device(device))
+    bucket_lo, _ = _bucket_range(data_dev, cfg)
     dev = data_dev.device
 
     def sync():

@@ -25,8 +25,11 @@ from .ed import _gather, _one_query
 
 # f32 round-off amplification constant of the error bounds.
 ERR_C = 64.0 * float(np.finfo(np.float32).eps)
+# Rounding constant of the f64 window sums of the z-norm region distances.
+SUM_ERR_C = 4.0 * float(np.finfo(np.float64).eps)
 # FFT correlation error coefficient: |corr_f32 - corr| <= FFT_ERR_C *
-# ||x_window||_2 * ||q||_2 is what the guards assume.
+# ||x||_2 * ||q||_2 is what the guards assume, x the window (raw ED) or the
+# whole region row (z-norm).
 FFT_ERR_C = 1e-5
 
 
@@ -79,25 +82,64 @@ def region_ed_distances_multi(data, queries_centered, starts, qids,
     return d2, err
 
 
+def _window_sums(x: torch.Tensor, w: int) -> torch.Tensor:
+    """Width-w sliding sums along dim 1 as differences of prefix sums, in
+    ``x``'s dtype; (B, R) -> (B, R-w+1)."""
+    c = torch.nn.functional.pad(torch.cumsum(x, dim=1), (1, 0))
+    return c[:, w:] - c[:, :-w]
+
+
 def region_znorm_distances_multi(data, queries_hat, starts, qids,
                                  length: int, m_per_region: int):
     """Z-normalized squared ED (MASS form) with window mean/std and the
-    error bound; each (B, M)."""
+    error bound; each (B, M).
+
+    Each region row is shifted by its first value c, in f64, before the
+    correlation and the window sums, as z-normalization ignores a shift:
+    with x' = x - c (exact in f64) and s1', s2' the width-L sums of x' and
+    x'^2, taken in f64 as differences of the row's prefix sums,
+    mean = s1'/L + c and var = s2'/L - (s1'/L)^2, both in f64 before they
+    are rounded to f32.  The correlation reads x' rounded to f32.  So a
+    window's variance does not cancel at a level far above its std (f32
+    sums of the raw values cancel at std/|mean| of 4e-3 at L = 4096, and to
+    0 at 1e-4 at L = 256), nor across a jump of level inside the row.
+
+    The bound ``err`` of |d2 - d2_exact|, with sigma the window's std, R
+    the row's points (M + L - 1), P = ||x'_row||^2 and u32, u64 the unit
+    roundoffs.  d2 = 2L - 2 C / sigma, C the correlation of the centred
+    window with the query, |C| <= L sigma:
+
+    * the correlation: the FFT's error is at most FFT_ERR_C ||x'_row||
+      ||q||, ||q|| = sqrt(L), over the whole row that the transform reads
+      (it bounds every window's norm); rounding x' and the query to f32
+      adds 2 u32 sqrt(P L), inside FFT_ERR_C's margin.  Divided by sigma
+      and doubled: 2 FFT_ERR_C sqrt(L) ||x'_row|| / sigma;
+    * the variance: the squares of f32 values are exact in f64, and a
+      prefix sum over R terms and the difference of two leave
+      |var - var_exact| <= 2 R u64 P / L; as |C| <= L sigma,
+      2 |C| |1/sigma - 1/sigma_exact| <= 2 L |var - var_exact| / sigma^2
+      <= SUM_ERR_C R P / sigma^2;
+    * rounding sigma to f32 (relative u32), 2 C / sigma and 2L minus it:
+      a few u32 of 2L, under ERR_C 2L.
+    """
     r_len = m_per_region + length - 1
     x = _gather(data, starts, r_len)
-    corr = _correlate_grouped(x, queries_hat[qids.long()])
-    inv_l = float(np.float32(1.0 / length))
-    s1 = _sliding_sum_rows(x, length)
-    s2 = _sliding_sum_rows(x * x, length)
-    mean = s1 * inv_l
-    var = torch.clamp_min(s2 * inv_l - mean * mean, 0.0)
-    std = torch.sqrt(var)
+    c = x[:, :1].double()
+    x = x.double() - c
+    corr = _correlate_grouped(x.float(), queries_hat[qids.long()])
+    xx = x * x
+    mean = _window_sums(x, length) / length
+    var = torch.clamp_min(_window_sums(xx, length) / length - mean * mean,
+                          0.0)
+    std = torch.sqrt(var).float()
+    mean = (mean + c).float()
     safe = torch.where(std > 0, std, 1.0)
     two_l = float(np.float32(2.0 * length))
     d2 = torch.clamp_min(two_l - 2.0 * corr / safe, 0.0)
     d2 = torch.where(std > 0, d2, torch.inf)
-    err = (2.0 * FFT_ERR_C * torch.sqrt(torch.clamp_min(s2, 0.0) * length)
-           + ERR_C * two_l) / safe
+    row_sq = torch.sum(xx, dim=1, keepdim=True).float()
+    err = ((2.0 * FFT_ERR_C * float(np.sqrt(length))) * torch.sqrt(row_sq)
+           + (SUM_ERR_C * r_len) * row_sq / safe) / safe + ERR_C * two_l
     return d2, mean, std, err
 
 

@@ -248,7 +248,9 @@ def dense_probe_flags(data_padded: torch.Tensor, segs: DenseSegments,
     ``stats3`` (make_cons_stats) or per-block statistics.  Counts stay
     probe-only, as in the JAX package.  While a profiler records, the
     spans ``kv.probe.k1`` and ``kv.probe.cons`` time the two parts' launches
-    on the device."""
+    on the device, and on the per-block path ``kv.probe.rebuild`` times
+    each block's bucket windows and statistics apart from them
+    (``probe_rebuilds`` counts those blocks)."""
     scales = tuple(icfg.scales)
     w_max = max(scales)
     dev = data_padded.device
@@ -262,31 +264,52 @@ def dense_probe_flags(data_padded: torch.Tensor, segs: DenseSegments,
     counts = torch.zeros(Q, dtype=torch.int32, device=dev)
     kw = dict(length=length, unit=icfg.unit, d=icfg.d,
               slack=icfg.probe_guard, norm=norm)
-    with span("kv.probe.k1") as sp, sp.device(dev):
+    blocks = [(p0, min(PROBE_BLOCK, npos_all - p0))
+              for p0 in range(0, npos_all, PROBE_BLOCK)]
+    with span("kv.probe.k1") as sp:
         if bstack is not None:
-            probe_flags(bstack, 0, segs, eps2, cons, 0, npos_all, m, flags,
-                        counts, **kw)
+            with sp.device(dev):
+                probe_flags(bstack, 0, segs, eps2, cons, 0, npos_all, m,
+                            flags, counts, **kw)
         else:
-            for p0 in range(0, npos_all, PROBE_BLOCK):
-                npos = min(PROBE_BLOCK, npos_all - p0)
-                bwin = make_bucket_stack(
-                    data_padded[p0: p0 + npos + length + w_max], icfg,
-                    scales)
-                probe_flags(bwin, p0, segs, eps2, cons, p0, npos, m, flags,
-                            counts, **kw)
+            for p0, npos in blocks:
+                with span("kv.probe.rebuild") as rb, rb.device(dev):
+                    bwin = make_bucket_stack(
+                        data_padded[p0: p0 + npos + length + w_max], icfg,
+                        scales)
+                with sp.device(dev):
+                    probe_flags(bwin, p0, segs, eps2, cons, p0, npos, m,
+                                flags, counts, **kw)
     if norm:
-        with span("kv.probe.cons") as sp, sp.device(dev):
-            for p0 in range(0, npos_all, PROBE_BLOCK):
-                npos = min(PROBE_BLOCK, npos_all - p0)
-                if stats3 is not None:
-                    s1, s2, amax = stats3[:, p0: p0 + npos]
-                else:
-                    s1, s2, lo, hi = sliding_window_stats_fwd(
-                        data_padded[p0: p0 + npos + length - 1], length)
-                    amax = torch.maximum(torch.abs(lo), torch.abs(hi))
+        with span("kv.probe.cons") as sp:
+            def cons_and(p0, npos, s1, s2, amax):
                 flags[:, p0 // FLAG:(p0 + npos) // FLAG] &= _cons_ok_flags(
                     s1, s2, amax, cons, p0, m, length)
+
+            if stats3 is not None:
+                with sp.device(dev):
+                    for p0, npos in blocks:
+                        cons_and(p0, npos, *stats3[:, p0: p0 + npos])
+            else:
+                for p0, npos in blocks:
+                    with span("kv.probe.rebuild") as rb, rb.device(dev):
+                        s1, s2, lo, hi = sliding_window_stats_fwd(
+                            data_padded[p0: p0 + npos + length - 1], length)
+                        amax = torch.maximum(torch.abs(lo), torch.abs(hi))
+                    with sp.device(dev):
+                        cons_and(p0, npos, s1, s2, amax)
     return counts, flags
+
+
+def probe_rebuilds(n_total: int, length: int, norm: bool,
+                   bstack: Optional[torch.Tensor] = None,
+                   stats3: Optional[torch.Tensor] = None) -> int:
+    """The PROBE_BLOCK rebuilds of one ``dense_probe_flags`` call with these
+    arguments: the blocks of bucket windows without ``bstack``, and for
+    cNSM (``norm``) the blocks of window statistics without ``stats3``."""
+    npos_all = -(-(n_total - length + 1) // FLAG) * FLAG
+    tables = (bstack is None) + (norm and stats3 is None)
+    return -(-npos_all // PROBE_BLOCK) * tables
 
 
 # ------------------------------------------------------------ sharded steps

@@ -14,12 +14,17 @@ when it is given f32.
 
 from __future__ import annotations
 
+import os
+from concurrent.futures import ThreadPoolExecutor
 from typing import Tuple
 
 import numpy as np
 import torch
 
 from .index.structure import Index, IndexScale
+
+#: Points a thread casts in ``host_series``.
+CAST_CHUNK = 1 << 24
 
 
 def index_from_arrays(index) -> Index:
@@ -49,17 +54,32 @@ def host_series(data, keep_f32: bool = False) -> np.ndarray:
     """The host copy of a 1-D series: contiguous float64, or, with
     ``keep_f32``, an f32 series as it is (a streamed series larger than
     device memory keeps no f64 shadow; the exact confirms promote its values
-    per window, as kvmatch_tpu/engine/base.py:119-127)."""
+    per window, as kvmatch_tpu/engine/base.py:119-127).  A copy of more
+    than ``CAST_CHUNK`` points is cast by a pool of host threads, a chunk
+    each (numpy casts without the GIL)."""
     data = np.asarray(data)
     if data.ndim != 1:
         raise ValueError(f"series must be 1-D, got shape {data.shape}")
     if keep_f32 and data.dtype == np.float32:
         return np.ascontiguousarray(data)
-    return np.ascontiguousarray(data, dtype=np.float64)
+    if data.dtype == np.float64 or data.size <= CAST_CHUNK:
+        return np.ascontiguousarray(data, dtype=np.float64)
+    out = np.empty(data.size, np.float64)
+
+    def cast(s: int) -> None:
+        out[s:s + CAST_CHUNK] = data[s:s + CAST_CHUNK]
+
+    threads = min(len(os.sched_getaffinity(0)), -(-data.size // CAST_CHUNK))
+    with ThreadPoolExecutor(max_workers=threads) as pool:
+        list(pool.map(cast, range(0, data.size, CAST_CHUNK)))
+    return out
 
 
 def series_to_device(data, device) -> Tuple[np.ndarray, torch.Tensor]:
-    """(f64 host shadow, f32 tensor on ``device``) of a 1-D series."""
+    """(f64 host shadow, f32 tensor on ``device``) of a 1-D series; an f32
+    series goes to the device as it is."""
     host = host_series(data)
-    dev = torch.as_tensor(host.astype(np.float32), device=device)
-    return host, dev
+    f32 = np.asarray(data)
+    if f32.dtype != np.float32:
+        f32 = host.astype(np.float32)
+    return host, torch.as_tensor(f32, device=device)

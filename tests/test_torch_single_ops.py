@@ -15,8 +15,10 @@ Tolerances:
   windows, so no d2 is near 0); inf at the same rows (constant windows);
   the window mean within 1e-5 of the window's max |x| (the summation-order
   difference of tests/test_torch_ed.py), the std within rtol 1e-5;
-* regions: raw d2 within JAX's own ``err``; z-norm d2 and std within rtol
-  1e-4, the mean as above;
+* regions: raw d2 within JAX's own ``err``; z-norm d2 within rtol 1e-4 of
+  JAX's and the std within rtol 1e-4 of the windows' f64 std (JAX's own
+  std, from f32 sums of the raw values, is off by up to 2e-4 there), the
+  mean as above;
 * banded DTW (f32): within ``verify.guard_threshold(d, L, 1e-2)`` of JAX's
   and within rtol 1e-4 of ``oracle.dtw_banded``, as
   tests/test_dtw_kernels.py holds JAX's;
@@ -142,7 +144,11 @@ def test_region_distances_equal_jax(L, znorm):
         tdata, torch.as_tensor(qh), tstarts, L, M)]
     assert len(got) == 3 and got[0].shape == (B, M)
     np.testing.assert_allclose(got[0], want[0], rtol=1e-4)
-    np.testing.assert_allclose(got[2], want[2], rtol=1e-4)
+    # The std against the windows' f64 std: JAX's, from f32 sums of the
+    # raw values, is off by up to 2e-4 here; the port's sums are in f64.
+    win = data.astype(np.float64)[(starts[:, None] + np.arange(M))[..., None]
+                                  + np.arange(L)]
+    np.testing.assert_allclose(got[2], win.std(axis=2), rtol=1e-4)
     amax = np.abs(data).max()
     assert np.all(np.abs(got[1] - want[1]) <= 1e-5 * amax)
 

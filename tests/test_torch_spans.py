@@ -6,7 +6,10 @@ A small series with a stats-only index serves the dense route
 phase 2 runs the region route or the gather route.  While a profiler
 records, each request keeps one list of span records, shared by its
 queries' ``QueryStats.trace``; without one, ``trace`` is None and no
-``record_function`` is entered.  The ``cuda`` case runs on the card only.
+``record_function`` is entered.  An engine whose cached probe tables do not
+fit its budget takes the per-block probe path, which records
+``kv.probe.rebuild`` and counts its blocks in ``n_probe_blocks``.  The
+``cuda`` case runs on the card only.
 """
 
 import numpy as np
@@ -19,6 +22,8 @@ from kvmatch_tpu_torch.data.generators import generate_series
 from kvmatch_tpu_torch.engine import norm_ed
 from kvmatch_tpu_torch.index.device_build import (build_index_device,
                                                   build_index_device_stats)
+from kvmatch_tpu_torch.ops.probe import FLAG
+from kvmatch_tpu_torch.parallel import query as pq
 from kvmatch_tpu_torch.state import series_to_device
 from kvmatch_tpu_torch.utils import profiling
 
@@ -211,6 +216,57 @@ def test_no_profiler_records_nothing(eng, monkeypatch):
     assert _query(eng, "region").stats.trace is None
     assert _query(eng, "gather").stats.trace is None
     assert all(r.stats.trace is None for r in _batch(eng))
+    assert profiling._REQUEST.get() is None
+
+
+def _blocked(monkeypatch):
+    """An engine that takes the per-block probe path (no cached table fits
+    its budget), over blocks of 2^14 positions: 13 of them."""
+    monkeypatch.setattr(pq, "PROBE_BLOCK", 1 << 14)
+    eng = _engine("cpu")
+    eng.CACHE_MEM_FRACTION = 0
+    return eng
+
+
+@pytest.mark.parametrize("path", ["cached", "blocks"])
+@pytest.mark.parametrize("entry", ["region", "batch"])
+def test_rebuild_spans_and_block_count(eng, path, entry, tmp_path,
+                                       monkeypatch):
+    """``kv.probe.rebuild`` is recorded on the per-block path only, once a
+    table a block, under ``kv.probe.k1`` (the bucket windows) and
+    ``kv.probe.cons`` (the window statistics); every query's
+    ``n_probe_blocks`` is the blocks times the two tables there, and 0 on
+    the cached path."""
+    e = _blocked(monkeypatch) if path == "blocks" else eng
+    fn = (lambda: _batch(e)) if entry == "batch" else \
+        (lambda: [_query(e, entry)])
+    out, _ = _traced(fn, tmp_path)
+    rec = out[0].stats.trace
+    rebuild = [s for s in rec if s["name"] == "kv.probe.rebuild"]
+    npos = -(-(N - L + 1) // FLAG) * FLAG
+    blocks = -(-npos // pq.PROBE_BLOCK)
+    if path == "cached":
+        assert not rebuild
+        assert all(r.stats.n_probe_blocks == 0 for r in out)
+        return
+    assert blocks == 13
+    parents = [rec[s["parent"]]["name"] for s in rebuild]
+    assert parents == ["kv.probe.k1"] * blocks + ["kv.probe.cons"] * blocks
+    assert all(r.stats.n_probe_blocks == 2 * blocks for r in out)
+    assert all(s["device_ms"] is None for s in rebuild)  # the CPU
+    for a, b in zip(out, fn()):
+        np.testing.assert_array_equal(a.offsets, b.offsets)
+
+
+def test_no_profiler_records_nothing_on_the_per_block_path(monkeypatch):
+    e = _blocked(monkeypatch)
+
+    def refuse(name):
+        raise AssertionError(f"record_function({name!r}) entered")
+    monkeypatch.setattr(profiling, "record_function", refuse)
+    res = _batch(e)
+    assert all(r.stats.trace is None for r in res)
+    assert all(r.stats.n_probe_blocks == 26 for r in res)
     assert profiling._REQUEST.get() is None
 
 
