@@ -16,6 +16,10 @@ JSON line tagged with the card's name and power limit and its seconds
                 times: K1 (dense probe) on the n=1e8 cached bucket stack
                 with the 8 north-star cNSM-ED plans, the 8 cNSM-DTW
                 envelope plans and the 8 RSM-ED plans of the same queries;
+                the constraint AND (cons_and) over the engine's cached
+                window statistics on K1's flags of the cNSM-ED and
+                cNSM-DTW plans: flags and cleared counts equal to its
+                plain version's;
                 K2 (window distances, raw and z-norm) at B=16384, L=8192
                 with the north-star queries, then at each (B, L) of
                 K2_SHAPES: held to its plain version, and timed alone on
@@ -190,9 +194,10 @@ if not (REPO / "kvmatch_tpu_torch" / "csrc").is_dir():
 sys.path.insert(0, str(REPO))
 # The one roofline of the port (bound_ms, bound_by) and its timer.
 from kvmatch_tpu_torch.utils.kernel_bench import (  # noqa: E402
-    DP_OPS, DS_OPS, K1_OPS, K1_OPS_FULL, K1_TRACK_OPS, K2_F64_SHAPES,
-    K2_QUERIES, K2_SHAPES, band_cells, bound, card_line, k2_work, timed_ms,
-    window_f64_times, window_kernel_times)
+    CONS_OPS_PAIR, CONS_OPS_POS, DP_OPS, DS_OPS, K1_OPS, K1_OPS_FULL,
+    K1_TRACK_OPS, K2_F64_SHAPES, K2_QUERIES, K2_SHAPES, band_cells, bound,
+    card_line, cons_and_work, k2_work, timed_ms, window_f64_times,
+    window_kernel_times)
 
 # Seconds of each phase, and of each plain DP call (plain_call), for the
 # time line.
@@ -360,6 +365,77 @@ def check_probe_kernel(eng, bstack, queries, device, norm: bool = True,
                envelope_segments=sum(s.mean_lo < s.mean_hi
                                      for p in plans for s in p),
                **bound(4 * sum(reads) + out_bytes, ops))
+    return res
+
+
+def check_cons_kernel(eng, queries, device, **params) -> dict:
+    """The constraint AND (``cons_and``) over the engine's cached window
+    statistics at the batch's length, on K1's flags of the plans ``eng``
+    makes for the batch (the serving path's inputs), against the plain
+    version: the flags and each query's count of cleared flags must be
+    equal.  Each timed call starts from a copy of K1's flags (``copy_ms``,
+    included).  The bound counts the work these flags need: the kernel
+    reads the statistics of a column only where K1 flagged it for some
+    query, every flag byte, CONS_OPS_POS a position read and CONS_OPS_PAIR
+    a position of a flagged (query, column); ``bound_full_ms`` is every
+    column's (kernel_bench.cons_and_work)."""
+    import torch
+    from kvmatch_tpu_torch.ops.probe import (FLAG, cons_and, cons_and_plain,
+                                             probe_flags)
+    from kvmatch_tpu_torch.parallel.query import pack_segments_batch
+    L = queries.shape[1]
+    stats3, bstack = eng._fly_cons_stats(L), eng._fly_bucket_stack(L)
+    if stats3 is None or bstack is None:
+        raise RuntimeError("cached statistics do not fit the device budget")
+    ctxs = norm_ctxs(queries, EPS, **params)
+    plans = eng._plan_batch(ctxs)
+    icfg = eng.icfg
+    segs = pack_segments_batch(plans, tuple(icfg.scales), device)
+    eps2 = torch.full((len(ctxs),), EPS * EPS, dtype=torch.float32,
+                      device=device)
+    cons = torch.tensor([[ALPHA, BETA, c.params["_mu_q"], c.params["_sd_q"]]
+                         for c in ctxs], dtype=torch.float32, device=device)
+    m = eng.n - L + 1
+    npos = -(-m // FLAG) * FLAG
+    Q = len(ctxs)
+    k1 = torch.zeros((Q, npos // FLAG), dtype=torch.bool, device=device)
+    probe_flags(bstack, 0, segs, eps2, cons, 0, npos, m, k1,
+                torch.zeros(Q, dtype=torch.int32, device=device), length=L,
+                unit=icfg.unit, d=icfg.d, slack=icfg.probe_guard, norm=True)
+    flags = torch.empty_like(k1)
+    cleared = torch.empty(Q, dtype=torch.int32, device=device)
+
+    def run(fn):
+        flags.copy_(k1)
+        cleared.zero_()
+        fn(*stats3, cons, 0, npos, m, L, flags, cleared)
+        return flags, cleared
+
+    got = tuple(t.clone() for t in run(cons_and))
+    want = run(cons_and_plain)
+    flag_diff = int((got[0] != want[0]).sum())
+    count_err = int((got[1].long() - want[1].long()).abs().max())
+    if flag_diff or count_err:
+        raise AssertionError(f"the constraint AND disagrees with its plain "
+                             f"version: {flag_diff} flags differ, count "
+                             f"error {count_err}")
+    k1_set = k1.sum(1)
+    if not torch.equal(got[1].long(), (k1 & ~got[0]).sum(1)):
+        raise AssertionError("the AND's cleared counts are not the flags it "
+                             "cleared")
+    cols_read = int(k1.any(0).sum())
+    pairs = int(k1_set.sum())
+    res = dict(k1_flagged=k1_set.tolist(), cleared=got[1].tolist(),
+               cleared_share=float(got[1].sum()) / max(pairs, 1),
+               columns=npos // FLAG, columns_read=cols_read,
+               flags_differ=flag_diff, max_abs_err=count_err,
+               ms=timed_ms(lambda: run(cons_and), 5, device),
+               plain_ms=timed_ms(lambda: run(cons_and_plain), 1, device),
+               copy_ms=timed_ms(lambda: flags.copy_(k1), 5, device),
+               bound_full_ms=cons_and_work(npos, Q)["bound_ms"],
+               **bound(12 * FLAG * cols_read + Q * npos / FLAG,
+                       FLAG * (CONS_OPS_POS * cols_read
+                               + CONS_OPS_PAIR * pairs)))
     return res
 
 
@@ -1098,8 +1174,8 @@ def main_dtw(eng, offs, queries, reps: int = MAIN_DTW_REPS) -> dict:
     from kvmatch_tpu_torch.engine import norm_dtw
     from kvmatch_tpu_torch.ops.dtw import dtw_diag, dtw_ds, dtw_rows
     from kvmatch_tpu_torch.ops.ed import window_ed
-    from kvmatch_tpu_torch.ops.probe import probe_flags
-    kernels = (probe_flags, window_ed, dtw_diag, dtw_rows, dtw_ds)
+    from kvmatch_tpu_torch.ops.probe import cons_and, probe_flags
+    kernels = (probe_flags, cons_and, window_ed, dtw_diag, dtw_rows, dtw_ds)
     kw = dict(rho=RHO_MAIN, alpha=ALPHA, beta=BETA)
     t0 = time.perf_counter()
     eng.query_batch(queries, EPS, **kw)
@@ -2788,7 +2864,7 @@ def main() -> int:
     from kvmatch_tpu_torch.index.device_build import build_index_device_stats
     from kvmatch_tpu_torch.ops.dtw import dtw_diag, dtw_ds, dtw_rows
     from kvmatch_tpu_torch.ops.ed import window_ed, window_ed_f64
-    from kvmatch_tpu_torch.ops.probe import probe_flags
+    from kvmatch_tpu_torch.ops.probe import cons_and, probe_flags
     from kvmatch_tpu_torch.state import series_to_device
 
     device = torch.device("cuda", 0)
@@ -2862,14 +2938,17 @@ def main() -> int:
                                         q8, device, rho=RHO_MAIN),
         k1_raw_plans=check_probe_kernel(raw8, stack8, q8, device,
                                         norm=False),
+        cons=check_cons_kernel(eng8, q8, device),
+        cons_dtw_plans=check_cons_kernel(eng8d, q8, device, rho=RHO_MAIN),
         k2=check_window_kernel(dev8, q8, device, K2_BATCH),
         k2_f64=check_window_f64(dev8, device),
         dtw=check_dtw_kernels(dev8, q8, device),
         k3_bitwise=check_bitwise(dev8, q8, device),
         ds_bitwise=check_bitwise(dev8, q8, device, "DS"),
         k4_bitwise=check_bitwise(dev8, q8, device, "K4")))
-    k1, k1d, k1r, k2, k2f, kd = (kern[k] for k in (
-        "k1", "k1_dtw_plans", "k1_raw_plans", "k2", "k2_f64", "dtw"))
+    k1, k1d, k1r, ca, cad, k2, k2f, kd = (kern[k] for k in (
+        "k1", "k1_dtw_plans", "k1_raw_plans", "cons", "cons_dtw_plans", "k2",
+        "k2_f64", "dtw"))
     k2_main = k2["shapes"][f"B{K2_BATCH}_L{L_MAIN}"]
     phase("fft", lambda: fft_error(dev8, q8, device))
     oracles: dict = {}  # the n=1e6 oracle's sets, for the streamed engines
@@ -2881,6 +2960,7 @@ def main() -> int:
 
     torch.cuda.reset_peak_memory_stats(device)
     probe_flags.launches = 0
+    cons_and.launches = 0
     window_ed.launches = 0
     window_ed_f64.launches = 0
 
@@ -2900,6 +2980,7 @@ def main() -> int:
     main = phase("main", ed_main, n=N_MAIN, L=L_MAIN, eps=EPS, alpha=ALPHA,
                  beta=BETA)
     launches = dict(probe_flags=probe_flags.launches,
+                    cons_and=cons_and.launches,
                     window_ed=window_ed.launches,
                     window_ed_f64=window_ed_f64.launches)
     emit(dict(phase="main_launches", card=card, launches=launches,
@@ -2909,7 +2990,7 @@ def main() -> int:
                              f"{main['n_queries']}")
 
     torch.cuda.reset_peak_memory_stats(device)
-    for fn in (probe_flags, dtw_diag, dtw_rows, dtw_ds):
+    for fn in (probe_flags, cons_and, dtw_diag, dtw_rows, dtw_ds):
         fn.launches = 0
     reng8 = QueryEngineDtw(data8, index=index8, icfg=icfg,
                            qcfg=QueryConfig(dense_probe_min_count=0),
@@ -2920,6 +3001,7 @@ def main() -> int:
         rsm=rsm_dtw_singles(reng8, data8, offs8)),
         n=N_MAIN, L=L_MAIN, rho=RHO_MAIN, eps=EPS, alpha=ALPHA, beta=BETA)
     dtw_launches = dict(probe_flags=probe_flags.launches,
+                        cons_and=cons_and.launches,
                         dtw_diag=dtw_diag.launches, dtw_rows=dtw_rows.launches,
                         dtw_ds=dtw_ds.launches)
     emit(dict(phase="main_dtw_launches", card=card, launches=dtw_launches,
@@ -2930,6 +3012,8 @@ def main() -> int:
             raise AssertionError(f"{part}-DTW self-queries found "
                                  f"{r['self_found']}/{r['n_queries']}")
     need = dict(probe_flags=launches["probe_flags"],
+                cons_and=min(launches["cons_and"],
+                             dtw_launches["cons_and"]),
                 window_ed=launches["window_ed"],
                 window_ed_f64=launches["window_ed_f64"],
                 dtw_diag=dtw_launches["dtw_diag"],
@@ -2942,7 +3026,8 @@ def main() -> int:
     phase("profile", lambda: profile_batch(eng8, q8), n=N_MAIN, L=L_MAIN)
     # The single-query ops of the JAX package's names, each call counted
     # (launches made to compare with the _multi forms are not).
-    path_kernels = (probe_flags, window_ed, dtw_diag, dtw_rows, dtw_ds)
+    path_kernels = (probe_flags, cons_and, window_ed, dtw_diag, dtw_rows,
+                    dtw_ds)
     single_launches = {fn.__name__: 0 for fn in path_kernels}
     phase("single", lambda: single_phase(data8, dev8, q8, device,
                                          path_kernels, single_launches),
@@ -3068,6 +3153,22 @@ def main() -> int:
             raw_plans_bound_by=k1r["bound_by"],
             raw_plans_stack_rows_read=k1r["stack_rows_read"]), k1,
             per_batch["probe_flags"]),
+        with_bound(dict(
+            name="cons_and", route="cuda",
+            source="kvmatch_tpu_torch/csrc/probe.cu",
+            replaces="kvmatch_tpu/parallel/query.py:762 (XLA, not Pallas)",
+            launches=launches["cons_and"], launched_on="main",
+            max_abs_err=max(c["max_abs_err"] for c in (ca, cad)),
+            tolerance="flags and cleared counts equal (cNSM-ED and "
+                      "cNSM-DTW plans)",
+            ms=ca["ms"], plain_ms=ca["plain_ms"], copy_ms=ca["copy_ms"],
+            library_ms=None, bound_full_ms=ca["bound_full_ms"],
+            cleared_share=ca["cleared_share"],
+            columns_read=ca["columns_read"], columns=ca["columns"],
+            dtw_plans_ms=cad["ms"], dtw_plans_plain_ms=cad["plain_ms"],
+            dtw_plans_bound_ms=cad["bound_ms"],
+            dtw_plans_cleared_share=cad["cleared_share"]), ca,
+            per_batch["cons_and"]),
         with_bound(dict(
             name="window_ed", route="cuda",
             source="kvmatch_tpu_torch/csrc/window_ed.cu",

@@ -100,9 +100,9 @@ _ENGINES = {
 }
 
 # The kernel wrappers whose launch counts ``query --count-launches`` prints.
-_KERNELS = (("ops.probe", "probe_flags"), ("ops.ed", "window_ed"),
-            ("ops.dtw", "dtw_diag"), ("ops.dtw", "dtw_rows"),
-            ("ops.dtw", "dtw_ds"))
+_KERNELS = (("ops.probe", "probe_flags"), ("ops.probe", "cons_and"),
+            ("ops.ed", "window_ed"), ("ops.dtw", "dtw_diag"),
+            ("ops.dtw", "dtw_rows"), ("ops.dtw", "dtw_ds"))
 
 
 def _engine(args):

@@ -336,3 +336,144 @@ extern "C" int kvm_probe_flags(const void* bstack, long long stride,
       (int*)counts);
   return (int)cudaGetLastError();
 }
+
+// The alpha/beta window-constraint AND of the cNSM probe (cons_and_kernel).
+//
+// Replaces no TPU kernel: the JAX package runs this AND in XLA outside its
+// Pallas probe (kvmatch_tpu/parallel/query.py:762-785), and the port ran it
+// as a chain of torch broadcast ops (ops/probe.py:_cons_ok_flags, the
+// plain version), each of which wrote a (Q, positions) temporary.  For every
+// query q and flag column j it does flags[q, j] &= "some position p of the
+// column, p < m, passes q's constraint", and counts per query the columns it
+// clears.  A position passes when, with the width-L window statistics
+//     mean = s1 / L,  var = max(s2 / L - mean^2, 0)
+// and the f32 guards m_tol, v_tol that grow with max|x| of the window,
+//     |mean - mu_q| <= beta + m_tol,
+//     (sd_q / alpha)^2 - v_tol <= var <= (alpha sd_q)^2 + v_tol.
+// The f32 operations are the plain version's, one by one and in its order,
+// built with --fmad=false: the flags equal it bit for bit (a flag cleared
+// that the plain version keeps would be a false dismissal).
+//
+// What bounds it on an H100: bytes for one query, instructions for a
+// batch.  One read of three f32 statistics a position (12 bytes) and of a
+// flag byte a (query, column) is about 0.36 ms at n = 1e8; each (position,
+// query) pair adds about ten f32 and predicate operations and each
+// (column, query) four shuffles and a vote, so with 8 queries the pass
+// takes about twice its bytes' time (PERF.md).  The design:
+// * One warp owns one flag column (128 positions) at a time; lane l holds
+//   positions l + 32 k, k = 0..3, so every load of a statistic is 128
+//   consecutive bytes (no alignment assumed: the rows of the cached
+//   statistics lie npad apart).  A block of 8 warps walks CA_TILES tiles of
+//   8 columns.
+// * The warp reads the column's flag of 32 queries at once (lane i: query
+//   i of the chunk) and skips a column whose flags are all clear: K1 has
+//   already settled it, and x & ok = x there.  Only columns that K1 flagged
+//   for some query read their statistics, once, for every query.
+// * The per-position terms (mean, var, m_tol, v_tol) are computed once;
+//   each lane computes its own query's (alpha sd_q)^2 and (sd_q / alpha)^2
+//   once a chunk, and the warp broadcasts them by shuffles to test each
+//   flagged query with __any_sync.  The lane of a query whose flag it
+//   clears writes the byte and adds to a per-block count in shared memory;
+//   one atomicAdd per block and query at the end makes the count exact.
+
+#define CA_THREADS 256
+#define CA_WARPS (CA_THREADS / 32)
+#define CA_TILES 8  // column steps of a warp: a block covers 64 columns
+#define CA_MAX_Q 8192  // queries a launch: their counts take 32 KB of shared
+
+__global__ void __launch_bounds__(CA_THREADS)
+cons_and_kernel(const float* __restrict__ s1, const float* __restrict__ s2,
+                const float* __restrict__ amax, const float* __restrict__ cons,
+                int Q, long long p0, long long ncol, long long m, float inv_l,
+                float km, float kv, unsigned char* __restrict__ flags,
+                long long fstride, int* __restrict__ cleared) {
+  extern __shared__ int s_cnt[];  // [Q]
+  for (int q = threadIdx.x; q < Q; q += CA_THREADS) s_cnt[q] = 0;
+  __syncthreads();
+
+  const int lane = threadIdx.x & 31;
+  const int warp = threadIdx.x >> 5;
+  const long long j0 = p0 / KVM_FLAG;
+  const long long c0 = (long long)blockIdx.x * (CA_WARPS * CA_TILES);
+  for (int t = 0; t < CA_TILES; ++t) {
+    const long long c = c0 + t * CA_WARPS + warp;  // column, from p0's
+    if (c >= ncol) break;                           // warp-uniform
+    const long long i0 = c * KVM_FLAG + lane;       // element of the stats
+    bool loaded = false;
+    bool live[4];
+    float mean[4], var[4], m_tol[4], v_tol[4];
+    for (int qc = 0; qc < Q; qc += 32) {
+      const int q = qc + lane;
+      unsigned char* f = flags + (long long)q * fstride + j0 + c;
+      const bool set = q < Q && *f != 0;
+      const unsigned setm = __ballot_sync(0xffffffffu, set);
+      if (!setm) continue;
+      if (!loaded) {
+#pragma unroll
+        for (int k = 0; k < 4; ++k) {
+          const long long i = i0 + 32 * k;
+          live[k] = p0 + i < m;
+          const float a = amax[i];
+          mean[k] = s1[i] * inv_l;
+          const float v = s2[i] * inv_l - mean[k] * mean[k];
+          var[k] = v < 0.0f ? 0.0f : v;  // clamp_min(v, 0); NaN stays
+          m_tol[k] = km * a + 1e-7f;
+          v_tol[k] = ((kv * a) * a + (2.0f * a) * m_tol[k]) + 1e-7f;
+        }
+        loaded = true;
+      }
+      float mu = 0.0f, beta = 0.0f, hh = 0.0f, ll = 0.0f;
+      if (set) {
+        const float alpha = cons[4 * q + 0];
+        const float sd = cons[4 * q + 3];
+        beta = cons[4 * q + 1];
+        mu = cons[4 * q + 2];
+        const float hi2 = alpha * sd;
+        const float lo2 = sd / alpha;
+        hh = hi2 * hi2;
+        ll = lo2 * lo2;
+      }
+      unsigned okm = 0;
+      for (unsigned rem = setm; rem; rem &= rem - 1) {
+        const int b = __ffs(rem) - 1;  // warp-uniform
+        const float qmu = __shfl_sync(0xffffffffu, mu, b);
+        const float qbeta = __shfl_sync(0xffffffffu, beta, b);
+        const float qhh = __shfl_sync(0xffffffffu, hh, b);
+        const float qll = __shfl_sync(0xffffffffu, ll, b);
+        bool ok = false;
+#pragma unroll
+        for (int k = 0; k < 4; ++k)
+          ok |= live[k] && fabsf(mean[k] - qmu) <= qbeta + m_tol[k]
+                && var[k] <= qhh + v_tol[k] && var[k] >= qll - v_tol[k];
+        if (__any_sync(0xffffffffu, ok)) okm |= 1u << b;
+      }
+      if (set && !(okm >> lane & 1u)) {
+        *f = 0;
+        atomicAdd(s_cnt + q, 1);
+      }
+    }
+  }
+  __syncthreads();
+  for (int q = threadIdx.x; q < Q; q += CA_THREADS)
+    if (s_cnt[q]) atomicAdd(cleared + q, s_cnt[q]);
+}
+
+extern "C" int kvm_cons_and(const void* s1, const void* s2, const void* amax,
+                            const void* cons, int Q, long long p0,
+                            long long npos, long long m, float inv_l,
+                            float km, float kv, void* flags,
+                            long long fstride, void* cleared, void* stream) {
+  if (Q < 1 || Q > CA_MAX_Q || npos <= 0 || npos % KVM_FLAG ||
+      p0 % KVM_FLAG) {
+    return (int)cudaErrorInvalidValue;
+  }
+  const long long ncol = npos / KVM_FLAG;
+  const long long per_block = (long long)CA_WARPS * CA_TILES;
+  const unsigned int blocks = (unsigned int)((ncol + per_block - 1) / per_block);
+  cons_and_kernel<<<blocks, CA_THREADS, Q * sizeof(int),
+                    (cudaStream_t)stream>>>(
+      (const float*)s1, (const float*)s2, (const float*)amax,
+      (const float*)cons, Q, p0, ncol, m, inv_l, km, kv,
+      (unsigned char*)flags, fstride, (int*)cleared);
+  return (int)cudaGetLastError();
+}

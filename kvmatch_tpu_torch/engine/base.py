@@ -104,6 +104,10 @@ class QueryStats:
     # (its group's, shared by the group's queries; 0 on the cached path):
     # parallel/query.py:probe_rebuilds.
     n_probe_blocks: int = 0
+    # Flag columns (FLAG positions each) that K1 set for the query and the
+    # cNSM alpha/beta constraint AND cleared (ops/probe.py:cons_and); 0
+    # without the AND.
+    n_cons_cleared: int = 0
     early_terminated: bool = False
     # The request's span records (utils/profiling.py), shared by the
     # request's queries; None unless a profiler recorded.
@@ -922,13 +926,15 @@ class BaseEngine:
         else:
             cons = torch.zeros((len(ctxs), 4), dtype=torch.float32,
                                device=self.device)
-        n_off, flags = dense_probe_flags(data_p, segs, eps2, cons, self.n,
-                                         self.icfg, L, norm, bstack=bstack,
-                                         stats3=stats3)
+        n_off, flags, cleared = dense_probe_flags(
+            data_p, segs, eps2, cons, self.n, self.icfg, L, norm,
+            bstack=bstack, stats3=stats3)
         blocks = probe_rebuilds(self.n, L, norm, bstack, stats3)
-        for c in ctxs:
+        n_off, flags, cleared = fetch("kv.probe.wait", n_off, flags, cleared)
+        for c, k in zip(ctxs, cleared.tolist()):
             c.stats.n_probe_blocks = blocks
-        return (*fetch("kv.probe.wait", n_off, flags), FLAG)
+            c.stats.n_cons_cleared = k
+        return n_off, flags, FLAG
 
     def _dense_probe_retry(self, ctxs, seg_lists):
         """Flag-route dense phase 1 for every query of the group: returns

@@ -25,8 +25,9 @@ from pathlib import Path
 _CSRC = Path(__file__).resolve().parent.parent / "csrc"
 _BUILD = Path(__file__).resolve().parents[2] / "build" / "kernels"
 SOURCES = ("probe.cu", "window_ed.cu", "dtw.cu")
-# --fmad=false: K1 repeats its plain version's f32 operations exactly, and
-# the double-single DP's TwoSum is error-free only without contraction.
+# --fmad=false: K1 and the constraint AND repeat their plain versions' f32
+# operations exactly, and the double-single DP's TwoSum is error-free only
+# without contraction.
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "--fmad=false", "-Xcompiler", "-fPIC")
 _BUILD_TIMEOUT_S = 600
@@ -108,6 +109,13 @@ def lib() -> ctypes.CDLL:
             L, L, L,                    # p0, npos, m
             I, F, F, I, I,              # unit, d, slack, qlen, norm
             P, L, P,                    # flags, flag row stride, counts
+            P]                          # stream
+        cdll.kvm_cons_and.restype = I
+        cdll.kvm_cons_and.argtypes = [
+            P, P, P, P,                 # s1, s2, amax (from position p0), cons
+            I, L, L, L,                 # Q, p0, npos, m
+            F, F, F,                    # 1/L, km, kv (f32)
+            P, L, P,                    # flags, flag row stride, cleared
             P]                          # stream
         cdll.kvm_window_ed.restype = I
         cdll.kvm_window_ed.argtypes = [

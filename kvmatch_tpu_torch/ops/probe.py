@@ -1,4 +1,6 @@
-"""K1 wrapper: the dense phase-1 probe over a bucket-stack window.
+"""K1 and constraint-AND wrappers: the dense phase-1 probe over a
+bucket-stack window, and the cNSM alpha/beta window constraint ANDed into
+its flags.
 
 Port of kvmatch_tpu/ops/probe_pallas.py:probe_flags_tiles.  ``probe_flags``
 launches the CUDA kernel (csrc/probe.cu) for a CUDA tensor and runs
@@ -12,9 +14,20 @@ multiples of FLAG) read ``bwin[:, p - col0 + shift]``; flag column
 p // FLAG of ``flags`` (bool, (Q, NF)) is set when the block holds a position
 with bound <= eps2 and p < m, and ``counts`` (int32, (Q,)) gains the exact
 number of such positions.
+
+``cons_and`` launches the AND kernel (csrc/probe.cu: cons_and_kernel) for
+CUDA tensors and ``cons_and_plain`` for CPU tensors; the plain version
+repeats ``_cons_ok_flags`` over blocks of PROBE_BLOCK
+positions.  Both update the same flag matrix in place: flag column
+p // FLAG, p in [p0, p0 + npos), stays set only where it was set and a
+position p < m of its block passes the query's constraint, and
+``cleared`` (int32, (Q,)) gains the number of columns each query had set
+and lost.
 """
 
 from __future__ import annotations
+
+from typing import Tuple
 
 import numpy as np
 import torch
@@ -23,9 +36,16 @@ from .. import backend, kernels
 
 FLAG = 128           # flag granularity: one flag per 128 positions
 MAX_QUERIES = 32     # shared-memory segment tables of the kernel
-# Positions per pass of the plain version, of the uncached probe route and of
-# the constraint AND: bounds their (Q, block) temporaries.
+# Positions per pass of the plain versions and of the uncached probe route:
+# bounds their (Q, block) temporaries.
 PROBE_BLOCK = 1 << 24
+# Queries a launch of the AND kernel, whose per-query counts take 32 KB of
+# shared memory (csrc/probe.cu: CA_MAX_Q); ``cons_and`` splits a larger group.
+CONS_MAX_Q = 8192
+
+
+def _f32(x) -> float:
+    return float(np.float32(x))
 
 
 def probe_flags_plain(bwin, col0, segs, eps2, cons, p0, npos, m, flags,
@@ -164,3 +184,88 @@ def probe_flags(bwin, col0, segs, eps2, cons, p0, npos, m, flags, counts, *,
 
 
 probe_flags.launches = 0
+
+
+def cons_tolerances(length: int) -> Tuple[float, float, float]:
+    """f32 constants of the constraint AND at query length ``length``: 1/L
+    and the factors of max|x| in the mean and variance guards."""
+    eps32 = np.finfo(np.float32).eps
+    return (_f32(1.0 / length),
+            _f32(4 * (np.log2(max(length, 2)) + 2) * eps32),
+            _f32(8 * (np.log2(max(length, 2)) + 2) * eps32))
+
+
+def _cons_ok_flags(s1, s2, amax, cons, p0: int, m: int, length: int):
+    """bool (Q, npos/FLAG): the block holds a position passing the guarded
+    alpha/beta window constraint (kvmatch_tpu/parallel/query.py:762-785).
+    The plain version of the AND kernel (``cons_and``)."""
+    inv_l, km, kv = cons_tolerances(length)
+    mean = s1 * inv_l
+    var = torch.clamp_min(s2 * inv_l - mean * mean, 0.0)
+    m_tol = km * amax + 1e-7
+    v_tol = kv * amax * amax + 2 * amax * m_tol + 1e-7
+    alpha, beta = cons[:, 0:1], cons[:, 1:2]
+    mu_q, sd_q = cons[:, 2:3], cons[:, 3:4]
+    hi2 = alpha * sd_q
+    lo2 = sd_q / alpha
+    ok = ((torch.abs(mean[None, :] - mu_q) <= beta + m_tol[None, :])
+          & (var[None, :] <= hi2 * hi2 + v_tol[None, :])
+          & (var[None, :] >= lo2 * lo2 - v_tol[None, :]))
+    pos = p0 + torch.arange(s1.shape[0], device=s1.device)
+    ok &= (pos < m)[None, :]
+    return ok.reshape(ok.shape[0], -1, FLAG).any(2)
+
+
+def cons_and_plain(s1, s2, amax, cons, p0, npos, m, length, flags, cleared):
+    """Plain PyTorch version of the AND kernel (same contract as
+    ``cons_and``)."""
+    for b0 in range(0, npos, PROBE_BLOCK):
+        nb = min(PROBE_BLOCK, npos - b0)
+        ok = _cons_ok_flags(s1[b0:b0 + nb], s2[b0:b0 + nb],
+                            amax[b0:b0 + nb], cons, p0 + b0, m, length)
+        cols = flags[:, (p0 + b0) // FLAG:(p0 + b0 + nb) // FLAG]
+        cleared += (cols & ~ok).sum(1, dtype=torch.int32)
+        cols &= ok
+
+
+def cons_and(s1, s2, amax, cons, p0, npos, m, length, flags, cleared):
+    """AND the alpha/beta window constraint into ``flags`` over positions
+    [p0, p0 + npos) (multiples of FLAG): the CUDA kernel for CUDA tensors,
+    the plain version for CPU tensors.  ``s1``, ``s2``, ``amax``: f32 window
+    sum, sum of squares and max|x| with element i at position p0 + i;
+    ``cons`` (Q, 4) f32 rows (alpha, beta, mu_q, sd_q)."""
+    if backend.route(s1) == "plain":
+        return cons_and_plain(s1, s2, amax, cons, p0, npos, m, length, flags,
+                              cleared)
+    dev = s1.device
+    Q = cons.shape[0]
+    for t in (s1, s2, amax):
+        _check(t.device == dev and t.dtype == torch.float32 and t.dim() == 1
+               and t.stride(0) == 1 and t.shape[0] >= npos,
+               "s1, s2, amax must be f32 rows of at least npos elements")
+    _check(cons.device == dev and cons.dtype == torch.float32
+           and cons.dim() == 2 and cons.shape[1] == 4
+           and cons.is_contiguous() and Q >= 1, "cons (Q, 4) f32")
+    _check(flags.device == dev and flags.dtype == torch.bool
+           and flags.dim() == 2 and flags.shape[0] == Q
+           and flags.stride(1) == 1, "flags (Q, NF) bool")
+    _check(cleared.device == dev and cleared.dtype == torch.int32
+           and cleared.shape == (Q,) and cleared.is_contiguous(),
+           "cleared (Q,) int32")
+    _check(p0 % FLAG == 0 and npos % FLAG == 0 and npos > 0 and p0 >= 0,
+           "p0, npos must be positive multiples of FLAG")
+    _check((p0 + npos) // FLAG <= flags.shape[1], "flags too narrow")
+    inv_l, km, kv = cons_tolerances(length)
+    stream = torch.cuda.current_stream(dev).cuda_stream
+    for q0 in range(0, Q, CONS_MAX_Q):
+        nq = min(CONS_MAX_Q, Q - q0)
+        code = kernels.lib().kvm_cons_and(
+            s1.data_ptr(), s2.data_ptr(), amax.data_ptr(),
+            cons[q0].data_ptr(), nq, p0, npos, m, inv_l, km, kv,
+            flags[q0].data_ptr(), flags.stride(0), cleared[q0:].data_ptr(),
+            stream)
+        cons_and.launches += 1
+        kernels.check(code, "cons_and")
+
+
+cons_and.launches = 0

@@ -6,8 +6,9 @@ width-L window statistics are query-independent, so an engine builds them
 once per series and query length (``make_bucket_stack``,
 ``make_cons_stats``).  ``dense_probe_flags`` then runs K1 (ops/probe.py) over
 the whole cached stack in one launch and, for cNSM, ANDs the guarded alpha/beta
-window constraint into the flags as plain tensor ops, exactly as the JAX
-package runs that AND in XLA outside its Pallas kernel.
+window constraint into the flags with a second kernel (ops/probe.py:
+``cons_and``) over the whole cached statistics, as the JAX package ANDs it
+in XLA outside its Pallas kernel.
 
 ``_dense_probe`` / ``_dense_probe_norm`` are the plain per-position bounds
 (kvmatch_tpu/parallel/query.py:104-132, 235-300), op for op in f32; they are
@@ -36,7 +37,7 @@ from .. import verify as vf
 from ..config import IndexConfig
 from ..ops.dtw import _dtw_f32, _znorm_rows
 from ..ops.ed import _gather, window_ed
-from ..ops.probe import FLAG, PROBE_BLOCK, probe_flags
+from ..ops.probe import FLAG, PROBE_BLOCK, cons_and, probe_flags
 from ..ops.sliding import build_buckets, sliding_window_stats_fwd
 from ..utils.profiling import span
 from .mesh import Mesh
@@ -210,29 +211,6 @@ def make_cons_stats(data_padded: torch.Tensor, length: int) -> torch.Tensor:
     return out
 
 
-def _cons_ok_flags(s1, s2, amax, cons, p0: int, m: int, length: int):
-    """bool (Q, npos/FLAG): the block holds a position passing the guarded
-    alpha/beta window constraint (kvmatch_tpu/parallel/query.py:762-785)."""
-    inv_l = _f32(1.0 / length)
-    eps32 = np.finfo(np.float32).eps
-    km = _f32(4 * (np.log2(max(length, 2)) + 2) * eps32)
-    kv = _f32(8 * (np.log2(max(length, 2)) + 2) * eps32)
-    mean = s1 * inv_l
-    var = torch.clamp_min(s2 * inv_l - mean * mean, 0.0)
-    m_tol = km * amax + 1e-7
-    v_tol = kv * amax * amax + 2 * amax * m_tol + 1e-7
-    alpha, beta = cons[:, 0:1], cons[:, 1:2]
-    mu_q, sd_q = cons[:, 2:3], cons[:, 3:4]
-    hi2 = alpha * sd_q
-    lo2 = sd_q / alpha
-    ok = ((torch.abs(mean[None, :] - mu_q) <= beta + m_tol[None, :])
-          & (var[None, :] <= hi2 * hi2 + v_tol[None, :])
-          & (var[None, :] >= lo2 * lo2 - v_tol[None, :]))
-    pos = p0 + torch.arange(s1.shape[0], device=s1.device)
-    ok &= (pos < m)[None, :]
-    return ok.reshape(ok.shape[0], -1, FLAG).any(2)
-
-
 def dense_probe_flags(data_padded: torch.Tensor, segs: DenseSegments,
                       eps2: torch.Tensor, cons: torch.Tensor, n_total: int,
                       icfg: IndexConfig, length: int, norm: bool,
@@ -240,17 +218,20 @@ def dense_probe_flags(data_padded: torch.Tensor, segs: DenseSegments,
                       stats3: Optional[torch.Tensor] = None):
     """Phase-1 flags for a same-length query group.
 
-    Returns (counts int32 (Q,) exact probe candidate counts, flags bool (Q, NF))
-    with flag j covering positions [j*FLAG, (j+1)*FLAG), NF = ceil(m/FLAG).
-    With ``bstack`` (make_bucket_stack over ``data_padded``) the probe is
-    one K1 launch; without it, bucket windows are built per PROBE_BLOCK
-    positions.  For cNSM (``norm``) the window-constraint AND is applied with
-    ``stats3`` (make_cons_stats) or per-block statistics.  Counts stay
-    probe-only, as in the JAX package.  While a profiler records, the
-    spans ``kv.probe.k1`` and ``kv.probe.cons`` time the two parts' launches
-    on the device, and on the per-block path ``kv.probe.rebuild`` times
-    each block's bucket windows and statistics apart from them
-    (``probe_rebuilds`` counts those blocks)."""
+    Returns (counts int32 (Q,) exact probe candidate counts, flags bool (Q, NF),
+    cleared int32 (Q,)) with flag j covering positions [j*FLAG, (j+1)*FLAG),
+    NF = ceil(m/FLAG).  With ``bstack`` (make_bucket_stack over
+    ``data_padded``) the probe is one K1 launch; without it, bucket windows
+    are built per PROBE_BLOCK positions.  For cNSM (``norm``) the
+    window-constraint AND (``cons_and``) is applied in one launch over
+    ``stats3`` (make_cons_stats) or in one a block over per-block
+    statistics; ``cleared`` counts the flags K1 set that it cleared (zeros
+    without ``norm``).  Counts stay probe-only, as in the JAX package.
+    While a profiler records, the spans ``kv.probe.k1`` and
+    ``kv.probe.cons`` time the two parts' launches on the device, and on
+    the per-block path ``kv.probe.rebuild`` times each block's bucket
+    windows and statistics apart from them (``probe_rebuilds`` counts
+    those blocks)."""
     scales = tuple(icfg.scales)
     w_max = max(scales)
     dev = data_padded.device
@@ -262,6 +243,7 @@ def dense_probe_flags(data_padded: torch.Tensor, segs: DenseSegments,
                          "padding")
     flags = torch.zeros((Q, npos_all // FLAG), dtype=torch.bool, device=dev)
     counts = torch.zeros(Q, dtype=torch.int32, device=dev)
+    cleared = torch.zeros(Q, dtype=torch.int32, device=dev)
     kw = dict(length=length, unit=icfg.unit, d=icfg.d,
               slack=icfg.probe_guard, norm=norm)
     blocks = [(p0, min(PROBE_BLOCK, npos_all - p0))
@@ -282,14 +264,10 @@ def dense_probe_flags(data_padded: torch.Tensor, segs: DenseSegments,
                                 flags, counts, **kw)
     if norm:
         with span("kv.probe.cons") as sp:
-            def cons_and(p0, npos, s1, s2, amax):
-                flags[:, p0 // FLAG:(p0 + npos) // FLAG] &= _cons_ok_flags(
-                    s1, s2, amax, cons, p0, m, length)
-
             if stats3 is not None:
                 with sp.device(dev):
-                    for p0, npos in blocks:
-                        cons_and(p0, npos, *stats3[:, p0: p0 + npos])
+                    cons_and(*stats3, cons, 0, npos_all, m, length, flags,
+                             cleared)
             else:
                 for p0, npos in blocks:
                     with span("kv.probe.rebuild") as rb, rb.device(dev):
@@ -297,8 +275,9 @@ def dense_probe_flags(data_padded: torch.Tensor, segs: DenseSegments,
                             data_padded[p0: p0 + npos + length - 1], length)
                         amax = torch.maximum(torch.abs(lo), torch.abs(hi))
                     with sp.device(dev):
-                        cons_and(p0, npos, s1, s2, amax)
-    return counts, flags
+                        cons_and(s1, s2, amax, cons, p0, npos, m, length,
+                                 flags, cleared)
+    return counts, flags, cleared
 
 
 def probe_rebuilds(n_total: int, length: int, norm: bool,

@@ -11,8 +11,9 @@ fields read beside ``BENCH_r0x``'s), and beside each the least time the
 card could take for the same work (``*_bound_ms``, from ``bound``) and the
 share of it reached (``*_share`` = bound / time).
 
-``bound`` is the one roofline of the port: ``chip_smoke.py``'s kernel table
-uses it too.  Its peaks are the published ones of one H100 SXM at 700 W;
+``cons_and_times`` times the cNSM constraint AND alone (``cons_and_work``
+its bound).  ``bound`` is the one roofline of the port: ``chip_smoke.py``'s
+kernel table uses it too.  Its peaks are the published ones of one H100 SXM at 700 W;
 its operation counts per unit of work were counted in the kernels'
 sources (``K1_*``, ``K2_OPS``, ``DP_OPS``, ``DS_OPS``).
 
@@ -65,6 +66,12 @@ DS_OPS = 20  # DS per band cell: d (2), two pair minima (2 x 4), TwoSum (10)
 BUILD_OPS_POINT, BUILD_OPS_SCALE = 10, 5
 # A real FFT of N points: 2.5 N log2 N operations (half a complex FFT's).
 FFT_OPS = 2.5
+# The constraint AND (csrc/probe.cu: cons_and_kernel): per position the
+# mean (1), the variance (3 and the clamp) and the two guards (2 and 6);
+# per (position, query) the three compares, their three adds or subtracts
+# and the |.|, and one more per compare taken as the AND of the compares.
+CONS_OPS_POS = 13
+CONS_OPS_PAIR = 8
 
 #: The JAX package's shapes (kvmatch_tpu/utils/kernel_bench.py:85, 108,
 #: 133, 168, 184), section -> shape.
@@ -94,6 +101,14 @@ MAX_SHARE = 1.05
 #: Least bytes of windows a K2 measurement walks through: about three times
 #: the card's 50 MB L2, so that its windows come from device memory.
 K2_WALK_BYTES = 160 << 20
+#: The AND's shapes on record (name, positions, Q) at L = 4096: the whole
+#: series (None: every window start, the cached route of the n = 1e8 cells)
+#: for one query and for a batch of 8, and one PROBE_BLOCK of 2^24
+#: positions (a launch of the per-block route) for 8.
+CONS_SHAPES = (("all", None, 1), ("all", None, 8), ("block", 1 << 24, 8))
+CONS_LENGTH = 4096
+#: The AND's kernel, as torch.profiler names it (csrc/probe.cu).
+CONS_KERNEL = "cons_and_kernel"
 
 
 def card_line() -> str:
@@ -131,6 +146,14 @@ def k2_f64_work(B: int, L: int, Q: int) -> dict:
     element are f64, counted at F64_OPS_PER_S."""
     return bound(B * (4 * L + 12) + Q * L * 8 + B * 8 * 3,
                  K2_OPS["znorm"] * B * L, F64_OPS_PER_S)
+
+
+def cons_and_work(npos: int, Q: int) -> dict:
+    """The AND's ``bound`` over ``npos`` positions and Q queries: three f32
+    statistics a position and a flag byte a (query, 128 positions) read
+    once; CONS_OPS_POS a position and CONS_OPS_PAIR a (position, query)."""
+    return bound(12 * npos + Q * npos / 128,
+                 npos * (CONS_OPS_POS + CONS_OPS_PAIR * Q))
 
 
 def band_cells(L: int, r: int) -> int:
@@ -596,18 +619,67 @@ def window_f64_times(data_dev: torch.Tensor, shapes=K2_F64_SHAPES,
     return out
 
 
+def cons_and_times(data_dev: torch.Tensor, shapes=CONS_SHAPES,
+                   length: int = CONS_LENGTH, calls: int = 20
+                   ) -> Dict[str, dict]:
+    """The constraint AND (``ops/probe.cons_and``) on the card over the
+    width-``length`` window statistics of ``data_dev`` at each (name,
+    positions, Q) of ``shapes``, with every flag set and constraint rows
+    that every window passes (alpha 1e3 about sd 1, beta 1e30): each call
+    reads every statistic and clears nothing, the most work the kernel does
+    on these positions.  ``device_ms`` (the kernel alone, torch.profiler),
+    ``host_us`` (the wrapper's host time a call), the bound
+    (``cons_and_work``) and its share, ``plain_ms``: the plain version (the
+    torch chain of ops/probe.py:_cons_ok_flags a PROBE_BLOCK) a call
+    by CUDA events, and ``cleared``, which stays 0."""
+    from ..ops.probe import FLAG, cons_and, cons_and_plain
+    from ..parallel.query import make_cons_stats
+    device = data_dev.device
+    if device.type != "cuda":
+        raise ValueError("cons_and_times measures the kernel on the card")
+    n = int(data_dev.shape[0])
+    m = n - length + 1
+    stats = tuple(make_cons_stats(data_dev, length))
+    out: Dict[str, dict] = {}
+    for name, npos, Q in shapes:
+        npos = -(-m // FLAG) * FLAG if npos is None else npos
+        cons = torch.tensor([[1e3, 1e30, 0.0, 1.0]] * Q, dtype=torch.float32,
+                            device=device)
+        flags = torch.ones((Q, npos // FLAG), dtype=torch.bool, device=device)
+        cleared = torch.zeros(Q, dtype=torch.int32, device=device)
+
+        def fn(_i, f=cons_and):
+            f(*stats, cons, 0, npos, m, length, flags, cleared)
+        work = cons_and_work(npos, Q)
+        (ms,), _, traces = device_ms([fn], calls, device, CONS_KERNEL,
+                                     floors=[work["bound_ms"] / MAX_SHARE])
+        torch.cuda.synchronize(device)
+        t0 = time.perf_counter()
+        for i in range(calls):
+            fn(i)
+        host_s = time.perf_counter() - t0
+        torch.cuda.synchronize(device)
+        plain = timed_ms(lambda: fn(0, cons_and_plain), 3, device)
+        out[f"{name}_Q{Q}"] = dict(
+            npos=npos, Q=Q, device_ms=ms, host_us=host_s / calls * 1e6,
+            plain_ms=plain, share_of_bound=work["bound_ms"] / ms,
+            traces=traces, cleared=int(cleared.sum()), **work)
+    return out
+
+
 def main(argv=None) -> int:
     """Time K2 on the card (``window_kernel_times``, and its f64 form,
-    ``window_f64_times``) on the n-point series of seed 20260817
-    (chip_smoke.py's), resident on the card; one JSON line with the card's
-    name and power limit."""
+    ``window_f64_times``) and the constraint AND (``cons_and_times``) on
+    the n-point series of seed 20260817 (chip_smoke.py's), resident on the
+    card; one JSON line with the card's name and power limit."""
     import argparse
     import json
     import sys
     from ..data.generators import generate_series
     ap = argparse.ArgumentParser(
         prog="python -m kvmatch_tpu_torch.utils.kernel_bench",
-        description="K2's device time at its shapes on record.")
+        description="K2's and the constraint AND's device time at their "
+                    "shapes on record.")
     ap.add_argument("--n", type=int, default=100_000_000)
     ap.add_argument("--calls", type=int, default=20)
     args = ap.parse_args(argv)
@@ -620,9 +692,11 @@ def main(argv=None) -> int:
                            dtype=torch.float32, device=device)
     times = window_kernel_times(data, calls=args.calls)
     f64 = window_f64_times(data, calls=args.calls)
+    cons = cons_and_times(data, calls=args.calls)
     print(json.dumps(dict(card=card_line(),
                           device=torch.cuda.get_device_name(device),
-                          n=args.n, calls=args.calls, k2=times, k2_f64=f64)))
+                          n=args.n, calls=args.calls, k2=times, k2_f64=f64,
+                          cons_and=cons)))
     return 0
 
 

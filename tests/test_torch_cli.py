@@ -189,8 +189,8 @@ def test_query_counts_launches(files, capsys):
     run(cli.main, ["query", files / "data", "--index", files / "t.npz",
                    *QUERIES["rsm-ed"], "--count-launches", *CPU])
     counts = json.loads(capsys.readouterr().err.strip().splitlines()[-1])
-    assert set(counts) == {"probe_flags", "window_ed", "dtw_diag",
-                           "dtw_rows", "dtw_ds"}
+    assert set(counts) == {"probe_flags", "cons_and", "window_ed",
+                           "dtw_diag", "dtw_rows", "dtw_ds"}
     assert not any(counts.values())
 
 

@@ -245,14 +245,28 @@ def test_k2_f64_bound_counts_its_bytes():
     assert t_ops < w["bound_ms"] == w["bound_bytes"] / kb.HBM_BYTES_PER_S * 1e3
 
 
+def test_cons_and_work_counts_each_byte_once():
+    """The AND's bound: three f32 statistics a position and a flag byte a
+    (query, 128 positions) read once; at n = 1e8 and Q = 8 it is bytes."""
+    npos = 99_996_032
+    w = kb.cons_and_work(npos, 8)
+    assert w["bound_bytes"] == 12 * npos + 8 * npos // 128
+    assert w["bound_ops"] == npos * (kb.CONS_OPS_POS + 8 * kb.CONS_OPS_PAIR)
+    assert w["bound_by"] == "bytes"
+    assert kb.cons_and_work(1 << 24, 1)["bound_bytes"] == (
+        12 * (1 << 24) + (1 << 24) // 128)
+
+
 def test_k2_device_times_refuse_the_cpu(monkeypatch):
-    """K2's device times are the card's: on a CPU tensor the timers raise,
-    and the command exits 2 without a card."""
+    """K2's and the AND's device times are the card's: on a CPU tensor the
+    timers raise, and the command exits 2 without a card."""
     data = torch.zeros(10_000)
     with pytest.raises(ValueError, match="card"):
         kb.window_kernel_times(data, shapes=((4, 100),))
     with pytest.raises(ValueError, match="card"):
         kb.window_f64_times(data, shapes=((4, 100),))
+    with pytest.raises(ValueError, match="card"):
+        kb.cons_and_times(data, shapes=(("all", None, 1),), length=256)
     with pytest.raises(ValueError, match="CUDA"):
         kb.device_ms([lambda i: None], 2, data.device)
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)

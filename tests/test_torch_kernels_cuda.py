@@ -9,7 +9,9 @@ the port is installed:
 
 Tolerances: K1 (dense probe) counts and flags exactly equal -- the kernel is
 compiled without multiply-add contraction and repeats the plain version's
-f32 operations in order.  K3 and DS equal their anti-diagonal plain versions
+f32 operations in order.  So does the constraint AND (``cons_and``): its
+flags and its per-query count of cleared flags equal ``cons_and_plain``'s
+bit for bit, windows on the tolerance edges included.  K3 and DS equal their anti-diagonal plain versions
 (dtw_diag_plain, dtw_ds_diag_plain) bit for bit, in the one-warp, one-block,
 cluster and global forms; K4 equals dtw_rows_plain bit for bit on rows one
 warp holds.  The plain DP versions themselves (dtw_diag_plain,
@@ -40,8 +42,12 @@ from kvmatch_tpu_torch.engine.norm_ed import NormQueryEngine
 from kvmatch_tpu_torch.engine.rsm_ed import QueryEngine
 from kvmatch_tpu_torch.index.device_build import build_index_device_stats
 from kvmatch_tpu_torch.ops import ed as ted
-from kvmatch_tpu_torch.ops.probe import FLAG, probe_flags, probe_flags_plain
-from kvmatch_tpu_torch.ops.sliding import build_buckets
+from kvmatch_tpu_torch.ops.probe import (FLAG, cons_and, cons_and_plain,
+                                         cons_tolerances, probe_flags,
+                                         probe_flags_plain)
+from kvmatch_tpu_torch.ops.sliding import (build_buckets,
+                                           sliding_window_stats_fwd)
+from kvmatch_tpu_torch.parallel import query as tq
 from kvmatch_tpu_torch.parallel.query import pack_segments_batch
 from kvmatch_tpu_torch.plan import QuerySegment, envelope
 from kvmatch_tpu_torch.state import series_to_device
@@ -179,6 +185,194 @@ def test_probe_kernel_rejects_bad_input(dev):
     case = _probe_case(False, dev)
     with pytest.raises(ValueError, match="multiples of FLAG"):
         _run(probe_flags, case, 0, 1000, dev, False)
+
+
+def _f32_solve(fn, x0, target, steps=4096):
+    """The f32 x nearest x0, walking ulps both ways, with fn(x) == target in
+    f32; None if there is none within ``steps``."""
+    up = dn = np.float32(x0)
+    for _ in range(steps):
+        for x in (up, dn):
+            if fn(x) == target:
+                return x
+        up = np.nextafter(up, np.float32(np.inf))
+        dn = np.nextafter(dn, np.float32(-np.inf))
+    return None
+
+
+def _cons_rows(rng, Q, L, p0, stats, m, kinds):
+    """(Q, 4) constraint rows and the position each is built on.  Kind 0: a
+    window's own mean and std, scaled at random (alpha 1.5, beta 0.5);
+    kinds 1-3 put that window on a tolerance edge in f32, the other two
+    conditions passing: |mean - mu_q| = beta + m_tol (1), var = hi2^2 +
+    v_tol (2), var = lo2^2 - v_tol (3).  ``stats``: host f32 rows of the
+    window statistics, element i at position p0 + i."""
+    f32 = np.float32
+    inv_l, km, kv = (f32(x) for x in cons_tolerances(L))
+    s1, s2, amax = stats
+    mean = s1 * inv_l
+    var = np.maximum(s2 * inv_l - mean * mean, f32(0))
+    m_tol = km * amax + f32(1e-7)
+    v_tol = kv * amax * amax + f32(2) * amax * m_tol + f32(1e-7)
+    rows, at = [], []
+    for q in range(Q):
+        kind = kinds[q % len(kinds)]
+        for _ in range(200):  # another window where f32 has no edge
+            w = int(rng.integers(0, min(m - p0, s1.shape[0])))
+            mu, sd = mean[w], f32(np.sqrt(var[w]))
+            alpha, beta = f32(1.5), f32(1e6)
+            if kind == 0:
+                beta = f32(0.5)
+                mu = f32(mu + rng.normal(0, 0.3))
+                sd = f32(sd * rng.uniform(0.8, 1.25))
+            elif kind == 1:
+                alpha = f32(1e3)
+                mu = f32(mu + f32(0.25))
+                d = np.abs(mean[w] - mu)
+                beta = _f32_solve(lambda b: b + m_tol[w], d - m_tol[w], d,
+                                  steps=64)
+            elif kind == 2:
+                sd = _f32_solve(lambda x: (alpha * x) * (alpha * x)
+                                + v_tol[w], np.sqrt(var[w] - v_tol[w])
+                                / alpha, var[w], steps=64)
+            else:
+                sd = _f32_solve(lambda x: (x / alpha) * (x / alpha)
+                                - v_tol[w], np.sqrt(var[w] + v_tol[w])
+                                * alpha, var[w], steps=64)
+            if beta is not None and sd is not None:
+                break
+        assert beta is not None and sd is not None, kind
+        rows.append([alpha, beta, mu, sd])
+        at.append(p0 + w)
+    return np.asarray(rows, np.float32), at
+
+
+# The AND's grid: Q (1 takes an edge row, 8 and 33 every kind, 33 two
+# chunks of the kernel's 32-query flag reads), L, and the route: the cached
+# statistics over all positions (p0 = 0) or one block's rebuilt statistics
+# from p0 = 4736 to the end, past m.  m = n - L + 1 is never a multiple of
+# 128.
+CONS_GRID = [(Q, L, route) for Q in (1, 8, 33) for L in (256, 4096)
+             for route in ("cached", "block")]
+
+
+def _cons_case(dev, Q, L, route, seed=0, n=200_000):
+    rng = np.random.default_rng(seed + Q + L)
+    data = (np.cumsum(rng.normal(0, 0.1, n)) + 3.0).astype(np.float32)
+    pad = tq.fly_pad_for(L, max(IndexConfig().scales))
+    data_p = torch.cat([torch.as_tensor(data, device=dev),
+                        torch.full((pad,), float(tq.FLY_FILL), device=dev)])
+    m = n - L + 1
+    assert m % FLAG
+    npos_all = -(-m // FLAG) * FLAG
+    if route == "cached":
+        p0, npos = 0, npos_all
+        stats = tuple(tq.make_cons_stats(data_p, L))
+    else:
+        p0 = 37 * FLAG
+        npos = npos_all - p0
+        s1, s2, lo, hi = sliding_window_stats_fwd(
+            data_p[p0: p0 + npos + L - 1], L)
+        stats = (s1, s2, torch.maximum(torch.abs(lo), torch.abs(hi)))
+    host = tuple(t[:npos].cpu().numpy() for t in stats)
+    kinds = (1, 2, 3, 0) if Q == 1 else (0, 1, 2, 3)
+    cons, at = _cons_rows(rng, Q, L, p0, host, m, kinds)
+    flags = torch.as_tensor(rng.random((Q, npos_all // FLAG)) < 0.5,
+                            device=dev)
+    flags[torch.arange(Q), torch.as_tensor(at) // FLAG] = True
+    return (stats, torch.as_tensor(cons, device=dev), p0, npos, m, L, flags,
+            at)
+
+
+def _cons_run(fn, case):
+    stats, cons, p0, npos, m, L, flags, _ = case
+    out = flags.clone()
+    cleared = torch.zeros(cons.shape[0], dtype=torch.int32,
+                          device=flags.device)
+    fn(*stats, cons, p0, npos, m, L, out, cleared)
+    return out.cpu().numpy(), cleared.cpu().numpy()
+
+
+@pytest.mark.parametrize("Q,L,route", CONS_GRID)
+def test_cons_and_kernel_equals_plain(dev, Q, L, route):
+    """The AND kernel's flags and per-query count of cleared flags equal
+    the plain version's (the torch chain of _cons_ok_flags) bit for bit;
+    the edge windows' columns are kept, columns outside [p0, p0 + npos)
+    are untouched, and the count is that of the flags set before and clear
+    after."""
+    case = _cons_case(dev, Q, L, route)
+    before = cons_and.launches
+    got = _cons_run(cons_and, case)
+    assert cons_and.launches == before + 1
+    want = _cons_run(cons_and_plain, case)
+    np.testing.assert_array_equal(got[0], want[0])
+    np.testing.assert_array_equal(got[1], want[1])
+    flags0 = case[6].cpu().numpy()
+    p0, at, cons = case[2], case[7], case[1].cpu().numpy()
+    np.testing.assert_array_equal(got[0][:, :p0 // FLAG],
+                                  flags0[:, :p0 // FLAG])
+    np.testing.assert_array_equal(got[1], (flags0 & ~got[0]).sum(1))
+    for q, w in enumerate(at):
+        if cons[q, 1] != np.float32(0.5):  # an edge row
+            assert got[0][q, w // FLAG], (q, w)
+    assert got[1].sum() > 0 and got[0].sum() > 0
+
+
+def test_cons_and_kernel_splits_large_groups(dev):
+    """A group of 8,200 queries takes two launches (CONS_MAX_Q a launch),
+    equal to the plain version."""
+    from kvmatch_tpu_torch.ops.probe import CONS_MAX_Q
+    case = _cons_case(dev, CONS_MAX_Q + 8, 256, "cached", n=6000)
+    before = cons_and.launches
+    got = _cons_run(cons_and, case)
+    assert cons_and.launches == before + 2
+    want = _cons_run(cons_and_plain, case)
+    np.testing.assert_array_equal(got[0], want[0])
+    np.testing.assert_array_equal(got[1], want[1])
+    assert got[1][CONS_MAX_Q:].sum() > 0
+
+
+def test_cons_and_kernel_rejects_bad_input(dev):
+    stats, cons, _, _, m, L, flags, _ = _cons_case(dev, 2, 256, "cached",
+                                                   n=6000)
+    cleared = torch.zeros(2, dtype=torch.int32, device=dev)
+    with pytest.raises(ValueError, match="multiples of FLAG"):
+        cons_and(*stats, cons, 64, 1024, m, L, flags, cleared)
+    with pytest.raises(ValueError, match="f32 rows"):
+        cons_and(*(t[:100] for t in stats), cons, 0, 1024, m, L, flags,
+                 cleared)
+
+
+@pytest.mark.parametrize("norm", [False, True])
+def test_dense_probe_cached_uncached_equal_plain(dev, norm, monkeypatch):
+    """dense_probe_flags end to end on the card: through the cached stack
+    and statistics (one K1 launch, one AND launch) and the per-block route
+    (one of each a 16,384-position block), counts, flags and cleared counts
+    equal the plain versions' over the cached route."""
+    icfg, _, segs, eps2, cons, m, L, data = _probe_case(norm, dev)
+    n = data.shape[0]
+    pad = tq.fly_pad_for(L, max(icfg.scales))
+    data_p = torch.cat([torch.as_tensor(data, device=dev),
+                        torch.full((pad,), float(tq.FLY_FILL), device=dev)])
+    cached = dict(bstack=tq.make_bucket_stack(data_p, icfg),
+                  stats3=tq.make_cons_stats(data_p, L) if norm else None)
+    before = cons_and.launches
+    got_cached = tq.dense_probe_flags(data_p, segs, eps2, cons, n, icfg, L,
+                                      norm, **cached)
+    assert cons_and.launches == before + norm
+    monkeypatch.setattr(tq, "PROBE_BLOCK", 1 << 14)
+    blocks = -(-m // (1 << 14))
+    got_blocks = tq.dense_probe_flags(data_p, segs, eps2, cons, n, icfg, L,
+                                      norm)
+    assert cons_and.launches == before + norm * (1 + blocks)
+    monkeypatch.setattr(tq, "probe_flags", probe_flags_plain)
+    monkeypatch.setattr(tq, "cons_and", cons_and_plain)
+    want = tq.dense_probe_flags(data_p, segs, eps2, cons, n, icfg, L, norm,
+                                **cached)
+    for got in (got_cached, got_blocks):
+        for g, w in zip(got, want):
+            np.testing.assert_array_equal(g.cpu().numpy(), w.cpu().numpy())
+    assert int(want[2].sum()) > 0 if norm else not want[2].any()
 
 
 @pytest.mark.parametrize("znorm", [False, True])

@@ -5,8 +5,10 @@ The port's plain version of K1 must reproduce the per-position bound of
 in f32, so counts and 128-position flags are exactly equal.  The full flags
 step (cached bucket stack, K1, constraint AND) is held against the JAX
 ``make_dense_probe_step_flags(flag_block=128)``: counts equal, the constraint
-only removes flags, and no exact answer's block is dismissed.  The CUDA kernel
-is held against the plain version in tests/test_torch_kernels_cuda.py.
+only removes flags, and no exact answer's block is dismissed.  The AND's
+flags and its count of cleared flags equal a brute force in numpy f32 (the
+same operations, position by position, column by column).  The CUDA kernels
+are held against the plain versions in tests/test_torch_kernels_cuda.py.
 """
 
 import jax
@@ -203,15 +205,16 @@ def _port_step(s, norm, cached):
     if cached:
         kw["bstack"] = tq.make_bucket_stack(s["data_p"], icfg)
         kw["stats3"] = tq.make_cons_stats(s["data_p"], L) if norm else None
-    counts, flags = tq.dense_probe_flags(
+    counts, flags, cleared = tq.dense_probe_flags(
         s["data_p"], segs, torch.as_tensor(s["eps2"]),
         torch.as_tensor(s["cons"]), s["n"], icfg, L, norm, **kw)
-    return counts.numpy(), flags.numpy()
+    return counts.numpy(), flags.numpy(), cleared.numpy()
 
 
 def test_flags_step_raw_equals_xla(flags_setup):
     s = flags_setup
-    counts, flags = _port_step(s, norm=False, cached=True)
+    counts, flags, cleared = _port_step(s, norm=False, cached=True)
+    assert not cleared.any()  # no AND without norm
     nx, fx = s["ref"][False]
     np.testing.assert_array_equal(counts, nx)
     k = flags.shape[1]
@@ -221,7 +224,7 @@ def test_flags_step_raw_equals_xla(flags_setup):
 
 def test_flags_step_norm_constraint_and_sound(flags_setup):
     s = flags_setup
-    counts, flags = _port_step(s, norm=True, cached=True)
+    counts, flags, _ = _port_step(s, norm=True, cached=True)
     nx, fx = s["ref"][True]
     np.testing.assert_array_equal(counts, nx)  # counts stay probe-only
     k = flags.shape[1]
@@ -244,6 +247,144 @@ def test_flags_step_uncached_blocked_bit_identical(flags_setup, norm,
     want = _port_step(s, norm, cached=True)
     monkeypatch.setattr(tq, "PROBE_BLOCK", 1 << 14)
     got = _port_step(s, norm, cached=False)
-    np.testing.assert_array_equal(got[0], want[0])
-    np.testing.assert_array_equal(got[1], want[1])
+    for g, w in zip(got, want):
+        np.testing.assert_array_equal(g, w)
 
+
+
+def _cons_brute(s, stats3, flags_k1, p0=0, npos=None, cons=None):
+    """The AND over positions [p0, p0 + npos) of ``flags_k1`` (bool (Q, NF),
+    copied), in numpy f32, one operation at a time as
+    ops/probe.py:_cons_ok_flags writes them, and each query's count of
+    the columns it clears, column by column.  ``cons``: the setup's rows
+    unless given."""
+    L, m = s["L"], s["n"] - s["L"] + 1
+    npos = flags_k1.shape[1] * FLAG - p0 if npos is None else npos
+    f32 = np.float32
+    eps32 = np.finfo(f32).eps
+    inv_l = f32(1.0 / L)
+    km = f32(4 * (np.log2(L) + 2) * eps32)
+    kv = f32(8 * (np.log2(L) + 2) * eps32)
+    s1, s2, amax = (np.asarray(r[p0:p0 + npos], f32) for r in stats3)
+    mean = s1 * inv_l
+    var = np.maximum(s2 * inv_l - mean * mean, f32(0))
+    m_tol = km * amax + f32(1e-7)
+    v_tol = kv * amax * amax + f32(2) * amax * m_tol + f32(1e-7)
+    live = p0 + np.arange(npos) < m
+    flags = flags_k1.copy()
+    cleared = np.zeros(flags.shape[0], np.int64)
+    rows = s["cons"] if cons is None else cons
+    for q, (alpha, beta, mu_q, sd_q) in enumerate(rows):
+        hi2, lo2 = alpha * sd_q, sd_q / alpha
+        ok = (live & (np.abs(mean - mu_q) <= beta + m_tol)
+              & (var <= hi2 * hi2 + v_tol) & (var >= lo2 * lo2 - v_tol))
+        for c in range(npos // FLAG):
+            j = p0 // FLAG + c
+            if flags[q, j] and not ok[c * FLAG:(c + 1) * FLAG].any():
+                flags[q, j] = False
+                cleared[q] += 1
+    return flags, cleared
+
+
+def _k1_flags(s, seg_lists=None, cons=None):
+    """K1's flags alone (the plain version, cNSM), before the AND; the
+    setup's plans and constraint rows unless given."""
+    from kvmatch_tpu_torch.ops.probe import probe_flags_plain
+    icfg, L, n = s["icfg"], s["L"], s["n"]
+    seg_lists = s["seg_lists"] if seg_lists is None else seg_lists
+    cons = s["cons"] if cons is None else cons
+    m = n - L + 1
+    npos = -(-m // FLAG) * FLAG
+    segs = tq.pack_segments_batch(seg_lists, tuple(icfg.scales), "cpu")
+    Q = len(seg_lists)
+    flags = torch.zeros((Q, npos // FLAG), dtype=torch.bool)
+    probe_flags_plain(tq.make_bucket_stack(s["data_p"], icfg), 0, segs,
+                      torch.as_tensor(s["eps2"]), torch.as_tensor(cons),
+                      0, npos, m, flags, torch.zeros(Q, dtype=torch.int32),
+                      length=L, unit=icfg.unit, d=icfg.d,
+                      slack=icfg.probe_guard, norm=True)
+    return flags
+
+
+# (p0, npos) of one cons_and call over a flag matrix of the whole range,
+# with PROBE_BLOCK (the plain version's pass): the whole range in one
+# pass; in passes of 4096 positions; a window off the range's start that
+# ends before m; a window over the last, partial column.
+CONS_WINDOWS = {"whole": (0, None, None), "passes": (0, None, 1 << 12),
+                "window": (8192, 16384, None),
+                "tail": (59392, 128, 1 << 12)}
+
+
+@pytest.mark.parametrize("case", sorted(CONS_WINDOWS))
+def test_cons_and_plain_equals_brute_force(flags_setup, case, monkeypatch):
+    """The AND's wrapper on CPU tensors over positions [p0, p0 + npos):
+    the flags outside the window are left as they were, those inside equal
+    the numpy brute force, and ``cleared`` gains its per-query count of the
+    columns that were set and are now clear."""
+    from kvmatch_tpu_torch.ops import probe as tp
+    s = flags_setup
+    p0, npos, block = CONS_WINDOWS[case]
+    if block is not None:
+        monkeypatch.setattr(tp, "PROBE_BLOCK", block)
+    k1 = _k1_flags(s)
+    npos = k1.shape[1] * FLAG - p0 if npos is None else npos
+    m = s["n"] - s["L"] + 1
+    assert m % FLAG and (case != "tail" or p0 + npos > m)
+    stats3 = tq.make_cons_stats(s["data_p"], s["L"])
+    flags = k1.clone()
+    cleared = torch.full((k1.shape[0],), 7, dtype=torch.int32)
+    tp.cons_and(*stats3[:, p0:], torch.as_tensor(s["cons"]), p0, npos, m,
+                s["L"], flags, cleared)
+    want, n_clear = _cons_brute(s, stats3.numpy(), k1.numpy(), p0, npos)
+    np.testing.assert_array_equal(flags.numpy(), want)
+    np.testing.assert_array_equal(cleared.numpy(), 7 + n_clear)
+    if case != "tail":
+        assert n_clear.min() > 0  # the AND clears some of K1's flags here
+
+
+@pytest.mark.parametrize("cached", [True, False])
+def test_dense_probe_cleared_counts_brute_force(flags_setup, cached,
+                                                monkeypatch):
+    """dense_probe_flags' third output, through the cached statistics (one
+    AND over all positions) and the per-block route (one a block): the
+    brute-force count of K1's flags that the AND clears, and its flags
+    the brute force's."""
+    s = flags_setup
+    if not cached:
+        monkeypatch.setattr(tq, "PROBE_BLOCK", 1 << 14)
+    _, flags, cleared = _port_step(s, norm=True, cached=cached)
+    stats3 = tq.make_cons_stats(s["data_p"], s["L"]).numpy()
+    want, n_clear = _cons_brute(s, stats3, _k1_flags(s).numpy())
+    np.testing.assert_array_equal(flags, want)
+    np.testing.assert_array_equal(cleared, n_clear)
+    assert n_clear.min() > 0
+
+
+def test_engine_reports_cons_cleared(flags_setup):
+    """QueryStats.n_cons_cleared: each query's count from the group's probe
+    pass of the cNSM engine (the brute force on the engine's own plans and
+    constraint rows), 0 on the RSM engine's."""
+    from kvmatch_tpu_torch.engine.base import QueryStats as TQueryStats
+    from kvmatch_tpu_torch.engine.base import _Ctx as TCtx
+    from kvmatch_tpu_torch.engine.norm_ed import NormQueryEngine
+    from kvmatch_tpu_torch.engine.rsm_ed import QueryEngine
+    s = flags_setup
+    data, L, eps = s["data"], s["L"], s["eps"]
+    queries = np.stack([data[o:o + L] for o in s["offs"]])
+    params = dict(alpha=s["alpha"], beta=s["beta"])
+    eng = NormQueryEngine(data, icfg=s["icfg"], device="cpu")
+    res = eng.query_batch_device(queries, eps, **params)
+    ctxs = [TCtx(query=q, length=L, epsilon=eps, eps2=eps * eps,
+                 params=dict(params), stats=TQueryStats()) for q in queries]
+    seg_lists = eng._plan_batch(ctxs)
+    cons = np.asarray([[c.params[k] for k in ("alpha", "beta", "_mu_q",
+                                              "_sd_q")] for c in ctxs],
+                      np.float32)
+    stats3 = tq.make_cons_stats(s["data_p"], L).numpy()
+    _, n_clear = _cons_brute(s, stats3, _k1_flags(s, seg_lists, cons).numpy(),
+                             cons=cons)
+    assert n_clear.min() > 0
+    assert [r.stats.n_cons_cleared for r in res] == n_clear.tolist()
+    rsm = QueryEngine(data, icfg=s["icfg"], device="cpu")
+    assert all(r.stats.n_cons_cleared == 0
+               for r in rsm.query_batch_device(queries, eps))
