@@ -18,7 +18,7 @@ JSON line tagged with the card's name and power limit and its seconds
                 envelope plans and the 8 RSM-ED plans of the same queries;
                 the constraint AND (cons_and) over the engine's cached
                 window statistics on K1's flags of the cNSM-ED and
-                cNSM-DTW plans: flags and cleared counts equal to its
+                cNSM-DTW plans: flags equal to its
                 plain version's;
                 K2 (window distances, raw and z-norm) at B=16384, L=8192
                 with the north-star queries, then at each (B, L) of
@@ -313,9 +313,9 @@ def check_probe_kernel(eng, bstack, queries, device, norm: bool = True,
     The bound counts the work this data needs (ops/probe.py:probe_work):
     the open terms' operations and the distinct stack entries they read."""
     import torch
-    from kvmatch_tpu_torch.ops.probe import (FLAG, probe_flags,
-                                             probe_flags_plain, probe_work)
-    from kvmatch_tpu_torch.parallel.query import pack_segments_batch
+    from kvmatch_tpu_torch.ops.probe import (FLAG, pack_segments_batch,
+                                             probe_flags, probe_flags_plain,
+                                             probe_work)
     if bstack is None:
         raise RuntimeError("bucket stack does not fit the device budget")
     L = queries.shape[1]
@@ -372,7 +372,7 @@ def check_cons_kernel(eng, queries, device, **params) -> dict:
     """The constraint AND (``cons_and``) over the engine's cached window
     statistics at the batch's length, on K1's flags of the plans ``eng``
     makes for the batch (the serving path's inputs), against the plain
-    version: the flags and each query's count of cleared flags must be
+    version: the flags must be
     equal.  Each timed call starts from a copy of K1's flags (``copy_ms``,
     included).  The bound counts the work these flags need: the kernel
     reads the statistics of a column only where K1 flagged it for some
@@ -381,10 +381,10 @@ def check_cons_kernel(eng, queries, device, **params) -> dict:
     column's (kernel_bench.cons_and_work)."""
     import torch
     from kvmatch_tpu_torch.ops.probe import (FLAG, cons_and, cons_and_plain,
-                                             probe_flags)
-    from kvmatch_tpu_torch.parallel.query import pack_segments_batch
+                                             pack_segments_batch, probe_flags)
     L = queries.shape[1]
-    stats3, bstack = eng._fly_cons_stats(L), eng._fly_bucket_stack(L)
+    stats3 = eng.probe.cons_stats(L, eng.CACHE_MEM_FRACTION)
+    bstack = eng.probe.bucket_stack(L, eng.CACHE_MEM_FRACTION)
     if stats3 is None or bstack is None:
         raise RuntimeError("cached statistics do not fit the device budget")
     ctxs = norm_ctxs(queries, EPS, **params)
@@ -403,32 +403,26 @@ def check_cons_kernel(eng, queries, device, **params) -> dict:
                 torch.zeros(Q, dtype=torch.int32, device=device), length=L,
                 unit=icfg.unit, d=icfg.d, slack=icfg.probe_guard, norm=True)
     flags = torch.empty_like(k1)
-    cleared = torch.empty(Q, dtype=torch.int32, device=device)
 
     def run(fn):
         flags.copy_(k1)
-        cleared.zero_()
-        fn(*stats3, cons, 0, npos, m, L, flags, cleared)
-        return flags, cleared
+        fn(*stats3, cons, 0, npos, m, L, flags)
+        return flags
 
-    got = tuple(t.clone() for t in run(cons_and))
+    got = run(cons_and).clone()
     want = run(cons_and_plain)
-    flag_diff = int((got[0] != want[0]).sum())
-    count_err = int((got[1].long() - want[1].long()).abs().max())
-    if flag_diff or count_err:
+    flag_diff = int((got != want).sum())
+    if flag_diff:
         raise AssertionError(f"the constraint AND disagrees with its plain "
-                             f"version: {flag_diff} flags differ, count "
-                             f"error {count_err}")
+                             f"version: {flag_diff} flags differ")
     k1_set = k1.sum(1)
-    if not torch.equal(got[1].long(), (k1 & ~got[0]).sum(1)):
-        raise AssertionError("the AND's cleared counts are not the flags it "
-                             "cleared")
+    cleared = (k1 & ~got).sum(1)
     cols_read = int(k1.any(0).sum())
     pairs = int(k1_set.sum())
-    res = dict(k1_flagged=k1_set.tolist(), cleared=got[1].tolist(),
-               cleared_share=float(got[1].sum()) / max(pairs, 1),
+    res = dict(k1_flagged=k1_set.tolist(), cleared=cleared.tolist(),
+               cleared_share=float(cleared.sum()) / max(pairs, 1),
                columns=npos // FLAG, columns_read=cols_read,
-               flags_differ=flag_diff, max_abs_err=count_err,
+               flags_differ=flag_diff,
                ms=timed_ms(lambda: run(cons_and), 5, device),
                plain_ms=timed_ms(lambda: run(cons_and_plain), 1, device),
                copy_ms=timed_ms(lambda: flags.copy_(k1), 5, device),
@@ -1287,7 +1281,7 @@ def routing_ab(eng, offs, queries, reps: int = 3) -> dict:
 
 
 # ------------------------------------------------------------- phase 7 ----
-SPANS = ("_plan_batch", "_device_dense_phase1_flags", "_flags_to_intervals",
+SPANS = ("_plan_batch", "_dense_probe_retry", "_flags_to_intervals",
          "_verify_multi", "_verify_regions", "_verify_gather",
          "_guarded_near", "_confirm_znorm_device", "_confirm_znorm_exact")
 
@@ -2597,6 +2591,7 @@ def sharded_phase(data8, stack8, buckets8, q8, offs8, raw8, eng8, reng8,
                                    generate_series)
     from kvmatch_tpu_torch.ops import dtw as td
     from kvmatch_tpu_torch.ops.ed import window_ed
+    from kvmatch_tpu_torch.ops.probe import pack_segments_batch
     from kvmatch_tpu_torch.parallel import query as pq
     from kvmatch_tpu_torch.parallel.build import build_index_sharded
     from kvmatch_tpu_torch.parallel.dryrun import (dryrun_multichip,
@@ -2695,7 +2690,7 @@ def sharded_phase(data8, stack8, buckets8, q8, offs8, raw8, eng8, reng8,
     rb, rb_s = resident_run(lambda: raw8.query_batch_device(q8, EPS))
     res, info = step_run("ed_batched", lambda k: (
         pq.make_sharded_query_step_batched(mesh, icfg, L_MAIN, top_k=k)), (
-        data_sh, stack_sh, q8, pq.pack_segments_batch(segs, scales, device),
+        data_sh, stack_sh, q8, pack_segments_batch(segs, scales, device),
         torch.full((len(q8),), EPS * EPS, device=device), n))
     sets, near = exact_sets("rsm_ed", data64, q8, ctxs, res[1], res[2],
                             EPS)
@@ -2714,7 +2709,7 @@ def sharded_phase(data8, stack8, buckets8, q8, offs8, raw8, eng8, reng8,
     window_ed.shapes.clear()
     res, info = step_run("norm", lambda k: (
         pq.make_sharded_query_step_norm_batched(mesh, icfg, L_MAIN, top_k=k)),
-        (data_sh, stack_sh, qhat, pq.pack_segments_batch(segs, scales, device),
+        (data_sh, stack_sh, qhat, pack_segments_batch(segs, scales, device),
          torch.full((len(q8),), EPS * EPS, device=device), cons, n))
     info["k2_shapes"] = dict(window_ed.shapes)
     if len(info["rounds"]) < 2:
@@ -2737,7 +2732,7 @@ def sharded_phase(data8, stack8, buckets8, q8, offs8, raw8, eng8, reng8,
         pq.make_sharded_query_step_dtw_batched(
             mesh, icfg, L_RSM_DTW, RHO_RSM, top_k=0)(
             data_sh, stack_sh, qs,
-            pq.pack_segments_batch(segs, scales, device),
+            pack_segments_batch(segs, scales, device),
             torch.full((len(qs),), EPS_RSM ** 2, device=device), n)))
     totals = probe_only[0].sum(0).tolist()
     pick = [i for i, c in enumerate(totals)
@@ -2752,7 +2747,7 @@ def sharded_phase(data8, stack8, buckets8, q8, offs8, raw8, eng8, reng8,
         want.append(set(r.offsets.tolist()))
         rs_s += t
     inputs = (data_sh, stack_sh, qs[pick],
-              pq.pack_segments_batch([segs[i] for i in pick], scales, device),
+              pack_segments_batch([segs[i] for i in pick], scales, device),
               torch.full((len(pick),), EPS_RSM ** 2, device=device), n)
     res, info = step_run("dtw", lambda k: pq.make_sharded_query_step_dtw_batched(
         mesh, icfg, L_RSM_DTW, RHO_RSM, top_k=k), inputs)
@@ -2793,7 +2788,7 @@ def sharded_phase(data8, stack8, buckets8, q8, offs8, raw8, eng8, reng8,
         pq.make_sharded_query_step_norm_dtw_batched(
             mesh, icfg, L_n, rho_n, top_k=k)), (
         HbmStore(small, sharding=mesh).device, small_stack, qhat,
-        pq.pack_segments_batch(segs, scales, device),
+        pack_segments_batch(segs, scales, device),
         torch.full((len(qn),), EPS * EPS, device=device), cons, small.size))
     small64 = torch.as_tensor(small, dtype=torch.float64, device=device)
     sets, near = exact_sets("cnsm_dtw", small64, qn, ctxs, res[1],
@@ -2931,11 +2926,12 @@ def main() -> int:
     raw8 = QueryEngine(data8, index=index8, icfg=icfg,
                        qcfg=QueryConfig(dense_probe_min_count=0),
                        device_data=dev8)
-    stack8 = eng8._fly_bucket_stack(L_MAIN)
+    stack8 = eng8.probe.bucket_stack(L_MAIN, eng8.CACHE_MEM_FRACTION)
     kern = phase("kernels", lambda: dict(
         k1=check_probe_kernel(eng8, stack8, q8, device),
-        k1_dtw_plans=check_probe_kernel(eng8d, eng8d._fly_bucket_stack(L_MAIN),
-                                        q8, device, rho=RHO_MAIN),
+        k1_dtw_plans=check_probe_kernel(
+            eng8d, eng8d.probe.bucket_stack(L_MAIN, eng8d.CACHE_MEM_FRACTION),
+            q8, device, rho=RHO_MAIN),
         k1_raw_plans=check_probe_kernel(raw8, stack8, q8, device,
                                         norm=False),
         cons=check_cons_kernel(eng8, q8, device),
@@ -3158,9 +3154,8 @@ def main() -> int:
             source="kvmatch_tpu_torch/csrc/probe.cu",
             replaces="kvmatch_tpu/parallel/query.py:762 (XLA, not Pallas)",
             launches=launches["cons_and"], launched_on="main",
-            max_abs_err=max(c["max_abs_err"] for c in (ca, cad)),
-            tolerance="flags and cleared counts equal (cNSM-ED and "
-                      "cNSM-DTW plans)",
+            max_abs_err=max(c["flags_differ"] for c in (ca, cad)),
+            tolerance="flags equal (cNSM-ED and cNSM-DTW plans)",
             ms=ca["ms"], plain_ms=ca["plain_ms"], copy_ms=ca["copy_ms"],
             library_ms=None, bound_full_ms=ca["bound_full_ms"],
             cleared_share=ca["cleared_share"],

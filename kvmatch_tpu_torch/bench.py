@@ -349,7 +349,7 @@ def northstar(st: _State) -> None:
     plans = eng8._plan_batch(ctxs)
     sync()
     t0 = time.perf_counter()
-    eng8._device_dense_phase1_flags(ctxs, plans)
+    eng8._dense_probe_retry(ctxs, plans)
     sync()
     ns["probe_pass_s_q8"] = time.perf_counter() - t0
     # The twin's phase 1 reads host intervals, which the serving index

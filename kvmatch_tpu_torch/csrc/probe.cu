@@ -1,7 +1,7 @@
 // K1: dense phase-1 probe over the cached per-scale bucket stack.
 //
 // Replaces the Pallas TPU kernel kvmatch_tpu/ops/probe_pallas.py:_probe_kernel
-// (entry probe_flags_tiles, driven by parallel/query.py:
+// (entry probe_flags_tiles, driven by kvmatch_tpu/parallel/query.py:
 // make_dense_probe_step_flags_pallas).  For every position p and query q it
 // sums, over the query's plan segments, the lower bound
 //     width * max(key_lo - mean_hi, mean_lo - key_hi, 0)^2      (RSM-ED)
@@ -13,7 +13,7 @@
 // counts.
 //
 // Arithmetic is f32, op for op as the plain versions
-// kvmatch_tpu_torch/parallel/query.py:_dense_probe/_dense_probe_norm (which
+// kvmatch_tpu_torch/ops/probe.py:_dense_probe/_dense_probe_norm (which
 // mirror the JAX package's), built with --fmad=false so no multiply-add is
 // contracted: flags and counts equal the plain version bit for bit, and the
 // probe_guard slack that makes phase 1 sound is unchanged.
@@ -257,7 +257,7 @@ probe_flags_kernel(const int* __restrict__ bstack, long long stride,
     __syncwarp();
     if (lane == 0) {
       // punits: sum of k_units over the valid segments in order, then the
-      // filter's per-query terms (parallel/query.py:_dense_probe_norm).
+      // filter's per-query terms (ops/probe.py:_dense_probe_norm).
       float pu = 0.0f;
       for (int t = 0; t < c.k; ++t) pu = pu + s_tab[q * KVM_MAX_SEG + t].w;
       c.punits = fmaxf(pu, 1.0f);
@@ -344,8 +344,8 @@ extern "C" int kvm_probe_flags(const void* bstack, long long stride,
 // as a chain of torch broadcast ops (ops/probe.py:_cons_ok_flags, the
 // plain version), each of which wrote a (Q, positions) temporary.  For every
 // query q and flag column j it does flags[q, j] &= "some position p of the
-// column, p < m, passes q's constraint", and counts per query the columns it
-// clears.  A position passes when, with the width-L window statistics
+// column, p < m, passes q's constraint".  A position passes when, with the
+// width-L window statistics
 //     mean = s1 / L,  var = max(s2 / L - mean^2, 0)
 // and the f32 guards m_tol, v_tol that grow with max|x| of the window,
 //     |mean - mu_q| <= beta + m_tol,
@@ -373,24 +373,19 @@ extern "C" int kvm_probe_flags(const void* bstack, long long stride,
 //   each lane computes its own query's (alpha sd_q)^2 and (sd_q / alpha)^2
 //   once a chunk, and the warp broadcasts them by shuffles to test each
 //   flagged query with __any_sync.  The lane of a query whose flag it
-//   clears writes the byte and adds to a per-block count in shared memory;
-//   one atomicAdd per block and query at the end makes the count exact.
+//   clears writes the byte.  The kernel keeps no per-query state, so one
+//   launch takes any number of queries.
 
 #define CA_THREADS 256
 #define CA_WARPS (CA_THREADS / 32)
 #define CA_TILES 8  // column steps of a warp: a block covers 64 columns
-#define CA_MAX_Q 8192  // queries a launch: their counts take 32 KB of shared
 
 __global__ void __launch_bounds__(CA_THREADS)
 cons_and_kernel(const float* __restrict__ s1, const float* __restrict__ s2,
                 const float* __restrict__ amax, const float* __restrict__ cons,
                 int Q, long long p0, long long ncol, long long m, float inv_l,
                 float km, float kv, unsigned char* __restrict__ flags,
-                long long fstride, int* __restrict__ cleared) {
-  extern __shared__ int s_cnt[];  // [Q]
-  for (int q = threadIdx.x; q < Q; q += CA_THREADS) s_cnt[q] = 0;
-  __syncthreads();
-
+                long long fstride) {
   const int lane = threadIdx.x & 31;
   const int warp = threadIdx.x >> 5;
   const long long j0 = p0 / KVM_FLAG;
@@ -447,33 +442,25 @@ cons_and_kernel(const float* __restrict__ s1, const float* __restrict__ s2,
                 && var[k] <= qhh + v_tol[k] && var[k] >= qll - v_tol[k];
         if (__any_sync(0xffffffffu, ok)) okm |= 1u << b;
       }
-      if (set && !(okm >> lane & 1u)) {
-        *f = 0;
-        atomicAdd(s_cnt + q, 1);
-      }
+      if (set && !(okm >> lane & 1u)) *f = 0;
     }
   }
-  __syncthreads();
-  for (int q = threadIdx.x; q < Q; q += CA_THREADS)
-    if (s_cnt[q]) atomicAdd(cleared + q, s_cnt[q]);
 }
 
 extern "C" int kvm_cons_and(const void* s1, const void* s2, const void* amax,
                             const void* cons, int Q, long long p0,
                             long long npos, long long m, float inv_l,
                             float km, float kv, void* flags,
-                            long long fstride, void* cleared, void* stream) {
-  if (Q < 1 || Q > CA_MAX_Q || npos <= 0 || npos % KVM_FLAG ||
-      p0 % KVM_FLAG) {
+                            long long fstride, void* stream) {
+  if (Q < 1 || npos <= 0 || npos % KVM_FLAG || p0 % KVM_FLAG) {
     return (int)cudaErrorInvalidValue;
   }
   const long long ncol = npos / KVM_FLAG;
   const long long per_block = (long long)CA_WARPS * CA_TILES;
   const unsigned int blocks = (unsigned int)((ncol + per_block - 1) / per_block);
-  cons_and_kernel<<<blocks, CA_THREADS, Q * sizeof(int),
-                    (cudaStream_t)stream>>>(
+  cons_and_kernel<<<blocks, CA_THREADS, 0, (cudaStream_t)stream>>>(
       (const float*)s1, (const float*)s2, (const float*)amax,
       (const float*)cons, Q, p0, ncol, m, inv_l, km, kv,
-      (unsigned char*)flags, fstride, (int*)cleared);
+      (unsigned char*)flags, fstride);
   return (int)cudaGetLastError();
 }

@@ -19,16 +19,16 @@ caller passes ``device="cpu"``:
 * ``data_envelope_dev``: the series' Sakoe-Chiba envelope for the DTW
   cascade, cached per band radius (``_run_chunked`` drives that cascade's
   stages over unpadded chunks).
-* ``_fly_padded_dev``, ``_fly_cons_stats``, ``_fly_bucket_stack``: the
-  per-series caches of the dense probe, gated on the device's free memory.
-* ``_dense_probe_retry``, ``_device_dense_phase1_flags``: dense phase 1
-  always takes the flag route (K1 + the constraint AND) at granularity 128;
-  the JAX package's run-emission ladder is a TPU workaround and is not
-  ported.
+* ``probe``: the resident probe (engine/probe.py) of an engine whose
+  series is on the device; ``_dense_probe_retry`` runs one pass of it for a
+  same-length group and ``_probe_dense`` drives the groups of every entry.
+  Dense phase 1 always takes the flag route (K1 + the constraint AND) at
+  granularity 128; the JAX package's run-emission ladder is a TPU
+  workaround and is not ported.
 * ``_verify_routed``: device phase 2, the batch routed to the region route
   or the gather route (kernel K2) by its joint ``_region_plan``.
-* ``query_batch_device``: batched querying with the device probe for every
-  query, with phase timings.
+* ``query_batch_device``: ``query_batch`` with the device probe for every
+  query.
 
 While a torch profiler records, each request records the spans of
 ``utils/profiling.py`` (``kv.query``, ``kv.plan``, ``kv.probe``,
@@ -55,18 +55,16 @@ from ..config import (DEFAULT_INDEX_CONFIG, DEFAULT_QUERY_CONFIG, IndexConfig,
                       QueryConfig)
 from ..index.build import build_index_device_buckets
 from ..index.structure import Index, IndexScale
-from ..ops.probe import FLAG
+from ..ops.probe import FLAG, pack_segments_batch
 from ..ops.regions import coalesce_intervals, pack_regions
 from ..ops.sliding import sliding_min_max
-from ..parallel.query import (FLY_FILL, dense_probe_flags, fly_pad_for,
-                              make_bucket_stack, make_cons_stats,
-                              pack_segments_batch, probe_rebuilds)
 from ..plan import (QuerySegment, determine_query_plan,
                     determine_query_plans_batched)
 from ..state import host_series, series_to_device
 from ..utils import intervals as iv
 from ..utils.profiling import fetch, request, span
 from ..utils.sparse_prefix import sparse_prefixes
+from .probe import ResidentProbe
 
 __all__ = ["BaseEngine", "QueryResult", "QueryStats", "_Ctx"]
 
@@ -100,14 +98,10 @@ class QueryStats:
     # Candidates verified ENTIRELY on host (exact f64, no device launch) by the
     # tiny-load fast path (QueryConfig.host_verify_max_points).
     n_host_checked: int = 0
-    # PROBE_BLOCK rebuilds of the dense probe pass that served the query
+    # PROBE_BLOCK tables the dense probe pass that served the query made
     # (its group's, shared by the group's queries; 0 on the cached path):
-    # parallel/query.py:probe_rebuilds.
+    # engine/probe.py:ResidentProbe.run.
     n_probe_blocks: int = 0
-    # Flag columns (FLAG positions each) that K1 set for the query and the
-    # cNSM alpha/beta constraint AND cleared (ops/probe.py:cons_and); 0
-    # without the AND.
-    n_cons_cleared: int = 0
     early_terminated: bool = False
     # The request's span records (utils/profiling.py), shared by the
     # request's queries; None unless a profiler recorded.
@@ -158,8 +152,7 @@ class BaseEngine:
     for the modes is kvmatch_tpu/engine/base.py:107-145."""
 
     use_dtw_cost_model = False
-    FLAG_BLOCK = FLAG
-    #: Share of free device memory one cached probe stack may take.
+    #: Share of free device memory one cached probe table may take.
     CACHE_MEM_FRACTION = 0.2
 
     def __init__(self, data: np.ndarray, index: Index | None = None,
@@ -197,6 +190,8 @@ class BaseEngine:
                     raise ValueError("device_data must be a contiguous "
                                      "float32 tensor of the series' length")
             self.data_dev = device_data
+        self.probe = None if self.data_dev is None else \
+            ResidentProbe(self.data_dev, icfg)
         self.n = self.data.size
         self.index = index if index is not None else \
             build_index_device_buckets(self.data, icfg, device=self.device)
@@ -209,10 +204,6 @@ class BaseEngine:
         """numpy -> tensor on the engine's device."""
         return torch.as_tensor(np.ascontiguousarray(a), dtype=dtype,
                                device=self.device)
-
-    def _cache_fits(self, nbytes: int) -> bool:
-        return nbytes <= self.CACHE_MEM_FRACTION * \
-            backend.device_mem_bytes(self.device)
 
     def data_envelope_dev(self, rho: int):
         """Global Sakoe-Chiba envelope (lo, hi) of the series on the
@@ -875,97 +866,62 @@ class BaseEngine:
         return (cutoff is not None and bool(segments)
                 and min(s.count for s in segments) > cutoff)
 
-    def _fly_padded_dev(self, length: int) -> torch.Tensor:
-        """Cached series copy right-padded with FLY_FILL for the probe."""
-        pad = fly_pad_for(length, max(self.icfg.scales))
-        cur = getattr(self, "_fly_data", None)
-        if cur is None or cur[0] < pad:
-            fill = torch.full((pad,), float(FLY_FILL), dtype=torch.float32,
-                              device=self.device)
-            self._fly_data = (pad, torch.cat([self.data_dev, fill]))
-        return self._fly_data[1]
-
-    def _fly_cons_stats(self, length: int):
-        """Cached f32 (3, npad) width-L window stats for the constraint AND,
-        or None when 12 bytes/point would not fit the memory budget."""
-        data_p = self._fly_padded_dev(length)
-        cache = self.__dict__.setdefault("_cons_stats_cache", {})
-        if length not in cache:
-            if not self._cache_fits(int(data_p.shape[0]) * 12):
-                return None
-            cache[length] = make_cons_stats(data_p, length)
-        return cache[length]
-
-    def _fly_bucket_stack(self, length: int):
-        """Cached int32 (S, npad) bucket stack, or None when 4*S bytes/point
-        would not fit the memory budget."""
-        data_p = self._fly_padded_dev(length)
-        cache = self.__dict__.setdefault("_bucket_stack_cache", {})
-        if length not in cache:
-            nbytes = int(data_p.shape[0]) * 4 * len(self.icfg.scales)
-            if not self._cache_fits(nbytes):
-                return None
-            cache[length] = make_bucket_stack(data_p, self.icfg)
-        return cache[length]
-
-    def _device_dense_phase1_flags(self, ctxs, seg_lists):
-        """One probe pass for a same-length query group: (n_off i32[Q],
-        flags bool[Q, NF], flag granularity)."""
+    def _dense_probe_retry(self, ctxs, seg_lists):
+        """Flag-route dense phase 1 for a same-length query group: one pass
+        of the resident probe, then each query's flags as intervals, a
+        (left i64, right i64) pair a query.  Flag over-coverage is rejected
+        by the exact phase 2."""
         L = ctxs[0].length
         norm = "alpha" in ctxs[0].params
-        bstack = self._fly_bucket_stack(L)
-        stats3 = self._fly_cons_stats(L) if norm else None
-        data_p = self._fly_padded_dev(L)
-        segs = pack_segments_batch(seg_lists, tuple(self.icfg.scales),
-                                   self.device)
-        eps2 = self._dev([c.eps2 for c in ctxs], torch.float32)
-        if norm:
+        with span("kv.probe"):
+            segs = pack_segments_batch(seg_lists, tuple(self.icfg.scales),
+                                       self.device)
+            eps2 = self._dev([c.eps2 for c in ctxs], torch.float32)
             cons = self._dev([[c.params["alpha"], c.params["beta"],
                                c.params["_mu_q"], c.params["_sd_q"]]
-                              for c in ctxs], torch.float32)
-        else:
-            cons = torch.zeros((len(ctxs), 4), dtype=torch.float32,
-                               device=self.device)
-        n_off, flags, cleared = dense_probe_flags(
-            data_p, segs, eps2, cons, self.n, self.icfg, L, norm,
-            bstack=bstack, stats3=stats3)
-        blocks = probe_rebuilds(self.n, L, norm, bstack, stats3)
-        n_off, flags, cleared = fetch("kv.probe.wait", n_off, flags, cleared)
-        for c, k in zip(ctxs, cleared.tolist()):
-            c.stats.n_probe_blocks = blocks
-            c.stats.n_cons_cleared = k
-        return n_off, flags, FLAG
-
-    def _dense_probe_retry(self, ctxs, seg_lists):
-        """Flag-route dense phase 1 for every query of the group: returns
-        {query_index_in_group: (left i64, right i64)}.  Flag over-coverage
-        is rejected by the exact phase 2."""
-        with span("kv.probe"):
-            n_off, flags, fgran = self._device_dense_phase1_flags(ctxs,
-                                                                  seg_lists)
-            m = self.n - ctxs[0].length + 1
-            out = {}
+                              if norm else [0.0] * 4 for c in ctxs],
+                             torch.float32)
+            n_off, flags, blocks = self.probe.run(
+                segs, eps2, cons, L, norm, self.CACHE_MEM_FRACTION)
+            n_off, flags = fetch("kv.probe.wait", n_off, flags)
+            m = self.n - L + 1
             with span("kv.probe.intervals"):
-                for qi, ctx in enumerate(ctxs):
-                    ctx.stats.n_candidates = int(n_off[qi])
-                    out[qi] = self._flags_to_intervals(flags[qi], m, fgran)
+                for ctx, k in zip(ctxs, n_off.tolist()):
+                    ctx.stats.n_probe_blocks = blocks
+                    ctx.stats.n_candidates = k
+                return [self._flags_to_intervals(f, m) for f in flags]
+
+    def _probe_dense(self, ctxs, seg_lists):
+        """Device phase 1 of queries with dense plans, DENSE_PROBE_GROUP a
+        pass: each query's candidate intervals, in order.  A query's
+        t_phase1_ms is its group's time over the group's size; n_scans and
+        n_segments_used count its plan's segments."""
+        out = []
+        for g in range(0, len(ctxs), self.DENSE_PROBE_GROUP):
+            grp = ctxs[g: g + self.DENSE_PROBE_GROUP]
+            plans = seg_lists[g: g + self.DENSE_PROBE_GROUP]
+            t0 = time.perf_counter()
+            out += self._dense_probe_retry(grp, plans)
+            dt = (time.perf_counter() - t0) * 1e3 / len(grp)
+            for ctx, segs in zip(grp, plans):
+                ctx.stats.t_phase1_ms = dt
+                ctx.stats.n_scans = ctx.stats.n_segments_used = len(segs)
         return out
 
-    def _flags_to_intervals(self, flags_row: np.ndarray, m: int,
-                            fgran: int | None = None):
-        """Expand one query's flag bitmap into disjoint candidate intervals
-        (adjacent flagged blocks coalesce; right edges clip to the last valid
-        window start m-1)."""
-        F = fgran if fgran is not None else self.FLAG_BLOCK
+    @staticmethod
+    def _flags_to_intervals(flags_row: np.ndarray, m: int):
+        """Expand one query's flag bitmap (a flag per FLAG positions) into
+        disjoint candidate intervals (adjacent flagged blocks coalesce;
+        right edges clip to the last valid window start m-1)."""
         idx = np.flatnonzero(flags_row)
         if idx.size == 0:
             e = np.empty(0, np.int64)
             return e, e
         breaks = np.flatnonzero(np.diff(idx) > 1)
-        left = idx[np.concatenate(([0], breaks + 1))].astype(np.int64) * F
+        left = idx[np.concatenate(([0], breaks + 1))].astype(np.int64) * FLAG
         right = np.minimum(
             (idx[np.concatenate((breaks, [idx.size - 1]))].astype(np.int64)
-             + 1) * F - 1, m - 1)
+             + 1) * FLAG - 1, m - 1)
         return left, right
 
     def _phase1_routed(self, segments, ctx: _Ctx):
@@ -973,12 +929,7 @@ class BaseEngine:
         (c_left, c_right) candidate intervals in the global (query-start)
         frame."""
         if self._dense_route(segments):
-            t0 = time.perf_counter()
-            c_l, c_r = self._dense_probe_retry([ctx], [segments])[0]
-            ctx.stats.t_phase1_ms = (time.perf_counter() - t0) * 1e3
-            ctx.stats.n_scans = len(segments)
-            ctx.stats.n_segments_used = len(segments)
-            return c_l, c_r
+            return self._probe_dense([ctx], [segments])[0]
         with span("kv.probe"):
             cs, last_segment = self._phase1(segments, ctx)
         return self._candidate_intervals(cs, last_segment, ctx.length)
@@ -1023,38 +974,44 @@ class BaseEngine:
         """Throughput path: run phases 0/1 per query on the host, then verify ALL
         queries' candidates in shared device launches (one padded batch stream
         instead of one launch per query).  ``queries`` is (Q, L); ``epsilon`` may
-        be a scalar or per-query array.  Returns one QueryResult per query."""
+        be a scalar or per-query array.  Returns one QueryResult per query.
+        Dense plans run the device probe (``_dense_route``)."""
+        return self._query_batch(queries, epsilon, params, all_dense=False)
+
+    def query_batch_device(self, queries: np.ndarray, epsilon,
+                           top_k: int = 4096, **params) -> List[QueryResult]:
+        """``query_batch`` with phase 1 on the device for every query.
+        ``top_k`` is kept for API compatibility.  ``stats.n_candidates`` is
+        the probe's exact candidate count.  With no resident series to probe
+        (streamed and host-only modes) this is ``query_batch``: host phase
+        1, as the JAX package routes it."""
+        if self.data_dev is None:
+            return self.query_batch(queries, epsilon, **params)
+        return self._query_batch(queries, epsilon, params, all_dense=True)
+
+    def _query_batch(self, queries, epsilon, params: dict,
+                     all_dense: bool) -> List[QueryResult]:
+        """The body of ``query_batch`` and ``query_batch_device``: with
+        ``all_dense`` every query takes the device probe and keeps its
+        exact probe count as ``n_candidates``; otherwise the dense plans
+        do and ``n_candidates`` is the candidate intervals' size."""
         queries = np.atleast_2d(np.asarray(queries, np.float64))
         nq = queries.shape[0]
         eps = np.broadcast_to(np.asarray(epsilon, np.float64), (nq,))
         with request() as trace:
-            ctxs: List[_Ctx] = []
-            cand_ivs: List[Tuple[np.ndarray, np.ndarray]] = []
             t0 = time.perf_counter()
-            for qi in range(nq):
-                ctxs.append(_Ctx(query=queries[qi], length=queries.shape[1],
-                                 epsilon=float(eps[qi]),
-                                 eps2=float(eps[qi]) ** 2,
-                                 params=dict(params), stats=QueryStats()))
+            ctxs = [_Ctx(query=queries[qi], length=queries.shape[1],
+                         epsilon=float(eps[qi]), eps2=float(eps[qi]) ** 2,
+                         params=dict(params), stats=QueryStats())
+                    for qi in range(nq)]
             seg_lists = self._plan_batch(ctxs)
-            # Dense plans run the device probe, DENSE_PROBE_GROUP queries a
-            # pass; the rest take host phase 1.
             dense_q = [qi for qi in range(nq)
-                       if self._dense_route(seg_lists[qi])]
-            dense_res: dict = {}
-            for g in range(0, len(dense_q), self.DENSE_PROBE_GROUP):
-                grp = dense_q[g: g + self.DENSE_PROBE_GROUP]
-                t0d = time.perf_counter()
-                grp_res = self._dense_probe_retry([ctxs[qi] for qi in grp],
-                                                  [seg_lists[qi] for qi in grp])
-                dt = (time.perf_counter() - t0d) * 1e3 / len(grp)
-                for j, qi in enumerate(grp):
-                    ctxs[qi].stats.t_phase1_ms = dt
-                    ctxs[qi].stats.n_scans = len(seg_lists[qi])
-                    ctxs[qi].stats.n_segments_used = len(seg_lists[qi])
-                    dense_res[qi] = grp_res[j]
-            for qi in range(nq):
-                ctx = ctxs[qi]
+                       if all_dense or self._dense_route(seg_lists[qi])]
+            dense_res = dict(zip(dense_q, self._probe_dense(
+                [ctxs[qi] for qi in dense_q],
+                [seg_lists[qi] for qi in dense_q])))
+            cand_ivs: List[Tuple[np.ndarray, np.ndarray]] = []
+            for qi, ctx in enumerate(ctxs):
                 if qi in dense_res:
                     c_l, c_r = dense_res[qi]
                 else:
@@ -1062,59 +1019,11 @@ class BaseEngine:
                         cs, last_segment = self._phase1(seg_lists[qi], ctx)
                     c_l, c_r = self._candidate_intervals(cs, last_segment,
                                                          ctx.length)
-                ctx.stats.n_candidates = \
-                    int(np.sum(c_r - c_l + 1)) if c_l.size else 0
-                ctx.stats.n_disjoint = int(c_l.size)
+                if not all_dense:
+                    ctx.stats.n_candidates = \
+                        int(np.sum(c_r - c_l + 1)) if c_l.size else 0
+                    ctx.stats.n_disjoint = int(c_l.size)
                 cand_ivs.append((c_l, c_r))
-            t_verify = time.perf_counter()
-            with span("kv.verify"):
-                per_query = self._verify_multi(cand_ivs, ctxs)
-            t_end = time.perf_counter()
-            results = []
-            for qi, (ans_off, ans_dist) in enumerate(per_query):
-                order = np.argsort(ans_dist, kind="stable")
-                stats = ctxs[qi].stats
-                stats.n_answers = int(ans_off.size)
-                stats.t_phase2_ms = (t_end - t_verify) * 1e3 / nq
-                stats.t_total_ms = (t_end - t0) * 1e3 / nq
-                stats.trace = trace
-                results.append(QueryResult(offsets=ans_off[order],
-                                           distances=ans_dist[order],
-                                           stats=stats))
-        return results
-
-    # ------------------------------------------------ device-probe batch
-    def query_batch_device(self, queries: np.ndarray, epsilon,
-                           top_k: int = 4096, **params) -> List[QueryResult]:
-        """Batched querying with phase 1 on the device for every query (the
-        flag probe, DENSE_PROBE_GROUP queries per pass), then the engine's
-        batched verification.  ``top_k`` is kept for API compatibility.
-        ``stats.n_candidates`` is the probe's exact candidate count.  With
-        no resident series to probe (streamed and host-only modes) this is
-        ``query_batch``: host phase 1, as the JAX package routes it."""
-        if self.data_dev is None:
-            return self.query_batch(queries, epsilon, **params)
-        queries = np.atleast_2d(np.asarray(queries, np.float64))
-        nq, L = queries.shape
-        eps = np.broadcast_to(np.asarray(epsilon, np.float64), (nq,))
-        with request() as trace:
-            t0 = time.perf_counter()
-            ctxs = [_Ctx(query=queries[qi], length=L, epsilon=float(eps[qi]),
-                         eps2=float(eps[qi]) ** 2, params=dict(params),
-                         stats=QueryStats()) for qi in range(nq)]
-            seg_lists = self._plan_batch(ctxs)
-            cand_ivs = []
-            for g in range(0, nq, self.DENSE_PROBE_GROUP):
-                grp = list(range(g, min(g + self.DENSE_PROBE_GROUP, nq)))
-                t1 = time.perf_counter()
-                res = self._dense_probe_retry([ctxs[qi] for qi in grp],
-                                              [seg_lists[qi] for qi in grp])
-                dt = (time.perf_counter() - t1) * 1e3 / len(grp)
-                for j, qi in enumerate(grp):
-                    ctxs[qi].stats.t_phase1_ms = dt
-                    ctxs[qi].stats.n_scans = len(seg_lists[qi])
-                    ctxs[qi].stats.n_segments_used = len(seg_lists[qi])
-                    cand_ivs.append(res[j])
             t_verify = time.perf_counter()
             with span("kv.verify"):
                 per_query = self._verify_multi(cand_ivs, ctxs)

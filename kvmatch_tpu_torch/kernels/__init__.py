@@ -115,7 +115,7 @@ def lib() -> ctypes.CDLL:
             P, P, P, P,                 # s1, s2, amax (from position p0), cons
             I, L, L, L,                 # Q, p0, npos, m
             F, F, F,                    # 1/L, km, kv (f32)
-            P, L, P,                    # flags, flag row stride, cleared
+            P, L,                       # flags, flag row stride
             P]                          # stream
         cdll.kvm_window_ed.restype = I
         cdll.kvm_window_ed.argtypes = [

@@ -26,13 +26,14 @@ from ..engine.norm_dtw import NormQueryEngineDtw
 from ..engine.norm_ed import NormQueryEngine
 from ..engine.rsm_dtw import QueryEngineDtw
 from ..engine.rsm_ed import QueryEngine
+from ..ops.probe import pack_segments_batch
 from .build import build_index_sharded, shard_series
 from .mesh import _visible_cuda_devices, make_mesh
 from .query import (make_sharded_query_step, make_sharded_query_step_batched,
                     make_sharded_query_step_dtw_batched,
                     make_sharded_query_step_norm_batched,
                     make_sharded_query_step_norm_dtw_batched, pack_segments,
-                    pack_segments_batch, run_sharded_step_with_recovery)
+                    run_sharded_step_with_recovery)
 
 
 def _check(ok: bool, what: str) -> None:

@@ -1,294 +1,55 @@
-"""Dense phase-1 probe and the sharded query steps in PyTorch (port of the
-flag route and of the mesh-sharded steps of kvmatch_tpu/parallel/query.py).
+"""The sharded query steps in PyTorch (port of the mesh-sharded steps of
+kvmatch_tpu/parallel/query.py).
 
-The bucket stack (per-scale bucket id of every window start) and the
-width-L window statistics are query-independent, so an engine builds them
-once per series and query length (``make_bucket_stack``,
-``make_cons_stats``).  ``dense_probe_flags`` then runs K1 (ops/probe.py) over
-the whole cached stack in one launch and, for cNSM, ANDs the guarded alpha/beta
-window constraint into the flags with a second kernel (ops/probe.py:
-``cons_and``) over the whole cached statistics, as the JAX package ANDs it
-in XLA outside its Pallas kernel.
-
-``_dense_probe`` / ``_dense_probe_norm`` are the plain per-position bounds
-(kvmatch_tpu/parallel/query.py:104-132, 235-300), op for op in f32; they are
-K1's plain version.
-
-The sharded steps (``make_sharded_query_step*``, ``run_sharded_step_with_
+The steps (``make_sharded_query_step*``, ``run_sharded_step_with_
 recovery``) run one query group over a ``parallel.mesh.Mesh`` whose series
 and bucket stack are split by offset range (parallel/build.py).  Each shard
-reads its own slice plus an ``L``-point right halo, probes it with K1 (exact
-per-position counts, a flag per 128 positions), takes the starts of its
-flagged blocks as candidates and verifies them with K2 (ED) or K3/K4 (DTW);
-the stacked per-shard outputs are the JAX steps' candidate all-gather.  The
-JAX steps' dense bound, ``lax.top_k`` and fixed ``K`` exist because XLA
-needs static shapes; here the ``K`` axis is as long as the longest list.
+reads its own slice plus an ``L``-point right halo, probes it with K1
+(ops/probe.py: exact per-position counts, a flag per 128 positions), takes
+the starts of its flagged blocks as candidates and verifies them with K2
+(ED) or K3/K4 (DTW); the stacked per-shard outputs are the JAX steps'
+candidate all-gather.  The JAX steps' dense bound, ``lax.top_k`` and fixed
+``K`` exist because XLA needs static shapes; here the ``K`` axis is as long
+as the longest list.  The plan tables (``DenseSegments``,
+``pack_segments_batch``) and the bucket stack are ops/probe.py's; the
+single-card probe over a resident series is engine/probe.py's.
+
+``PROBE_BLOCK`` read or set on this module is ops/probe.py's: the
+benchmark's per-block test cuts the probe's block here.
 """
 
 from __future__ import annotations
 
 import contextlib
-from typing import NamedTuple, Optional, Tuple
+import sys
+import types
+from typing import Tuple
 
-import numpy as np
 import torch
 
 from .. import verify as vf
 from ..config import IndexConfig
+from ..ops import probe as _probe
 from ..ops.dtw import _dtw_f32, _znorm_rows
 from ..ops.ed import _gather, window_ed
-from ..ops.probe import FLAG, PROBE_BLOCK, cons_and, probe_flags
-from ..ops.sliding import build_buckets, sliding_window_stats_fwd
-from ..utils.profiling import span
+from ..ops.probe import (BIG_BUCKET, FLAG, DenseSegments, pack_segments_batch,
+                         probe_flags)
 from .mesh import Mesh
 
-MAX_SEGMENTS = 30
-# Bucket id past the end of a scale's windows: an astronomically distant
-# mean cell, so out-of-range windows prune themselves.
-BIG_BUCKET = 1 << 30
-# Padding fill of the probe's data copy: window means over the fill land in a
-# distant key cell (bucket ~2e8, still int32), so padded positions prune
-# themselves; they are also masked by pos < m.
-FLY_FILL = np.float32(1e7)
+
+class _Module(types.ModuleType):
+    """This module, with ``PROBE_BLOCK`` forwarded to ops/probe.py's."""
+
+    @property
+    def PROBE_BLOCK(self) -> int:
+        return _probe.PROBE_BLOCK
+
+    @PROBE_BLOCK.setter
+    def PROBE_BLOCK(self, value: int) -> None:
+        _probe.PROBE_BLOCK = value
 
 
-class DenseSegments(NamedTuple):
-    """Per-query plan segments, padded to MAX_SEGMENTS, shape (Q, S)."""
-    scale_idx: torch.Tensor  # int32 index into the scale list
-    order: torch.Tensor      # int32 1-based unit offset
-    mean_lo: torch.Tensor    # float32
-    mean_hi: torch.Tensor    # float32
-    width: torch.Tensor      # float32 window width w
-    valid: torch.Tensor      # int32 0/1
-
-
-def pack_segments_batch(segment_lists, scales: Tuple[int, ...],
-                        device) -> DenseSegments:
-    """Stack per-query segment lists into (Q, MAX_SEGMENTS) tables."""
-    S = MAX_SEGMENTS
-    scale_pos = {w: i for i, w in enumerate(scales)}
-    Q = len(segment_lists)
-    scale_idx = np.zeros((Q, S), np.int32)
-    order = np.ones((Q, S), np.int32)
-    mean_lo = np.zeros((Q, S), np.float32)
-    mean_hi = np.zeros((Q, S), np.float32)
-    width = np.ones((Q, S), np.float32)
-    valid = np.zeros((Q, S), np.int32)
-    for qi, segs in enumerate(segment_lists):
-        k = len(segs)
-        if k > S:
-            raise ValueError(f"plan has {k} segments, more than {S}")
-        scale_idx[qi, :k] = [scale_pos[s.w] for s in segs]
-        order[qi, :k] = [s.order for s in segs]
-        mean_lo[qi, :k] = [s.mean_lo for s in segs]
-        mean_hi[qi, :k] = [s.mean_hi for s in segs]
-        width[qi, :k] = [float(s.w) for s in segs]
-        valid[qi, :k] = 1
-    return DenseSegments(*(torch.as_tensor(a, device=device) for a in (
-        scale_idx, order, mean_lo, mean_hi, width, valid)))
-
-
-def fly_pad_for(length: int, w_max: int) -> int:
-    """Right padding of the probe's data copy: flag blocks reach up to FLAG-1
-    positions past the last window start, segment shifts up to length, and
-    the widest window w_max beyond that."""
-    return length + w_max + FLAG
-
-
-def _f32(x) -> float:
-    return float(np.float32(x))
-
-
-def _dense_probe(bwin, seg, unit: int, d: float, out_len: int, slack: float):
-    """Accumulated raw-space lower bound for positions [0, out_len) of the
-    window (column 0 = first position); ``seg`` is one query's six rows."""
-    scale_idx, order, mean_lo, mean_hi, width, valid = seg
-    sidx, orders, vals = scale_idx.tolist(), order.tolist(), valid.tolist()
-    d32, slack32, slack2 = _f32(d), _f32(slack), _f32(2 * np.float32(slack))
-    acc = torch.zeros(out_len, dtype=torch.float32, device=bwin.device)
-    for s in range(len(sidx)):
-        if not vals[s]:
-            continue
-        shift = (orders[s] - 1) * unit
-        b = bwin[sidx[s], shift: shift + out_len].to(torch.float32)
-        key_lo = b * d32 - slack32
-        key_hi = key_lo + d32 + slack2
-        delta = torch.clamp_min(torch.maximum(key_lo - mean_hi[s],
-                                              mean_lo[s] - key_hi), 0.0)
-        acc = acc + width[s] * delta * delta
-    return acc
-
-
-def _dense_probe_norm(bwin, seg, unit: int, d: float, out_len: int,
-                      slack: float, alpha, beta, mu_q, sd_q, qlen: int):
-    """cNSM bound: z-space lower bound plus the Ex/Ex2 tracks of the
-    derived-sigma filter (engine/norm_ed.py _std_filter); +inf where the
-    filter rejects.  alpha..sd_q are f32 0-dim tensors."""
-    scale_idx, order, mean_lo, mean_hi, width, valid = seg
-    sidx, orders, vals = scale_idx.tolist(), order.tolist(), valid.tolist()
-    d32, slack32, slack2 = _f32(d), _f32(slack), _f32(2 * np.float32(slack))
-    one = torch.ones((), dtype=torch.float32, device=bwin.device)
-    s_small = sd_q / alpha
-    s_big = alpha * sd_q
-    inv_big = torch.div(one, s_big)
-    inv_small = torch.div(one, s_small)
-    inv_sd = torch.div(one, sd_q)
-    mub = mu_q + beta
-    mmb = mu_q - beta
-    zero = torch.zeros(out_len, dtype=torch.float32, device=bwin.device)
-    acc, exlo, exup, ex2lo = zero, zero, zero, zero
-    punits = torch.zeros((), dtype=torch.float32, device=bwin.device)
-    for s in range(len(sidx)):
-        if not vals[s]:
-            continue
-        shift = (orders[s] - 1) * unit
-        b = bwin[sidx[s], shift: shift + out_len].to(torch.float32)
-        key_lo = b * d32 - slack32
-        key_hi = key_lo + d32 + slack2
-        n_lo = key_lo - mub
-        n_hi = key_hi - mmb
-        z_lo = torch.where(n_lo >= 0, n_lo * inv_big, n_lo * inv_small)
-        z_hi = torch.where(n_hi >= 0, n_hi * inv_small, n_hi * inv_big)
-        zq_lo = (mean_lo[s] - mu_q) * inv_sd
-        zq_hi = (mean_hi[s] - mu_q) * inv_sd
-        delta = torch.clamp_min(torch.maximum(z_lo - zq_hi, zq_lo - z_hi), 0.0)
-        k_units = width[s] / unit
-        acc = acc + width[s] * delta * delta
-        exlo = exlo + key_lo * k_units
-        exup = exup + key_hi * k_units
-        sq = torch.where(key_lo > 0, key_lo * key_lo,
-                         torch.where(key_hi < 0, key_hi * key_hi, 0.0))
-        ex2lo = ex2lo + sq * k_units
-        punits = punits + k_units
-    punits = torch.clamp_min(punits, 1.0)
-    rest = qlen - punits * unit
-    a_sd = alpha * sd_q
-    limit = a_sd * a_sd + 1e-6
-    mean_lo_t = exlo / punits
-    mean_up_t = exup / punits
-    over = mean_lo_t > mub
-    under = mean_up_t < mmb
-    rest_s = torch.clamp_min(rest, 1.0)
-    nv_o = mub - (mean_lo_t - mub) * punits * unit / rest_s
-    var_o = (ex2lo * unit + rest * nv_o * nv_o) / qlen - mub * mub
-    nv_u = mmb + (mmb - mean_up_t) * punits * unit / rest_s
-    var_u = (ex2lo * unit + rest * nv_u * nv_u) / qlen - mmb * mmb
-    if bool(rest > 0):
-        bad = (over & (var_o > limit)) | (under & (var_u > limit))
-    else:
-        t_o = mean_lo_t - mub
-        t_u = mmb - mean_up_t
-        bad = torch.where(over, t_o * t_o > limit,
-                          under & (t_u * t_u > limit))
-    return torch.where(bad, torch.inf, acc)
-
-
-def make_bucket_stack(data_padded: torch.Tensor, icfg: IndexConfig,
-                      scales: Optional[Tuple[int, ...]] = None) -> torch.Tensor:
-    """int32 (S, npad): bucket id of the window of each scale starting at each
-    position of the padded series; BIG_BUCKET where the window would run
-    past the end."""
-    scales = tuple(scales or icfg.scales)
-    npad = data_padded.shape[0]
-    out = torch.full((len(scales), npad), BIG_BUCKET, dtype=torch.int32,
-                     device=data_padded.device)
-    bk = build_buckets(data_padded, scales, icfg.pos_of_d)
-    for i, w in enumerate(scales):
-        out[i, : bk[w].shape[0]] = bk[w]
-    return out
-
-
-def make_cons_stats(data_padded: torch.Tensor, length: int) -> torch.Tensor:
-    """f32 (3, npad): width-L window sum, sum of squares and max|x| of each
-    position (zeros where the window runs past the end)."""
-    npad = data_padded.shape[0]
-    s1, s2, lo, hi = sliding_window_stats_fwd(data_padded, length)
-    out = torch.zeros((3, npad), dtype=torch.float32, device=data_padded.device)
-    k = s1.shape[0]
-    out[0, :k] = s1
-    out[1, :k] = s2
-    out[2, :k] = torch.maximum(torch.abs(lo), torch.abs(hi))
-    return out
-
-
-def dense_probe_flags(data_padded: torch.Tensor, segs: DenseSegments,
-                      eps2: torch.Tensor, cons: torch.Tensor, n_total: int,
-                      icfg: IndexConfig, length: int, norm: bool,
-                      bstack: Optional[torch.Tensor] = None,
-                      stats3: Optional[torch.Tensor] = None):
-    """Phase-1 flags for a same-length query group.
-
-    Returns (counts int32 (Q,) exact probe candidate counts, flags bool (Q, NF),
-    cleared int32 (Q,)) with flag j covering positions [j*FLAG, (j+1)*FLAG),
-    NF = ceil(m/FLAG).  With ``bstack`` (make_bucket_stack over
-    ``data_padded``) the probe is one K1 launch; without it, bucket windows
-    are built per PROBE_BLOCK positions.  For cNSM (``norm``) the
-    window-constraint AND (``cons_and``) is applied in one launch over
-    ``stats3`` (make_cons_stats) or in one a block over per-block
-    statistics; ``cleared`` counts the flags K1 set that it cleared (zeros
-    without ``norm``).  Counts stay probe-only, as in the JAX package.
-    While a profiler records, the spans ``kv.probe.k1`` and
-    ``kv.probe.cons`` time the two parts' launches on the device, and on
-    the per-block path ``kv.probe.rebuild`` times each block's bucket
-    windows and statistics apart from them (``probe_rebuilds`` counts
-    those blocks)."""
-    scales = tuple(icfg.scales)
-    w_max = max(scales)
-    dev = data_padded.device
-    Q = eps2.shape[0]
-    m = n_total - length + 1
-    npos_all = -(-m // FLAG) * FLAG
-    if data_padded.shape[0] < n_total + fly_pad_for(length, w_max):
-        raise ValueError("data_padded must carry fly_pad_for(length, w_max) "
-                         "padding")
-    flags = torch.zeros((Q, npos_all // FLAG), dtype=torch.bool, device=dev)
-    counts = torch.zeros(Q, dtype=torch.int32, device=dev)
-    cleared = torch.zeros(Q, dtype=torch.int32, device=dev)
-    kw = dict(length=length, unit=icfg.unit, d=icfg.d,
-              slack=icfg.probe_guard, norm=norm)
-    blocks = [(p0, min(PROBE_BLOCK, npos_all - p0))
-              for p0 in range(0, npos_all, PROBE_BLOCK)]
-    with span("kv.probe.k1") as sp:
-        if bstack is not None:
-            with sp.device(dev):
-                probe_flags(bstack, 0, segs, eps2, cons, 0, npos_all, m,
-                            flags, counts, **kw)
-        else:
-            for p0, npos in blocks:
-                with span("kv.probe.rebuild") as rb, rb.device(dev):
-                    bwin = make_bucket_stack(
-                        data_padded[p0: p0 + npos + length + w_max], icfg,
-                        scales)
-                with sp.device(dev):
-                    probe_flags(bwin, p0, segs, eps2, cons, p0, npos, m,
-                                flags, counts, **kw)
-    if norm:
-        with span("kv.probe.cons") as sp:
-            if stats3 is not None:
-                with sp.device(dev):
-                    cons_and(*stats3, cons, 0, npos_all, m, length, flags,
-                             cleared)
-            else:
-                for p0, npos in blocks:
-                    with span("kv.probe.rebuild") as rb, rb.device(dev):
-                        s1, s2, lo, hi = sliding_window_stats_fwd(
-                            data_padded[p0: p0 + npos + length - 1], length)
-                        amax = torch.maximum(torch.abs(lo), torch.abs(hi))
-                    with sp.device(dev):
-                        cons_and(s1, s2, amax, cons, p0, npos, m, length,
-                                 flags, cleared)
-    return counts, flags, cleared
-
-
-def probe_rebuilds(n_total: int, length: int, norm: bool,
-                   bstack: Optional[torch.Tensor] = None,
-                   stats3: Optional[torch.Tensor] = None) -> int:
-    """The PROBE_BLOCK rebuilds of one ``dense_probe_flags`` call with these
-    arguments: the blocks of bucket windows without ``bstack``, and for
-    cNSM (``norm``) the blocks of window statistics without ``stats3``."""
-    npos_all = -(-(n_total - length + 1) // FLAG) * FLAG
-    tables = (bstack is None) + (norm and stats3 is None)
-    return -(-npos_all // PROBE_BLOCK) * tables
+sys.modules[__name__].__class__ = _Module
 
 
 # ------------------------------------------------------------ sharded steps

@@ -631,9 +631,9 @@ def cons_and_times(data_dev: torch.Tensor, shapes=CONS_SHAPES,
     ``host_us`` (the wrapper's host time a call), the bound
     (``cons_and_work``) and its share, ``plain_ms``: the plain version (the
     torch chain of ops/probe.py:_cons_ok_flags a PROBE_BLOCK) a call
-    by CUDA events, and ``cleared``, which stays 0."""
-    from ..ops.probe import FLAG, cons_and, cons_and_plain
-    from ..parallel.query import make_cons_stats
+    by CUDA events, and ``cleared``, the flags the calls cleared, which
+    stays 0."""
+    from ..ops.probe import FLAG, cons_and, cons_and_plain, make_cons_stats
     device = data_dev.device
     if device.type != "cuda":
         raise ValueError("cons_and_times measures the kernel on the card")
@@ -646,10 +646,9 @@ def cons_and_times(data_dev: torch.Tensor, shapes=CONS_SHAPES,
         cons = torch.tensor([[1e3, 1e30, 0.0, 1.0]] * Q, dtype=torch.float32,
                             device=device)
         flags = torch.ones((Q, npos // FLAG), dtype=torch.bool, device=device)
-        cleared = torch.zeros(Q, dtype=torch.int32, device=device)
 
         def fn(_i, f=cons_and):
-            f(*stats, cons, 0, npos, m, length, flags, cleared)
+            f(*stats, cons, 0, npos, m, length, flags)
         work = cons_and_work(npos, Q)
         (ms,), _, traces = device_ms([fn], calls, device, CONS_KERNEL,
                                      floors=[work["bound_ms"] / MAX_SHARE])
@@ -663,7 +662,7 @@ def cons_and_times(data_dev: torch.Tensor, shapes=CONS_SHAPES,
         out[f"{name}_Q{Q}"] = dict(
             npos=npos, Q=Q, device_ms=ms, host_us=host_s / calls * 1e6,
             plain_ms=plain, share_of_bound=work["bound_ms"] / ms,
-            traces=traces, cleared=int(cleared.sum()), **work)
+            traces=traces, cleared=int((~flags).sum()), **work)
     return out
 
 

@@ -37,12 +37,19 @@ RENAMED = {
         "the engines' default build, on the card"),
     "index/build.py:compute_buckets_tpu": (
         "index/build.py:compute_buckets_device", "the device bucket pass"),
+    "parallel/query.py:DenseSegments": (
+        "ops/probe.py:DenseSegments", "the probe's bottom layer"),
+    "parallel/query.py:pack_segments_batch": (
+        "ops/probe.py:pack_segments_batch", "the probe's bottom layer"),
+    "parallel/query.py:fly_pad_for": (
+        "ops/probe.py:fly_pad_for", "the probe's bottom layer"),
     "parallel/query.py:make_bucket_stack_prog": (
-        "parallel/query.py:make_bucket_stack", "no jit program to make"),
+        "ops/probe.py:make_bucket_stack", "no jit program to make"),
     "parallel/query.py:make_cons_stats_prog": (
-        "parallel/query.py:make_cons_stats", "no jit program to make"),
+        "ops/probe.py:make_cons_stats", "no jit program to make"),
     "parallel/query.py:make_dense_probe_step_flags_pallas": (
-        "parallel/query.py:dense_probe_flags", "the dense probe through K1"),
+        "engine/probe.py:ResidentProbe.run",
+        "the resident probe's pass through K1"),
     "ops/probe_pallas.py:probe_flags_tiles": (
         "ops/probe.py:probe_flags", "K1, csrc/probe.cu"),
     "ops/probe_pallas.py:views_for": (

@@ -10,8 +10,8 @@ the port is installed:
 Tolerances: K1 (dense probe) counts and flags exactly equal -- the kernel is
 compiled without multiply-add contraction and repeats the plain version's
 f32 operations in order.  So does the constraint AND (``cons_and``): its
-flags and its per-query count of cleared flags equal ``cons_and_plain``'s
-bit for bit, windows on the tolerance edges included.  K3 and DS equal their anti-diagonal plain versions
+flags equal ``cons_and_plain``'s bit for bit, windows on the tolerance
+edges included, and one launch takes any number of queries.  K3 and DS equal their anti-diagonal plain versions
 (dtw_diag_plain, dtw_ds_diag_plain) bit for bit, in the one-warp, one-block,
 cluster and global forms; K4 equals dtw_rows_plain bit for bit on rows one
 warp holds.  The plain DP versions themselves (dtw_diag_plain,
@@ -38,17 +38,18 @@ import torch
 from kvmatch_tpu_torch import oracle
 from kvmatch_tpu_torch.config import IndexConfig, QueryConfig
 from kvmatch_tpu_torch.data.generators import generate_series
+from kvmatch_tpu_torch.engine import probe as ep
 from kvmatch_tpu_torch.engine.norm_ed import NormQueryEngine
+from kvmatch_tpu_torch.engine.probe import ResidentProbe
 from kvmatch_tpu_torch.engine.rsm_ed import QueryEngine
 from kvmatch_tpu_torch.index.device_build import build_index_device_stats
 from kvmatch_tpu_torch.ops import ed as ted
+from kvmatch_tpu_torch.ops import probe as tp
 from kvmatch_tpu_torch.ops.probe import (FLAG, cons_and, cons_and_plain,
-                                         cons_tolerances, probe_flags,
-                                         probe_flags_plain)
+                                         cons_tolerances, pack_segments_batch,
+                                         probe_flags, probe_flags_plain)
 from kvmatch_tpu_torch.ops.sliding import (build_buckets,
                                            sliding_window_stats_fwd)
-from kvmatch_tpu_torch.parallel import query as tq
-from kvmatch_tpu_torch.parallel.query import pack_segments_batch
 from kvmatch_tpu_torch.plan import QuerySegment, envelope
 from kvmatch_tpu_torch.state import series_to_device
 
@@ -162,22 +163,19 @@ def test_dense_probe_uncached_blocks_equal_plain(dev, norm, monkeypatch):
     block over a bucket window whose column 0 is the block's first
     position (col0 = p0 > 0 from the second block on), held equal to the
     plain version on the same windows."""
-    from kvmatch_tpu_torch.parallel import query as tq
     icfg, _, segs, eps2, cons, m, L, data = _probe_case(norm, dev)
-    n = data.shape[0]
-    pad = tq.fly_pad_for(L, max(icfg.scales))
-    data_p = torch.cat([torch.as_tensor(data, device=dev),
-                        torch.full((pad,), float(tq.FLY_FILL), device=dev)])
-    monkeypatch.setattr(tq, "PROBE_BLOCK", 1 << 14)
+    probe = ResidentProbe(torch.as_tensor(data, device=dev), icfg)
+    monkeypatch.setattr(tp, "PROBE_BLOCK", 1 << 14)
     blocks = -(-m // (1 << 14))
     assert blocks == 3
     before = probe_flags.launches
-    got = tq.dense_probe_flags(data_p, segs, eps2, cons, n, icfg, L, norm)
+    got = probe.run(segs, eps2, cons, L, norm, 0.0)
     assert probe_flags.launches == before + blocks
-    monkeypatch.setattr(tq, "probe_flags", probe_flags_plain)
-    want = tq.dense_probe_flags(data_p, segs, eps2, cons, n, icfg, L, norm)
-    for g, w in zip(got, want):
+    monkeypatch.setattr(ep, "probe_flags", probe_flags_plain)
+    want = probe.run(segs, eps2, cons, L, norm, 0.0)
+    for g, w in zip(got[:2], want[:2]):
         np.testing.assert_array_equal(g.cpu().numpy(), w.cpu().numpy())
+    assert got[2] == want[2] == blocks * (1 + norm)
     assert int(want[0].sum()) > 0
 
 
@@ -259,15 +257,15 @@ CONS_GRID = [(Q, L, route) for Q in (1, 8, 33) for L in (256, 4096)
 def _cons_case(dev, Q, L, route, seed=0, n=200_000):
     rng = np.random.default_rng(seed + Q + L)
     data = (np.cumsum(rng.normal(0, 0.1, n)) + 3.0).astype(np.float32)
-    pad = tq.fly_pad_for(L, max(IndexConfig().scales))
+    pad = tp.fly_pad_for(L, max(IndexConfig().scales))
     data_p = torch.cat([torch.as_tensor(data, device=dev),
-                        torch.full((pad,), float(tq.FLY_FILL), device=dev)])
+                        torch.full((pad,), float(tp.FLY_FILL), device=dev)])
     m = n - L + 1
     assert m % FLAG
     npos_all = -(-m // FLAG) * FLAG
     if route == "cached":
         p0, npos = 0, npos_all
-        stats = tuple(tq.make_cons_stats(data_p, L))
+        stats = tuple(tp.make_cons_stats(data_p, L))
     else:
         p0 = 37 * FLAG
         npos = npos_all - p0
@@ -287,92 +285,78 @@ def _cons_case(dev, Q, L, route, seed=0, n=200_000):
 def _cons_run(fn, case):
     stats, cons, p0, npos, m, L, flags, _ = case
     out = flags.clone()
-    cleared = torch.zeros(cons.shape[0], dtype=torch.int32,
-                          device=flags.device)
-    fn(*stats, cons, p0, npos, m, L, out, cleared)
-    return out.cpu().numpy(), cleared.cpu().numpy()
+    fn(*stats, cons, p0, npos, m, L, out)
+    return out.cpu().numpy()
 
 
 @pytest.mark.parametrize("Q,L,route", CONS_GRID)
 def test_cons_and_kernel_equals_plain(dev, Q, L, route):
-    """The AND kernel's flags and per-query count of cleared flags equal
-    the plain version's (the torch chain of _cons_ok_flags) bit for bit;
-    the edge windows' columns are kept, columns outside [p0, p0 + npos)
-    are untouched, and the count is that of the flags set before and clear
-    after."""
+    """The AND kernel's flags equal the plain version's (the torch chain
+    of _cons_ok_flags) bit for bit; the edge windows' columns are kept,
+    columns outside [p0, p0 + npos) are untouched, and some flags are
+    cleared."""
     case = _cons_case(dev, Q, L, route)
     before = cons_and.launches
     got = _cons_run(cons_and, case)
     assert cons_and.launches == before + 1
     want = _cons_run(cons_and_plain, case)
-    np.testing.assert_array_equal(got[0], want[0])
-    np.testing.assert_array_equal(got[1], want[1])
+    np.testing.assert_array_equal(got, want)
     flags0 = case[6].cpu().numpy()
     p0, at, cons = case[2], case[7], case[1].cpu().numpy()
-    np.testing.assert_array_equal(got[0][:, :p0 // FLAG],
-                                  flags0[:, :p0 // FLAG])
-    np.testing.assert_array_equal(got[1], (flags0 & ~got[0]).sum(1))
+    np.testing.assert_array_equal(got[:, :p0 // FLAG], flags0[:, :p0 // FLAG])
     for q, w in enumerate(at):
         if cons[q, 1] != np.float32(0.5):  # an edge row
-            assert got[0][q, w // FLAG], (q, w)
-    assert got[1].sum() > 0 and got[0].sum() > 0
+            assert got[q, w // FLAG], (q, w)
+    assert (flags0 & ~got).any() and got.any()
 
 
-def test_cons_and_kernel_splits_large_groups(dev):
-    """A group of 8,200 queries takes two launches (CONS_MAX_Q a launch),
-    equal to the plain version."""
-    from kvmatch_tpu_torch.ops.probe import CONS_MAX_Q
-    case = _cons_case(dev, CONS_MAX_Q + 8, 256, "cached", n=6000)
+def test_cons_and_kernel_takes_large_groups_in_one_launch(dev):
+    """A group of 8,200 queries takes one launch, equal to the plain
+    version, with flags cleared past the first 8,192 queries."""
+    Q = 8200
+    case = _cons_case(dev, Q, 256, "cached", n=6000)
     before = cons_and.launches
     got = _cons_run(cons_and, case)
-    assert cons_and.launches == before + 2
+    assert cons_and.launches == before + 1
     want = _cons_run(cons_and_plain, case)
-    np.testing.assert_array_equal(got[0], want[0])
-    np.testing.assert_array_equal(got[1], want[1])
-    assert got[1][CONS_MAX_Q:].sum() > 0
+    np.testing.assert_array_equal(got, want)
+    assert (case[6].cpu().numpy() & ~got)[8192:].any()
 
 
 def test_cons_and_kernel_rejects_bad_input(dev):
     stats, cons, _, _, m, L, flags, _ = _cons_case(dev, 2, 256, "cached",
                                                    n=6000)
-    cleared = torch.zeros(2, dtype=torch.int32, device=dev)
     with pytest.raises(ValueError, match="multiples of FLAG"):
-        cons_and(*stats, cons, 64, 1024, m, L, flags, cleared)
+        cons_and(*stats, cons, 64, 1024, m, L, flags)
     with pytest.raises(ValueError, match="f32 rows"):
-        cons_and(*(t[:100] for t in stats), cons, 0, 1024, m, L, flags,
-                 cleared)
+        cons_and(*(t[:100] for t in stats), cons, 0, 1024, m, L, flags)
 
 
 @pytest.mark.parametrize("norm", [False, True])
 def test_dense_probe_cached_uncached_equal_plain(dev, norm, monkeypatch):
-    """dense_probe_flags end to end on the card: through the cached stack
-    and statistics (one K1 launch, one AND launch) and the per-block route
-    (one of each a 16,384-position block), counts, flags and cleared counts
-    equal the plain versions' over the cached route."""
+    """The resident probe's pass end to end on the card: through the cached
+    stack and statistics (one K1 launch, one AND launch) and the per-block
+    route (one of each a 16,384-position block), counts and flags equal
+    the plain versions' over the cached route, and the pass counts the
+    tables it made."""
     icfg, _, segs, eps2, cons, m, L, data = _probe_case(norm, dev)
-    n = data.shape[0]
-    pad = tq.fly_pad_for(L, max(icfg.scales))
-    data_p = torch.cat([torch.as_tensor(data, device=dev),
-                        torch.full((pad,), float(tq.FLY_FILL), device=dev)])
-    cached = dict(bstack=tq.make_bucket_stack(data_p, icfg),
-                  stats3=tq.make_cons_stats(data_p, L) if norm else None)
+    probe = ResidentProbe(torch.as_tensor(data, device=dev), icfg)
     before = cons_and.launches
-    got_cached = tq.dense_probe_flags(data_p, segs, eps2, cons, n, icfg, L,
-                                      norm, **cached)
+    got_cached = probe.run(segs, eps2, cons, L, norm, 1.0)
     assert cons_and.launches == before + norm
-    monkeypatch.setattr(tq, "PROBE_BLOCK", 1 << 14)
+    monkeypatch.setattr(tp, "PROBE_BLOCK", 1 << 14)
     blocks = -(-m // (1 << 14))
-    got_blocks = tq.dense_probe_flags(data_p, segs, eps2, cons, n, icfg, L,
-                                      norm)
+    blocked = ResidentProbe(probe.data_dev, icfg)  # nothing cached
+    got_blocks = blocked.run(segs, eps2, cons, L, norm, 0.0)
     assert cons_and.launches == before + norm * (1 + blocks)
-    monkeypatch.setattr(tq, "probe_flags", probe_flags_plain)
-    monkeypatch.setattr(tq, "cons_and", cons_and_plain)
-    want = tq.dense_probe_flags(data_p, segs, eps2, cons, n, icfg, L, norm,
-                                **cached)
+    assert got_cached[2] == 0 and got_blocks[2] == blocks * (1 + norm)
+    monkeypatch.setattr(ep, "probe_flags", probe_flags_plain)
+    monkeypatch.setattr(ep, "cons_and", cons_and_plain)
+    want = probe.run(segs, eps2, cons, L, norm, 1.0)
     for got in (got_cached, got_blocks):
-        for g, w in zip(got, want):
+        for g, w in zip(got[:2], want[:2]):
             np.testing.assert_array_equal(g.cpu().numpy(), w.cpu().numpy())
-    assert int(want[2].sum()) > 0 if norm else not want[2].any()
+    assert int(want[0].sum()) > 0
 
 
 @pytest.mark.parametrize("znorm", [False, True])

@@ -2,8 +2,9 @@
 at small sizes on the CPU.
 
 * The per-block probe path: when neither the bucket stack nor the window
-  statistics fit the device's memory budget, ``dense_probe_flags`` makes
-  them again for every ``PROBE_BLOCK`` of positions.  An engine with
+  statistics fit the device's memory budget, the engine's resident probe
+  (``engine/probe.py``) makes them again for every ``PROBE_BLOCK`` of
+  positions.  An engine with
   ``CACHE_MEM_FRACTION = 0`` on the instance takes that path; with
   ``PROBE_BLOCK`` cut small a series of a few hundred thousand points
   spans many blocks.  Its answers and distances equal the cached path's
@@ -37,7 +38,8 @@ from kvmatch_tpu_torch.data.generators import generate_series  # noqa: E402
 from kvmatch_tpu_torch.index.device_build import \
     build_index_device_stats  # noqa: E402
 from kvmatch_tpu_torch.ops import regions  # noqa: E402
-from kvmatch_tpu_torch.parallel import query as tq  # noqa: E402
+from kvmatch_tpu_torch.engine import probe as ep  # noqa: E402
+from kvmatch_tpu_torch.ops import probe as tp  # noqa: E402
 from kvmatch_tpu_torch.state import series_to_device  # noqa: E402
 
 torch.set_num_threads(2)
@@ -104,22 +106,23 @@ def test_per_block_path_equals_cached_path_and_reference(level_case,
     x, offs, queries, eps, want = level_case
     cached = _engine(x)
     got_cached = cached.query_batch(queries, eps, alpha=ALPHA, beta=BETA)
-    assert cached._fly_bucket_stack(L) is not None
+    assert cached.probe.bucket_stack(L, cached.CACHE_MEM_FRACTION) \
+        is not None
     assert all(r.stats.n_probe_blocks == 0 for r in got_cached)
 
-    monkeypatch.setattr(tq, "PROBE_BLOCK", 1 << 15)
+    monkeypatch.setattr(tp, "PROBE_BLOCK", 1 << 15)
     blocked = _engine(x)
     blocked.CACHE_MEM_FRACTION = 0
     calls = []
 
-    def spy(*a, _orig=tq.make_bucket_stack, **kw):
+    def spy(*a, _orig=ep.make_bucket_stack, **kw):
         calls.append(a[0].shape[0])
         return _orig(*a, **kw)
-    monkeypatch.setattr(tq, "make_bucket_stack", spy)
+    monkeypatch.setattr(ep, "make_bucket_stack", spy)
     got = blocked.query_batch(queries, eps, alpha=ALPHA, beta=BETA)
-    assert blocked._fly_bucket_stack(L) is None
-    assert blocked._fly_cons_stats(L) is None
-    npos = -(-(x.size - L + 1) // tq.FLAG) * tq.FLAG
+    assert blocked.probe.bucket_stack(L, blocked.CACHE_MEM_FRACTION) is None
+    assert blocked.probe.cons_stats(L, blocked.CACHE_MEM_FRACTION) is None
+    npos = -(-(x.size - L + 1) // tp.FLAG) * tp.FLAG
     blocks = -(-npos // (1 << 15))
     assert len(calls) == blocks > 8
     assert all(r.stats.n_probe_blocks == 2 * blocks for r in got)

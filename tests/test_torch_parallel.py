@@ -34,12 +34,12 @@ from kvmatch_tpu.parallel import query as jpq
 from kvmatch_tpu_torch import NormQueryEngine, QueryEngine, oracle
 from kvmatch_tpu_torch.config import IndexConfig
 from kvmatch_tpu_torch.ops.dtw import dtw_banded_batch_f64
+from kvmatch_tpu_torch.ops.probe import make_bucket_stack, pack_segments_batch
 from kvmatch_tpu_torch.parallel import build as pb
 from kvmatch_tpu_torch.parallel import mesh as pmesh
 from kvmatch_tpu_torch.parallel import query as pq
 from kvmatch_tpu_torch.parallel import dryrun
 from kvmatch_tpu_torch.parallel.dryrun import dryrun_multichip
-from kvmatch_tpu_torch.parallel.query import make_bucket_stack
 from kvmatch_tpu_torch.storage.memory import HbmStore
 
 torch.set_num_threads(2)
@@ -274,7 +274,7 @@ def run_port(name, tm, stack, data, L, queries, segl, ctxs, eps, params, k):
             data_sh, stack, queries[0], pq.pack_segments(segl[0], scales, CPU),
             np.float32(eps * eps), data.size)
         return [o.numpy() for o in out]
-    segs = pq.pack_segments_batch(segl, scales, CPU)
+    segs = pack_segments_batch(segl, scales, CPU)
     if name in ("norm", "norm_dtw"):
         cons, qhat = norm_inputs(ctxs, queries)
         fac = (pq.make_sharded_query_step_norm_batched(tm, icfg, L, top_k=k)

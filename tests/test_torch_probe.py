@@ -6,9 +6,10 @@ in f32, so counts and 128-position flags are exactly equal.  The full flags
 step (cached bucket stack, K1, constraint AND) is held against the JAX
 ``make_dense_probe_step_flags(flag_block=128)``: counts equal, the constraint
 only removes flags, and no exact answer's block is dismissed.  The AND's
-flags and its count of cleared flags equal a brute force in numpy f32 (the
-same operations, position by position, column by column).  The CUDA kernels
-are held against the plain versions in tests/test_torch_kernels_cuda.py.
+flags equal a brute force in numpy f32 (the same operations, position by
+position, column by column), on its own, in the resident probe's pass
+(engine/probe.py) and in the cNSM engine's.  The CUDA kernels are held
+against the plain versions in tests/test_torch_kernels_cuda.py.
 """
 
 import jax
@@ -25,8 +26,9 @@ from kvmatch_tpu.index.build import build_index_tpu
 from kvmatch_tpu.ops.sliding import build_buckets as jax_build_buckets
 from kvmatch_tpu.parallel import query as jq
 from kvmatch_tpu.plan import QuerySegment, envelope
+from kvmatch_tpu_torch.engine.probe import ResidentProbe
+from kvmatch_tpu_torch.ops import probe as tp
 from kvmatch_tpu_torch.ops.probe import FLAG, probe_flags
-from kvmatch_tpu_torch.parallel import query as tq
 
 torch.set_num_threads(2)
 
@@ -86,7 +88,7 @@ def _probe_fixture(norm, rho=None, shape="q2"):
 
 
 def _port_probe(icfg, L, Q, blk, m, seg_lists, eps2, cons, bwin, norm):
-    segs = tq.pack_segments_batch(seg_lists, tuple(icfg.scales), "cpu")
+    segs = tp.pack_segments_batch(seg_lists, tuple(icfg.scales), "cpu")
     flags = torch.zeros((Q, blk // FLAG), dtype=torch.bool)
     counts = torch.zeros(Q, dtype=torch.int32)
     probe_flags(torch.as_tensor(bwin), 0, segs, torch.as_tensor(eps2),
@@ -136,12 +138,11 @@ def test_plain_probe_terms_count_open_positions(norm, blocked, monkeypatch):
     cNSM removes some).  The entries read cover each query's first segment
     over all m positions and touch no row outside the plans.  ``blocked``:
     summed over several position blocks."""
-    from kvmatch_tpu_torch.ops import probe as tp
     if blocked:
         monkeypatch.setattr(tp, "PROBE_BLOCK", 1 << 12)
     icfg, data, L, Q, blk, m, seg_lists, eps2, cons, bwin = _probe_fixture(
         norm, 25)
-    segs = tq.pack_segments_batch(seg_lists, tuple(icfg.scales), "cpu")
+    segs = tp.pack_segments_batch(seg_lists, tuple(icfg.scales), "cpu")
     terms, reads = tp.probe_work(
         torch.as_tensor(bwin), segs, torch.as_tensor(eps2),
         torch.as_tensor(cons), m, unit=icfg.unit, d=icfg.d,
@@ -190,31 +191,33 @@ def flags_setup():
                                               norm=norm)
         ref[norm] = tuple(np.asarray(a) for a in step(
             jdata_p, jsegs, jnp.asarray(eps2), jnp.asarray(cons), jnp.int32(n)))
-    tpad = tq.fly_pad_for(L, max(icfg.scales))
+    tpad = tp.fly_pad_for(L, max(icfg.scales))
     tdata_p = torch.cat([torch.as_tensor(data, dtype=torch.float32),
-                         torch.full((tpad,), float(tq.FLY_FILL))])
+                         torch.full((tpad,), float(tp.FLY_FILL))])
     return dict(icfg=icfg, n=n, L=L, data=data, offs=offs, alpha=alpha,
                 beta=beta, eps=eps, seg_lists=seg_lists, cons=cons, eps2=eps2,
                 ref=ref, data_p=tdata_p)
 
 
 def _port_step(s, norm, cached):
+    """The resident probe's pass over the setup's series: through the
+    cached tables (a budget of all free memory) or the per-block route (a
+    budget of 0).  Returns (counts, flags, rebuilds)."""
     icfg, L = s["icfg"], s["L"]
-    segs = tq.pack_segments_batch(s["seg_lists"], tuple(icfg.scales), "cpu")
-    kw = {}
-    if cached:
-        kw["bstack"] = tq.make_bucket_stack(s["data_p"], icfg)
-        kw["stats3"] = tq.make_cons_stats(s["data_p"], L) if norm else None
-    counts, flags, cleared = tq.dense_probe_flags(
-        s["data_p"], segs, torch.as_tensor(s["eps2"]),
-        torch.as_tensor(s["cons"]), s["n"], icfg, L, norm, **kw)
-    return counts.numpy(), flags.numpy(), cleared.numpy()
+    segs = tp.pack_segments_batch(s["seg_lists"], tuple(icfg.scales), "cpu")
+    probe = ResidentProbe(torch.as_tensor(s["data"], dtype=torch.float32),
+                          icfg)
+    counts, flags, rebuilds = probe.run(
+        segs, torch.as_tensor(s["eps2"]), torch.as_tensor(s["cons"]), L,
+        norm, 1.0 if cached else 0.0)
+    assert torch.equal(probe.padded(L), s["data_p"])
+    return counts.numpy(), flags.numpy(), rebuilds
 
 
 def test_flags_step_raw_equals_xla(flags_setup):
     s = flags_setup
-    counts, flags, cleared = _port_step(s, norm=False, cached=True)
-    assert not cleared.any()  # no AND without norm
+    counts, flags, rebuilds = _port_step(s, norm=False, cached=True)
+    assert rebuilds == 0
     nx, fx = s["ref"][False]
     np.testing.assert_array_equal(counts, nx)
     k = flags.shape[1]
@@ -242,13 +245,16 @@ def test_flags_step_norm_constraint_and_sound(flags_setup):
 def test_flags_step_uncached_blocked_bit_identical(flags_setup, norm,
                                                     monkeypatch):
     """Without the cached stack and stats the step rebuilds bucket windows
-    and window stats per position block; results are bit-identical."""
+    and window stats per position block; results are bit-identical, and
+    the pass counts the tables it made."""
     s = flags_setup
     want = _port_step(s, norm, cached=True)
-    monkeypatch.setattr(tq, "PROBE_BLOCK", 1 << 14)
+    monkeypatch.setattr(tp, "PROBE_BLOCK", 1 << 14)
     got = _port_step(s, norm, cached=False)
-    for g, w in zip(got, want):
+    for g, w in zip(got[:2], want[:2]):
         np.testing.assert_array_equal(g, w)
+    blocks = -(-(s["n"] - s["L"] + 1) // (1 << 14))
+    assert want[2] == 0 and got[2] == blocks * (1 + norm) and blocks > 1
 
 
 
@@ -295,10 +301,10 @@ def _k1_flags(s, seg_lists=None, cons=None):
     cons = s["cons"] if cons is None else cons
     m = n - L + 1
     npos = -(-m // FLAG) * FLAG
-    segs = tq.pack_segments_batch(seg_lists, tuple(icfg.scales), "cpu")
+    segs = tp.pack_segments_batch(seg_lists, tuple(icfg.scales), "cpu")
     Q = len(seg_lists)
     flags = torch.zeros((Q, npos // FLAG), dtype=torch.bool)
-    probe_flags_plain(tq.make_bucket_stack(s["data_p"], icfg), 0, segs,
+    probe_flags_plain(tp.make_bucket_stack(s["data_p"], icfg), 0, segs,
                       torch.as_tensor(s["eps2"]), torch.as_tensor(cons),
                       0, npos, m, flags, torch.zeros(Q, dtype=torch.int32),
                       length=L, unit=icfg.unit, d=icfg.d,
@@ -318,10 +324,8 @@ CONS_WINDOWS = {"whole": (0, None, None), "passes": (0, None, 1 << 12),
 @pytest.mark.parametrize("case", sorted(CONS_WINDOWS))
 def test_cons_and_plain_equals_brute_force(flags_setup, case, monkeypatch):
     """The AND's wrapper on CPU tensors over positions [p0, p0 + npos):
-    the flags outside the window are left as they were, those inside equal
-    the numpy brute force, and ``cleared`` gains its per-query count of the
-    columns that were set and are now clear."""
-    from kvmatch_tpu_torch.ops import probe as tp
+    the flags outside the window are left as they were, and those inside
+    equal the numpy brute force."""
     s = flags_setup
     p0, npos, block = CONS_WINDOWS[case]
     if block is not None:
@@ -330,14 +334,12 @@ def test_cons_and_plain_equals_brute_force(flags_setup, case, monkeypatch):
     npos = k1.shape[1] * FLAG - p0 if npos is None else npos
     m = s["n"] - s["L"] + 1
     assert m % FLAG and (case != "tail" or p0 + npos > m)
-    stats3 = tq.make_cons_stats(s["data_p"], s["L"])
+    stats3 = tp.make_cons_stats(s["data_p"], s["L"])
     flags = k1.clone()
-    cleared = torch.full((k1.shape[0],), 7, dtype=torch.int32)
     tp.cons_and(*stats3[:, p0:], torch.as_tensor(s["cons"]), p0, npos, m,
-                s["L"], flags, cleared)
+                s["L"], flags)
     want, n_clear = _cons_brute(s, stats3.numpy(), k1.numpy(), p0, npos)
     np.testing.assert_array_equal(flags.numpy(), want)
-    np.testing.assert_array_equal(cleared.numpy(), 7 + n_clear)
     if case != "tail":
         assert n_clear.min() > 0  # the AND clears some of K1's flags here
 
@@ -345,25 +347,26 @@ def test_cons_and_plain_equals_brute_force(flags_setup, case, monkeypatch):
 @pytest.mark.parametrize("cached", [True, False])
 def test_dense_probe_cleared_counts_brute_force(flags_setup, cached,
                                                 monkeypatch):
-    """dense_probe_flags' third output, through the cached statistics (one
-    AND over all positions) and the per-block route (one a block): the
-    brute-force count of K1's flags that the AND clears, and its flags
-    the brute force's."""
+    """The resident probe's flags, through the cached statistics (one AND
+    over all positions) and the per-block route (one a block): the brute
+    force's AND over K1's flags, which clears some of them for every
+    query."""
     s = flags_setup
     if not cached:
-        monkeypatch.setattr(tq, "PROBE_BLOCK", 1 << 14)
-    _, flags, cleared = _port_step(s, norm=True, cached=cached)
-    stats3 = tq.make_cons_stats(s["data_p"], s["L"]).numpy()
+        monkeypatch.setattr(tp, "PROBE_BLOCK", 1 << 14)
+    _, flags, _ = _port_step(s, norm=True, cached=cached)
+    stats3 = tp.make_cons_stats(s["data_p"], s["L"]).numpy()
     want, n_clear = _cons_brute(s, stats3, _k1_flags(s).numpy())
     np.testing.assert_array_equal(flags, want)
-    np.testing.assert_array_equal(cleared, n_clear)
     assert n_clear.min() > 0
 
 
-def test_engine_reports_cons_cleared(flags_setup):
-    """QueryStats.n_cons_cleared: each query's count from the group's probe
-    pass of the cNSM engine (the brute force on the engine's own plans and
-    constraint rows), 0 on the RSM engine's."""
+def test_engine_reports_cons_cleared(flags_setup, monkeypatch):
+    """The cNSM engine's probe pass: its flags are the brute force's AND
+    over K1's flags on the engine's own plans and constraint rows, which
+    clears some of them for every query; the RSM engine's pass runs no
+    AND."""
+    from kvmatch_tpu_torch.engine import probe as ep
     from kvmatch_tpu_torch.engine.base import QueryStats as TQueryStats
     from kvmatch_tpu_torch.engine.base import _Ctx as TCtx
     from kvmatch_tpu_torch.engine.norm_ed import NormQueryEngine
@@ -373,18 +376,27 @@ def test_engine_reports_cons_cleared(flags_setup):
     queries = np.stack([data[o:o + L] for o in s["offs"]])
     params = dict(alpha=s["alpha"], beta=s["beta"])
     eng = NormQueryEngine(data, icfg=s["icfg"], device="cpu")
-    res = eng.query_batch_device(queries, eps, **params)
+    passes = []
+
+    def spy(*a, _orig=eng.probe.run, **kw):
+        passes.append(_orig(*a, **kw))
+        return passes[-1]
+    monkeypatch.setattr(eng.probe, "run", spy)
+    eng.query_batch_device(queries, eps, **params)
     ctxs = [TCtx(query=q, length=L, epsilon=eps, eps2=eps * eps,
                  params=dict(params), stats=TQueryStats()) for q in queries]
     seg_lists = eng._plan_batch(ctxs)
     cons = np.asarray([[c.params[k] for k in ("alpha", "beta", "_mu_q",
                                               "_sd_q")] for c in ctxs],
                       np.float32)
-    stats3 = tq.make_cons_stats(s["data_p"], L).numpy()
-    _, n_clear = _cons_brute(s, stats3, _k1_flags(s, seg_lists, cons).numpy(),
-                             cons=cons)
+    stats3 = tp.make_cons_stats(s["data_p"], L).numpy()
+    want, n_clear = _cons_brute(
+        s, stats3, _k1_flags(s, seg_lists, cons).numpy(), cons=cons)
     assert n_clear.min() > 0
-    assert [r.stats.n_cons_cleared for r in res] == n_clear.tolist()
+    ((_, flags, _),) = passes
+    np.testing.assert_array_equal(flags.numpy(), want)
+    ands = []
+    monkeypatch.setattr(ep, "cons_and", lambda *a: ands.append(a))
     rsm = QueryEngine(data, icfg=s["icfg"], device="cpu")
-    assert all(r.stats.n_cons_cleared == 0
-               for r in rsm.query_batch_device(queries, eps))
+    assert all(r.found for r in rsm.query_batch_device(queries, eps))
+    assert not ands

@@ -26,6 +26,7 @@ from kvmatch_tpu.parallel import mesh as jmesh
 from kvmatch_tpu.parallel import query as jpq
 from kvmatch_tpu_torch import oracle
 from kvmatch_tpu_torch.config import IndexConfig
+from kvmatch_tpu_torch.ops.probe import pack_segments_batch
 from kvmatch_tpu_torch.parallel import build as pb
 from kvmatch_tpu_torch.parallel import mesh as pmesh
 from kvmatch_tpu_torch.parallel import query as pq
@@ -70,7 +71,7 @@ def setup():
                  jnp.full(2, EPS * EPS, jnp.float32), jnp.asarray(cons),
                  jnp.int32(N)),
             port=(tdata, tstack, torch.as_tensor(qhat),
-                  pq.pack_segments_batch(segl, tuple(icfg.scales), CPU),
+                  pack_segments_batch(segl, tuple(icfg.scales), CPU),
                   torch.full((2,), EPS * EPS), torch.as_tensor(cons), N),
             qhat=qhat)
     return dict(data=data, jm=jm, tm=tm, q_offs=q_offs, queries=queries,

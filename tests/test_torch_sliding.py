@@ -13,7 +13,7 @@ from kvmatch_tpu.config import IndexConfig
 from kvmatch_tpu.data.generators import generate_series
 from kvmatch_tpu.ops import sliding as jsl
 from kvmatch_tpu_torch.ops import sliding as tsl
-from kvmatch_tpu_torch.parallel.query import FLY_FILL
+from kvmatch_tpu_torch.ops.probe import FLY_FILL
 
 torch.set_num_threads(2)
 

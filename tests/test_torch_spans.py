@@ -23,7 +23,7 @@ from kvmatch_tpu_torch.engine import norm_ed
 from kvmatch_tpu_torch.index.device_build import (build_index_device,
                                                   build_index_device_stats)
 from kvmatch_tpu_torch.ops.probe import FLAG
-from kvmatch_tpu_torch.parallel import query as pq
+from kvmatch_tpu_torch.ops import probe as tp
 from kvmatch_tpu_torch.state import series_to_device
 from kvmatch_tpu_torch.utils import profiling
 
@@ -222,7 +222,7 @@ def test_no_profiler_records_nothing(eng, monkeypatch):
 def _blocked(monkeypatch):
     """An engine that takes the per-block probe path (no cached table fits
     its budget), over blocks of 2^14 positions: 13 of them."""
-    monkeypatch.setattr(pq, "PROBE_BLOCK", 1 << 14)
+    monkeypatch.setattr(tp, "PROBE_BLOCK", 1 << 14)
     eng = _engine("cpu")
     eng.CACHE_MEM_FRACTION = 0
     return eng
@@ -244,7 +244,7 @@ def test_rebuild_spans_and_block_count(eng, path, entry, tmp_path,
     rec = out[0].stats.trace
     rebuild = [s for s in rec if s["name"] == "kv.probe.rebuild"]
     npos = -(-(N - L + 1) // FLAG) * FLAG
-    blocks = -(-npos // pq.PROBE_BLOCK)
+    blocks = -(-npos // tp.PROBE_BLOCK)
     if path == "cached":
         assert not rebuild
         assert all(r.stats.n_probe_blocks == 0 for r in out)
