@@ -20,6 +20,12 @@ JSON line tagged with the card's name and power limit and its seconds
                 window statistics on K1's flags of the cNSM-ED and
                 cNSM-DTW plans: flags equal to its
                 plain version's;
+                the region near-set (region_znorm_near_multi: three
+                kernels around two cuFFT transforms) on the region rows of
+                the main offsets' self-queries at L=4096 against its plain
+                chain: counts equal, sets equal but for windows within a
+                few f32 ulps of a limit, with both times, kernel_bench's
+                section time and its byte bound;
                 K2 (window distances, raw and z-norm) at B=16384, L=8192
                 with the north-star queries, then at each (B, L) of
                 K2_SHAPES: held to its plain version, and timed alone on
@@ -196,8 +202,8 @@ sys.path.insert(0, str(REPO))
 from kvmatch_tpu_torch.utils.kernel_bench import (  # noqa: E402
     CONS_OPS_PAIR, CONS_OPS_POS, DP_OPS, DS_OPS, K1_OPS, K1_OPS_FULL,
     K1_TRACK_OPS, K2_F64_SHAPES, K2_QUERIES, K2_SHAPES, band_cells, bound,
-    card_line, cons_and_work, k2_work, timed_ms, window_f64_times,
-    window_kernel_times)
+    card_line, cons_and_work, k2_work, near_work, region_near, timed_ms,
+    window_f64_times, window_kernel_times, _timed)
 
 # Seconds of each phase, and of each plain DP call (plain_call), for the
 # time line.
@@ -431,6 +437,126 @@ def check_cons_kernel(eng, queries, device, **params) -> dict:
                        FLAG * (CONS_OPS_POS * cols_read
                                + CONS_OPS_PAIR * pairs)))
     return res
+
+
+#: The region near-set check (check_region_near_kernel): the benchmark
+#: cells' length and constraint (alpha 1.5, beta 5 x BETA_BASE[4]), and the
+#: eps it widens until the main batch's candidates fill NEAR_MIN_ROWS rows.
+NEAR_L, NEAR_ALPHA, NEAR_BETA = 4096, 1.5, 282.65
+NEAR_EPS = (8.0, 16.0, 32.0)
+NEAR_MIN_ROWS = 1024
+#: The f32 ulps of a limit within which the kernels and the plain chain may
+#: decide a window differently (tests/test_torch_kernels_cuda.py).
+NEAR_ULPS = 16
+
+
+def check_region_near_kernel(eng, data, offs, device) -> dict:
+    """The region near-set kernels (``ops/regions.region_znorm_near_multi``,
+    csrc/regions.cu) on the main batch's region rows at L = NEAR_L: the
+    batch's self-queries at the main offsets, probed by the engine (K1 and
+    the AND) and packed as ``_verify_regions`` packs them (coalesced runs,
+    rows of M = ``_region_m``), the first ``verify.bucket_size`` chunk with
+    the engine's guarded thresholds and constraint rows, against the plain
+    chain (``region_znorm_near_plain``): the counts, and the sets equal but
+    for windows within NEAR_ULPS f32 ulps of a limit.  Times: the kernels'
+    call and the plain chain's (CUDA events), and ``kernel_bench``'s
+    ``region_near`` section (``section_ms``: the same rows shifted a point a
+    call); the bound is ``near_work`` over the chunk's rows that are not
+    padding."""
+    import numpy as np
+    import torch
+    from kvmatch_tpu_torch import verify as vf
+    from kvmatch_tpu_torch.ops.regions import (coalesce_intervals,
+                                               pack_regions,
+                                               region_znorm_distances_multi,
+                                               region_znorm_near_multi,
+                                               region_znorm_near_plain)
+    L = NEAR_L
+    queries = np.stack([data[o:o + L] for o in offs])
+    for eps in NEAR_EPS:
+        ctxs = norm_ctxs(queries, eps, alpha=NEAR_ALPHA, beta=NEAR_BETA)
+        cand = eng._probe_dense(ctxs, eng._plan_batch(ctxs))
+        runs = sum(int(np.sum(r - l + 1)) for l, r in cand if l.size)
+        n_runs = sum(l.size for l, _ in cand)
+        M = eng._region_m(L, runs / max(n_runs, 1))
+        merged = [coalesce_intervals(l, r, M) for l, r in cand]
+        packed = [pack_regions(l, r, eng.n, L, M) + (qi,)
+                  for qi, (l, r) in enumerate(merged) if l.size]
+        if sum(p[0].size for p in packed) >= NEAR_MIN_ROWS:
+            break
+    if not packed:
+        raise AssertionError("the main batch has no candidates at L = "
+                             f"{L}, eps up to {NEAR_EPS[-1]}")
+    starts, vfrom, vto = (np.concatenate([p[k] for p in packed])
+                          for k in range(3))
+    qids = np.concatenate([np.full(p[0].size, p[3], np.int32)
+                           for p in packed])
+    rows = starts.size
+    B = vf.bucket_size(rows, lo=32, hi=8192, width=M + L - 1)
+    real = min(rows, B)
+    pad = B - real
+
+    def dev(a, dt):
+        a = np.concatenate([a[:real], np.zeros(pad, a.dtype)])
+        return torch.as_tensor(a, dtype=dt, device=device)
+    qm = torch.as_tensor(np.stack([eng._qhat(c) for c in ctxs]),
+                         dtype=torch.float32, device=device)
+    th = torch.as_tensor(eng._guarded_threshs(ctxs), dtype=torch.float32,
+                         device=device)
+    cons_np = np.stack([[c.params["alpha"], c.params["beta"],
+                         c.params["_mu_q"], c.params["_sd_q"],
+                         1e-3 * (1.0 + abs(c.params["_mu_q"])
+                                 + c.params["_sd_q"])]
+                        for c in ctxs]).astype(np.float32)
+    cons = torch.as_tensor(cons_np, device=device)
+    args = (eng.data_dev, qm, dev(starts, torch.int64),
+            dev(qids, torch.int32), dev(vfrom, torch.int64),
+            dev(vto, torch.int64), th, cons, L, M)
+    near_k = B * M
+
+    def pairs(res):
+        cnt = int(res[0])
+        k = min(cnt, near_k)
+        return cnt, set(zip(res[1][:k].tolist(), res[2][:k].tolist()))
+    before = region_znorm_near_multi.launches
+    cnt, got = pairs(region_znorm_near_multi(*args, near_k))
+    if region_znorm_near_multi.launches != before + 1:
+        raise AssertionError("region_znorm_near_multi launched no kernel")
+    want_cnt, want = pairs(region_znorm_near_plain(*args, near_k))
+    diff = sorted(got ^ want)
+    far = []
+    if diff:
+        d2, mean, std, err = (t.cpu().numpy() for t in
+                              region_znorm_distances_multi(*args[:4], L, M))
+        thn = th.cpu().numpy()
+        qn = args[3].cpu().numpy()
+        eps32 = float(np.finfo(np.float32).eps)
+        for r, c in diff:
+            a, b, mq, sq, cg = cons_np[qn[r]]
+            lim = thn[qn[r]] + err[r, c]
+            ratio = std[r, c] / sq
+            gap = min(abs(lim - d2[r, c]) / (eps32 * (2 * L + abs(lim))),
+                      abs(b + cg - abs(mean[r, c] - mq))
+                      / (eps32 * (abs(mean[r, c]) + abs(mq) + b)),
+                      abs(a + cg - ratio) / (eps32 * (a + ratio)),
+                      abs(ratio - (1 / a - cg)) / (eps32 * (a + ratio)))
+            if gap > NEAR_ULPS:
+                far.append((int(r), int(c), float(gap)))
+    if cnt != len(got) or far:
+        raise AssertionError(f"the near-set kernels disagree with the plain "
+                             f"chain: count {cnt} for {len(got)} pairs, "
+                             f"{len(far)} of {len(diff)} differing pairs "
+                             f"beyond {NEAR_ULPS} ulps: {far[:10]}")
+    work = near_work(real, L, M)
+    ms = timed_ms(lambda: region_znorm_near_multi(*args, near_k), 10, device)
+    sec = region_near(*args, near_k)
+    return dict(eps=eps, L=L, M=M, rows=rows, chunk_rows=B, real_rows=real,
+                count=cnt, count_plain=want_cnt, sets_equal=not diff,
+                differ=len(diff), ms=ms,
+                plain_ms=timed_ms(lambda: region_znorm_near_plain(
+                    *args, near_k), 3, device),
+                section_ms=_timed(sec.fn, 10, device, 3),
+                share_of_bound=work["bound_ms"] / ms, **work)
 
 
 def k2_held(args, what: str) -> dict:
@@ -2860,6 +2986,7 @@ def main() -> int:
     from kvmatch_tpu_torch.ops.dtw import dtw_diag, dtw_ds, dtw_rows
     from kvmatch_tpu_torch.ops.ed import window_ed, window_ed_f64
     from kvmatch_tpu_torch.ops.probe import cons_and, probe_flags
+    from kvmatch_tpu_torch.ops.regions import region_znorm_near_multi
     from kvmatch_tpu_torch.state import series_to_device
 
     device = torch.device("cuda", 0)
@@ -2936,15 +3063,16 @@ def main() -> int:
                                         norm=False),
         cons=check_cons_kernel(eng8, q8, device),
         cons_dtw_plans=check_cons_kernel(eng8d, q8, device, rho=RHO_MAIN),
+        near=check_region_near_kernel(eng8, data8, offs8, device),
         k2=check_window_kernel(dev8, q8, device, K2_BATCH),
         k2_f64=check_window_f64(dev8, device),
         dtw=check_dtw_kernels(dev8, q8, device),
         k3_bitwise=check_bitwise(dev8, q8, device),
         ds_bitwise=check_bitwise(dev8, q8, device, "DS"),
         k4_bitwise=check_bitwise(dev8, q8, device, "K4")))
-    k1, k1d, k1r, ca, cad, k2, k2f, kd = (kern[k] for k in (
+    k1, k1d, k1r, ca, cad, k2, k2f, kd, near = (kern[k] for k in (
         "k1", "k1_dtw_plans", "k1_raw_plans", "cons", "cons_dtw_plans", "k2",
-        "k2_f64", "dtw"))
+        "k2_f64", "dtw", "near"))
     k2_main = k2["shapes"][f"B{K2_BATCH}_L{L_MAIN}"]
     phase("fft", lambda: fft_error(dev8, q8, device))
     oracles: dict = {}  # the n=1e6 oracle's sets, for the streamed engines
@@ -2957,6 +3085,7 @@ def main() -> int:
     torch.cuda.reset_peak_memory_stats(device)
     probe_flags.launches = 0
     cons_and.launches = 0
+    region_znorm_near_multi.launches = 0
     window_ed.launches = 0
     window_ed_f64.launches = 0
 
@@ -2977,6 +3106,7 @@ def main() -> int:
                  beta=BETA)
     launches = dict(probe_flags=probe_flags.launches,
                     cons_and=cons_and.launches,
+                    region_znorm_near_multi=region_znorm_near_multi.launches,
                     window_ed=window_ed.launches,
                     window_ed_f64=window_ed_f64.launches)
     emit(dict(phase="main_launches", card=card, launches=launches,
@@ -3022,8 +3152,8 @@ def main() -> int:
     phase("profile", lambda: profile_batch(eng8, q8), n=N_MAIN, L=L_MAIN)
     # The single-query ops of the JAX package's names, each call counted
     # (launches made to compare with the _multi forms are not).
-    path_kernels = (probe_flags, cons_and, window_ed, dtw_diag, dtw_rows,
-                    dtw_ds)
+    path_kernels = (probe_flags, cons_and, region_znorm_near_multi,
+                    window_ed, dtw_diag, dtw_rows, dtw_ds)
     single_launches = {fn.__name__: 0 for fn in path_kernels}
     phase("single", lambda: single_phase(data8, dev8, q8, device,
                                          path_kernels, single_launches),
@@ -3164,6 +3294,22 @@ def main() -> int:
             dtw_plans_bound_ms=cad["bound_ms"],
             dtw_plans_cleared_share=cad["cleared_share"]), ca,
             per_batch["cons_and"]),
+        dict(name="region_near", route="cuda",
+             source="kvmatch_tpu_torch/csrc/regions.cu",
+             replaces="kvmatch_tpu/ops/regions.py:242 (XLA, not Pallas)",
+             launches=launches["region_znorm_near_multi"],
+             launched_on="main", count=near["count"],
+             count_plain=near["count_plain"], differ=near["differ"],
+             tolerance=f"counts equal; sets equal but for windows within "
+                       f"{NEAR_ULPS} f32 ulps of a limit",
+             ms=near["ms"], plain_ms=near["plain_ms"],
+             section_ms=near["section_ms"], library_ms=None,
+             bound_ms=near["bound_ms"], bound_by=near["bound_by"],
+             share_of_bound=near["share_of_bound"],
+             timing=f"the call (three kernels, two cuFFT transforms) by "
+                    f"CUDA events, B={near['chunk_rows']} "
+                    f"({near['real_rows']} rows), L={near['L']}, "
+                    f"M={near['M']}"),
         with_bound(dict(
             name="window_ed", route="cuda",
             source="kvmatch_tpu_torch/csrc/window_ed.cu",

@@ -102,6 +102,12 @@ class QueryStats:
     # (its group's, shared by the group's queries; 0 on the cached path):
     # engine/probe.py:ResidentProbe.run.
     n_probe_blocks: int = 0
+    # Region rows (padding left out) that the region near-set served for
+    # the query, and the passes of its batch that overflowed the near-set's
+    # capacity (NEAR_K) into the full-matrix fallback (cNSM-ED's region
+    # route, engine/norm_ed.py:_verify_regions).
+    n_region_rows: int = 0
+    n_near_overflows: int = 0
     early_terminated: bool = False
     # The request's span records (utils/profiling.py), shared by the
     # request's queries; None unless a profiler recorded.

@@ -33,6 +33,10 @@ from ..utils import rounding
 from ..utils.profiling import fetch, span
 from .base import _EMPTY, NEAR_K, BaseEngine, _Ctx
 
+#: Region rows of a near-set launch are a multiple of this (the chunk's
+#: padding rows cut to it), so the transforms take few distinct shapes.
+NEAR_ROWS_STEP = 256
+
 
 def host_znorm_stats(data: np.ndarray, offsets: np.ndarray,
                      q_hat: np.ndarray):
@@ -456,9 +460,15 @@ class NormQueryEngine(BaseEngine):
 
     def _verify_regions(self, cand_ivs, ctxs, region):
         """Region route: z-norm FFT distances with the guarded constraint,
-        near-set selection on the device, exact f64 confirm of the set."""
+        near-set selection on the device (``region_znorm_near_multi``, one
+        read-back a chunk), exact f64 confirm of the set.  Each query's
+        ``n_region_rows`` gains its rows; ``n_near_overflows`` counts the
+        batch's passes that overflowed ``NEAR_K`` into the full-matrix
+        fallback."""
         L = ctxs[0].length
         starts, vfrom, vto, qids, M = region
+        for c, k in zip(ctxs, np.bincount(qids, minlength=len(ctxs))):
+            c.stats.n_region_rows += int(k)
         qm = self._qhats(ctxs)
         data_dev = self.data_dev
         threshs = self._guarded_threshs(ctxs)
@@ -471,17 +481,27 @@ class NormQueryEngine(BaseEngine):
 
         with span("kv.verify.near") as sp:
             def near_fn(s_, q_, vf_, vt_):
-                args = (self._dev(s_, torch.int64), self._dev(q_, torch.int32),
-                        self._dev(vf_, torch.int64),
-                        self._dev(vt_, torch.int64))
+                # A chunk's padding rows (vto = vfrom) follow its rows (at
+                # least one): the launch stops at the first multiple of
+                # NEAR_ROWS_STEP past the last row, so the transforms skip
+                # most of them.
+                last = int(np.flatnonzero(vt_ > vf_)[-1])
+                keep = (last // NEAR_ROWS_STEP + 1) * NEAR_ROWS_STEP
+                args = (self._dev(s_[:keep], torch.int64),
+                        self._dev(q_[:keep], torch.int32),
+                        self._dev(vf_[:keep], torch.int64),
+                        self._dev(vt_[:keep], torch.int64))
                 with sp.device(self.device):
                     cnt, rows, cols = region_znorm_near_multi(
                         data_dev, qm, *args, th_dev, cons_dev, L, M, NEAR_K)
-                return (cnt, *fetch("kv.verify.wait", rows, cols))
+                return fetch("kv.verify.wait", torch.as_tensor(cnt), rows,
+                             cols)
 
             near = vf.run_region_near(near_fn, starts, vfrom, vto, qids,
                                       NEAR_K, width=M + L - 1)
         if near is None:
+            for c in ctxs:
+                c.stats.n_near_overflows += 1
             # Overflowed the near-set capacity: full-matrix fallback with the
             # same guarded constraint and distance test on the host.
             with span("kv.verify.near") as sp:

@@ -24,10 +24,10 @@ from pathlib import Path
 
 _CSRC = Path(__file__).resolve().parent.parent / "csrc"
 _BUILD = Path(__file__).resolve().parents[2] / "build" / "kernels"
-SOURCES = ("probe.cu", "window_ed.cu", "dtw.cu")
-# --fmad=false: K1 and the constraint AND repeat their plain versions' f32
-# operations exactly, and the double-single DP's TwoSum is error-free only
-# without contraction.
+SOURCES = ("probe.cu", "window_ed.cu", "dtw.cu", "regions.cu")
+# --fmad=false: K1, the constraint AND and the region near-set repeat their
+# plain versions' f32 and f64 operations exactly, and the double-single DP's
+# TwoSum is error-free only without contraction.
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "--fmad=false", "-Xcompiler", "-fPIC")
 _BUILD_TIMEOUT_S = 600
@@ -128,6 +128,29 @@ def lib() -> ctypes.CDLL:
             P, L, P, I,                 # data (f32), n, queries (f64), L
             P, P, I,                    # offsets (int64), qids (int32), B
             P, P, P,                    # d2, mean, std (f64)
+            P]                          # stream
+        cdll.kvm_region_rows.restype = I
+        cdll.kvm_region_rows.argtypes = [
+            P, L,                       # data (f32), n
+            P, P, P,                    # starts, vfrom, vto (int64)
+            I, I, I,                    # B, R, N
+            P, P,                       # rows (B, N) f32, count (int32)
+            P]                          # stream
+        cdll.kvm_spectrum_mul.restype = I
+        cdll.kvm_spectrum_mul.argtypes = [
+            P, P,                       # spectra (B, H), query spectra (Q, H)
+            P, P, P,                    # qids (int32), vfrom, vto (int64)
+            I, I,                       # B, H
+            P]                          # stream
+        cdll.kvm_region_near.restype = I
+        cdll.kvm_region_near.argtypes = [
+            P, L,                       # data (f32), n
+            P, P, P, P,                 # starts, qids, vfrom, vto
+            P, I, I,                    # corr (B, N) f32, B, N
+            P, P,                       # thresh (Q,), cons (Q, 5) f32
+            I, I,                       # L, M
+            F, F, F, F,                 # 2L, err's three factors (f32)
+            I, P,                       # near_k, out (1 + 2 near_k) int32
             P]                          # stream
         for name, n_out in (("dtw_diag", 1), ("dtw_ds", 2), ("dtw_rows", 1)):
             fn = getattr(cdll, f"kvm_{name}")

@@ -11,6 +11,11 @@ evaluated with one batched rfft/irfft cross-correlation (``torch.fft``):
 with a per-offset f32 error bound that the caller adds to its guard band
 before the exact f64 host confirmation.  ``FFT_ERR_C`` was fit on TPU FFTs;
 chip_smoke.py re-measures the cuFFT error against f64 before relying on it.
+
+``region_znorm_near_multi`` (cNSM-ED's region near-set) launches hand-written
+CUDA passes (csrc/regions.cu) around the two ``torch.fft`` transforms for
+CUDA tensors and runs ``region_znorm_near_plain``, the torch chain, for CPU
+tensors.  The other functions here are torch chains on every device.
 """
 
 from __future__ import annotations
@@ -20,6 +25,7 @@ from typing import Tuple
 import numpy as np
 import torch
 
+from .. import backend, kernels
 from ..utils.profiling import span
 from .ed import _gather, _one_query
 
@@ -54,11 +60,17 @@ def _sliding_sum_rows(x: torch.Tensor, w: int) -> torch.Tensor:
     return acc
 
 
+def _fft_len(r_len: int) -> int:
+    """The transforms' length for rows of ``r_len`` points: the next power
+    of two (at least 2)."""
+    return 1 << max(int(np.ceil(np.log2(r_len))), 1)
+
+
 def _correlate_grouped(x: torch.Tensor, qs: torch.Tensor) -> torch.Tensor:
     """corr[b, i] = sum_j x[b, i+j] qs[b, j] by batched f32 FFT."""
     R = x.shape[1]
     L = qs.shape[1]
-    N = 1 << max(int(np.ceil(np.log2(R))), 1)
+    N = _fft_len(R)
     X = torch.fft.rfft(x, n=N, dim=1)
     Qf = torch.fft.rfft(torch.flip(qs, dims=(1,)), n=N, dim=1)
     full = torch.fft.irfft(X * Qf, n=N, dim=1)
@@ -167,7 +179,9 @@ def _near_compact(near: torch.Tensor, near_k: int):
     """(count, rows, cols) of the True cells of a 2-D mask in ascending
     row-major order, at most ``near_k`` of them; callers read [:count] and
     fall back when count > near_k (the contract of the JAX _near_compact).
-    ``nonzero`` waits for the mask: a read-back of its count."""
+    ``nonzero`` waits for the mask: a read-back of its count.  The plain
+    versions' compaction; the kernel route of ``region_znorm_near_multi``
+    keeps the count and the bound but not the order."""
     with span("kv.verify.wait"):
         idx = torch.nonzero(near)
     count = int(idx.shape[0])
@@ -192,11 +206,13 @@ def region_ed_near_multi(data, queries_centered, starts, qids, vfrom, vto,
     return _near_compact(near, near_k)
 
 
-def region_znorm_near_multi(data, queries_hat, starts, qids, vfrom, vto,
+def region_znorm_near_plain(data, queries_hat, starts, qids, vfrom, vto,
                             threshs, cons, length: int, m_per_region: int,
                             near_k: int):
-    """Z-norm region distances with the guarded constraint and near-set
-    selection; ``cons`` rows are (alpha, beta, mu_q, sd_q, cg) per query."""
+    """Plain PyTorch version of the near-set kernels (same arguments as
+    ``region_znorm_near_multi``): z-norm region distances with the guarded
+    constraint and near-set selection, compacted by ``_near_compact`` (a
+    Python int count; the pairs in ascending row-major order)."""
     d2, mean, std, err = region_znorm_distances_multi(
         data, queries_hat, starts, qids, length, m_per_region)
     c = cons[qids.long()]
@@ -207,6 +223,119 @@ def region_znorm_near_multi(data, queries_hat, starts, qids, vfrom, vto,
     near = (ok & _in_window(vfrom, vto, m_per_region, d2.device)
             & (d2 <= threshs[qids.long()][:, None] + err))
     return _near_compact(near, near_k)
+
+
+#: The near pass's threads a block: its windows a tile, one a thread
+#: (csrc/regions.cu: RN_THREADS).
+NEAR_THREADS = 256
+
+
+def near_sums_within_err(length: int, m_per_region: int) -> bool:
+    """Whether the near pass's f64 window sums keep the rounding that
+    ``region_znorm_distances_multi``'s bound ``err`` allows them.  The pass
+    adds each term into a prefix sum through at most D roundings (its
+    reduction, tile scans and carries, csrc/regions.cu; counted here with 2
+    more a cursor), so a window's variance is off by at most
+    (D (1 + 2 sqrt(R/L)) + 8) u P / L, and err covers 2 R u P / L: the test
+    is D (1 + 2 sqrt(R/L)) + 8 <= 2 R.  True for every L >= 25 at M = 512
+    or M = next_pow2(L)."""
+    L, M = length, m_per_region
+    R = M + L - 1
+    d_trail = -(-M // NEAR_THREADS) + 16
+    d_lead = -(-L // NEAR_THREADS) + 12 + d_trail
+    depth = d_lead + d_trail + 1
+    return depth * (1.0 + 2.0 * np.sqrt(R / L)) + 8.0 <= 2.0 * R
+
+
+def _check(cond: bool, what: str) -> None:
+    if not cond:
+        raise ValueError(f"region_znorm_near_multi: {what}")
+
+
+def region_znorm_near_multi(data, queries_hat, starts, qids, vfrom, vto,
+                            threshs, cons, length: int, m_per_region: int,
+                            near_k: int):
+    """The z-norm region near-set of cNSM-ED: region row b covers window
+    offsets starts[b] + [0, M), tested in [vfrom[b], vto[b]) against query
+    qids[b]; a window is near when it passes the guarded constraint (``cons``
+    rows (alpha, beta, mu_q, sd_q, cg) a query) and its d2 is at most
+    threshs[qid] plus the bound ``err`` of ``region_znorm_distances_multi``.
+    Rows with vto <= vfrom (padding) hold none.
+
+    Returns (count, rows, cols): the number of near windows (it may exceed
+    ``near_k``: the caller then falls back) and their row and column, the
+    first min(count, near_k) entries valid.  CUDA tensors take the kernels
+    (csrc/regions.cu): the count a 0-dim int32 tensor, rows and cols
+    (near_k,) int32 tensors, all three views of one buffer, written with no
+    read-back, the pairs in no particular order.  CPU tensors take
+    ``region_znorm_near_plain``: a Python int and the pairs in ascending
+    row-major order.  Raises on any other dtype, shape or layout, and on an
+    (L, M) whose window sums ``near_sums_within_err`` does not cover."""
+    if backend.route(data) == "plain":
+        return region_znorm_near_plain(data, queries_hat, starts, qids, vfrom,
+                                       vto, threshs, cons, length,
+                                       m_per_region, near_k)
+    dev = data.device
+    L, M = length, m_per_region
+    B = starts.shape[0]
+    Q = queries_hat.shape[0]
+    _check(data.dtype == torch.float32 and data.dim() == 1
+           and data.is_contiguous() and data.shape[0] > 0,
+           "data must be a contiguous f32 series (n,)")
+    _check(queries_hat.device == dev and queries_hat.dtype == torch.float32
+           and queries_hat.dim() == 2 and queries_hat.shape[1] == L
+           and queries_hat.is_contiguous() and Q > 0,
+           "queries_hat must be contiguous f32 (Q, L) on data's device")
+    for t, dt, what in ((starts, torch.int64, "starts"),
+                        (vfrom, torch.int64, "vfrom"),
+                        (vto, torch.int64, "vto"), (qids, torch.int32, "qids")):
+        _check(t.device == dev and t.dtype == dt and t.shape == (B,)
+               and t.is_contiguous(), f"{what} must be contiguous {dt} (B,)")
+    _check(threshs.device == dev and threshs.dtype == torch.float32
+           and threshs.shape == (Q,) and threshs.is_contiguous(),
+           "threshs must be contiguous f32 (Q,)")
+    _check(cons.device == dev and cons.dtype == torch.float32
+           and cons.shape == (Q, 5) and cons.is_contiguous(),
+           "cons must be contiguous f32 (Q, 5)")
+    _check(B > 0 and L > 0 and M > 0 and 0 < near_k < (1 << 30)
+           and B * M < (1 << 31), "need B, L, M, near_k > 0 and B M < 2^31")
+    _check(near_sums_within_err(L, M),
+           f"the window sums at L={L}, M={M} are outside err's rounding")
+    R = M + L - 1
+    N = _fft_len(R)
+    out = torch.empty(1 + 2 * near_k, dtype=torch.int32, device=dev)
+    lib = kernels.lib()
+    stream = torch.cuda.current_stream(dev).cuda_stream
+    rows = torch.empty((B, N), dtype=torch.float32, device=dev)
+    kernels.check(lib.kvm_region_rows(
+        data.data_ptr(), data.shape[0], starts.data_ptr(), vfrom.data_ptr(),
+        vto.data_ptr(), B, R, N, rows.data_ptr(), out.data_ptr(), stream),
+        "region_rows")
+    spec = torch.fft.rfft(rows, dim=1)
+    del rows
+    # The inverse's 1/N moves onto the query spectra: a power of two, so
+    # the correlation is the plain version's scaled the same way.
+    qspec = torch.fft.rfft(torch.flip(queries_hat, dims=(1,)), n=N, dim=1,
+                           norm="forward")
+    kernels.check(lib.kvm_spectrum_mul(
+        spec.data_ptr(), qspec.data_ptr(), qids.data_ptr(), vfrom.data_ptr(),
+        vto.data_ptr(), B, spec.shape[1], stream), "spectrum_mul")
+    corr = torch.fft.irfft(spec, n=N, dim=1, norm="forward")
+    del spec
+    two_l = float(np.float32(2.0 * L))
+    kernels.check(lib.kvm_region_near(
+        data.data_ptr(), data.shape[0], starts.data_ptr(), qids.data_ptr(),
+        vfrom.data_ptr(), vto.data_ptr(), corr.data_ptr(), B, N,
+        threshs.data_ptr(), cons.data_ptr(), L, M, two_l,
+        float(np.float32(2.0 * FFT_ERR_C * float(np.sqrt(L)))),
+        float(np.float32(SUM_ERR_C * R)), float(np.float32(ERR_C * two_l)),
+        near_k, out.data_ptr(), stream), "region_near")
+    region_znorm_near_multi.launches += 1
+    return out[0], out[1:1 + near_k], out[1 + near_k:]
+
+
+#: Calls that launched the kernels (one a region chunk).
+region_znorm_near_multi.launches = 0
 
 
 def coalesce_intervals(left: np.ndarray, right: np.ndarray, gap: int

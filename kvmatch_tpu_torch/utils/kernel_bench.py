@@ -12,7 +12,8 @@ card could take for the same work (``*_bound_ms``, from ``bound``) and the
 share of it reached (``*_share`` = bound / time).
 
 ``cons_and_times`` times the cNSM constraint AND alone (``cons_and_work``
-its bound).  ``bound`` is the one roofline of the port: ``chip_smoke.py``'s
+its bound); ``region_near`` is the region near-set's section
+(``near_work`` its bound).  ``bound`` is the one roofline of the port: ``chip_smoke.py``'s
 kernel table uses it too.  Its peaks are the published ones of one H100 SXM at 700 W;
 its operation counts per unit of work were counted in the kernels'
 sources (``K1_*``, ``K2_OPS``, ``DP_OPS``, ``DS_OPS``).
@@ -154,6 +155,18 @@ def cons_and_work(npos: int, Q: int) -> dict:
     once; CONS_OPS_POS a position and CONS_OPS_PAIR a (position, query)."""
     return bound(12 * npos + Q * npos / 128,
                  npos * (CONS_OPS_POS + CONS_OPS_PAIR * Q))
+
+
+def near_work(rows: int, L: int, M: int) -> dict:
+    """The region near-set's bound (ops/regions.region_znorm_near_multi)
+    over ``rows`` region rows: a row's R = M + L - 1 points read to stage it
+    and its N = next_pow2(R) f32 written, the same points and its M
+    correlations read by the near pass, and each of the two transforms'
+    4N bytes in and 4N out; the transforms' operations."""
+    R = M + L - 1
+    N = 1 << max(math.ceil(math.log2(R)), 1)
+    return bound(rows * (4 * R + 4 * N + 4 * R + 4 * M + 2 * (4 * N + 4 * N)),
+                 rows * 2 * FFT_OPS * N * math.log2(N))
 
 
 def band_cells(L: int, r: int) -> int:
@@ -322,6 +335,20 @@ def region_fft(data_dev, starts, L: int, M: int) -> Section:
         data_dev, qh, starts_t + i, qids, L, M),
         R * r_len * 4 + L * 4 + 3 * R * M * 4, None,
         R * 3 * FFT_OPS * N * math.log2(N))
+
+
+def region_near(data_dev, queries_hat, starts, qids, vfrom, vto, threshs,
+                cons, L: int, M: int, near_k: int) -> Section:
+    """The region near-set (``ops/regions.region_znorm_near_multi``: the
+    kernels on the card) of region rows at ``starts + i`` (device tensors,
+    as the engine sends them); its bytes and operations are ``near_work``'s
+    over the rows that are not padding."""
+    from ..ops.regions import region_znorm_near_multi
+    rows = int((vto > vfrom).sum())
+    work = near_work(rows, L, M)
+    return Section(lambda i: region_znorm_near_multi(
+        data_dev, queries_hat, starts + i, qids, vfrom, vto, threshs, cons,
+        L, M, near_k), work["bound_bytes"], None, work["bound_ops"])
 
 
 def banded_dtw(data_dev, offs, L: int, rho: int, dp) -> Section:

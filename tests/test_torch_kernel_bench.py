@@ -84,6 +84,36 @@ def test_gather_ed_equals_jax(series, i):
     assert sec.ops == kb.K2_OPS["raw"] * B * L
 
 
+def test_region_near_section_counts_rows_not_padding(series):
+    """The near-set section runs the plain chain on the CPU, its count
+    beside the plain version's, and its bound is near_work's over the
+    rows that are not padding."""
+    from kvmatch_tpu_torch.ops import regions as trg
+    data, dt, _ = series
+    R, M, L = TINY["region_fft"]
+    starts = torch.as_tensor(_offs(N, M + L - 1, R, 2))
+    q = dt[:L]
+    qh = ((q - q.mean()) / q.std(unbiased=False))[None].contiguous()
+    qids = torch.zeros(R, dtype=torch.int32)
+    vfrom = torch.zeros(R, dtype=torch.int64)
+    vto = torch.full((R,), M, dtype=torch.int64)
+    vto[-2:] = 0
+    th = torch.tensor([3.0 * L], dtype=torch.float32)
+    cons = torch.tensor([[10.0, 1e6, float(q.mean()), float(q.std()), 1e-3]],
+                        dtype=torch.float32)
+    args = (dt, qh, starts, qids, vfrom, vto, th, cons, L, M)
+    sec = kb.region_near(*args, 4096)
+    cnt, _, _ = sec.fn(0)
+    assert cnt == trg.region_znorm_near_plain(*args, 4096)[0] > 0
+    work = kb.near_work(R - 2, L, M)
+    r_len, n_fft = M + L - 1, 1 << int(np.ceil(np.log2(M + L - 1)))
+    assert sec.nbytes == work["bound_bytes"] == (R - 2) * (
+        8 * r_len + 4 * M + 20 * n_fft)
+    assert sec.ops == work["bound_ops"] == (R - 2) * 2 * kb.FFT_OPS * \
+        n_fft * np.log2(n_fft)
+    assert sec.flops is None
+
+
 def test_region_fft_equals_jax(series):
     data, dt, dj = series
     R, M, L = TINY["region_fft"]

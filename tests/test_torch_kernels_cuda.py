@@ -23,6 +23,11 @@ window's max |x| (summation order differs; see tests/test_torch_ed.py).
 K2's f64 form: d2 and std within 1e-12 relative of window_ed_plain's f64
 mode (d2 within 1e-12 L near 0), the mean within 1e-12 of the window's
 max |x|.
+The region near-set kernels (region_znorm_near_multi, csrc/regions.cu):
+the count equals the pairs returned, and the set equals the plain chain's
+(region_znorm_near_plain) but for windows within NEAR_ULPS f32 ulps of a
+limit of the test (the f64 window sums and the complex product round in
+other orders); past near_k the count is still the whole set's.
 The single-query ops (ed_distances, znorm_ed_distances, the region
 functions, dtw_banded_batch, dtw_banded_batch_multi,
 dtw_banded_batch_ds_multi) equal their _multi calls bit for bit and raise
@@ -977,3 +982,164 @@ def test_single_query_ops_raise_on_bad_input(dev):
     with pytest.raises(ValueError, match="contiguous"):
         tdtw.dtw_banded_batch_ds_multi(a[:, ::2], a[:, ::2], 5)
     assert [k.launches for k in kernels] == before
+
+
+# ------------------------------------------------------- the region near-set
+#: (L, M) of the near-set grid: M = 512 and M = next_pow2(L) (what
+#: engine/base.py:_region_m plans), and L = 30,000, whose region row
+#: (62,767 f32 points at M = 32,768) is larger than a block's shared memory.
+NEAR_GRID = [(25, 512), (1024, 512), (1024, 1024), (4096, 512), (4096, 4096),
+             (30_000, 512), (30_000, 32_768)]
+#: The f32 ulps of a limit within which the kernel and the plain chain may
+#: decide a window differently (their f64 window sums and complex products
+#: round in other orders).
+NEAR_ULPS = 16
+
+
+def _near_case(dev, L, M, seed=0, level=2341.0):
+    """Region rows over a random walk lifted to ``level`` (std/|mean| near
+    1e-3, the n = 1.4e9 series' level) with constant stretches (windows of
+    sigma = 0); three self-queries; rows with clamped starts, partial
+    windows and 5 padding rows; each query's threshold at the 5% quantile
+    of its windows' plain d2 that pass the constraint."""
+    from kvmatch_tpu_torch.ops import regions as treg
+    rng = np.random.default_rng(seed + L + M)
+    R = M + L - 1
+    B = 24 if R < 20_000 else 8
+    n = max(200_000, 6 * R)
+    x = level + np.cumsum(rng.normal(0, 0.05, n))
+    flat = rng.integers(0, n - R, 3)
+    for a in flat:
+        x[a:a + L + 40] = x[a]
+    x = x.astype(np.float32)
+    Q = 3
+    qoffs = rng.integers(0, n - L, Q)
+    qs = x[qoffs[:, None] + np.arange(L)].astype(np.float64)
+    mu, sd = qs.mean(1), qs.std(1)
+    qhat = ((qs - mu[:, None]) / sd[:, None]).astype(np.float32)
+    starts = rng.integers(-3, n - R + 9, B)
+    starts[:Q] = np.maximum(qoffs - rng.integers(0, M, Q), 0)
+    starts[Q:Q + 3] = flat  # rows whose first windows have sigma = 0
+    qids = rng.integers(0, Q, B).astype(np.int32)
+    qids[:Q] = np.arange(Q)
+    vfrom = rng.integers(0, M // 4, B)
+    vto = rng.integers(M // 2, M + 1, B)
+    vfrom[:Q + 3], vto[:Q + 3] = 0, M
+    vfrom[-5:] = vto[-5:] = 0
+    cons = np.array([[1.5, 3.0, mu[i], sd[i], 1e-3 * (1 + abs(mu[i]) + sd[i])]
+                     for i in range(Q)], np.float32)
+    t = {k: torch.as_tensor(v, device=dev) for k, v in dict(
+        data=x, qhat=qhat, starts=starts, qids=qids, vfrom=vfrom, vto=vto,
+        cons=cons).items()}
+    d2, mean, std, err = (a.cpu().numpy() for a in
+                          treg.region_znorm_distances_multi(
+                              t["data"], t["qhat"], t["starts"], t["qids"],
+                              L, M))
+    c = cons[qids]
+    ratio = std / c[:, 3:4]
+    ok = ((np.abs(mean - c[:, 2:3]) <= c[:, 1:2] + c[:, 4:5])
+          & (ratio <= c[:, 0:1] + c[:, 4:5])
+          & (ratio >= np.float32(1) / c[:, 0:1] - c[:, 4:5]) & (std > 0))
+    th = np.array([np.quantile(d2[(qids == i)[:, None] & ok], 0.05)
+                   for i in range(Q)], np.float32)
+    t["th"] = torch.as_tensor(th, device=dev)
+    # Each query's own window: column qoffs - start of its row.
+    own = [(q, int(qoffs[q] - min(starts[q], n - R))) for q in range(Q)]
+    plain = dict(d2=d2, mean=mean, std=std, err=err, c=c, ratio=ratio, th=th,
+                 own=[o for o in own if 0 <= o[1] < M])
+    args = (t["data"], t["qhat"], t["starts"], t["qids"], t["vfrom"],
+            t["vto"], t["th"], t["cons"], L, M)
+    return args, plain
+
+
+def _near_pairs(res):
+    cnt, rows, cols = res
+    cnt = int(cnt)
+    k = min(cnt, rows.shape[0])
+    rows, cols = rows.cpu().numpy()[:k], cols.cpu().numpy()[:k]
+    return cnt, list(zip(rows.tolist(), cols.tolist()))
+
+
+def _near_margin(plain, qids, L, r, c):
+    """The least distance, in f32 ulps of its limit, between a window's
+    plain statistics and the limits of the near test."""
+    eps = float(np.finfo(np.float32).eps)
+    cr = plain["c"][r]
+    d2, lim = plain["d2"][r, c], plain["th"][qids[r]] + plain["err"][r, c]
+    mean, ratio = plain["mean"][r, c], plain["ratio"][r, c]
+    gaps = [abs(lim - d2) / (eps * (2 * L + abs(lim))),
+            abs(cr[1] + cr[4] - abs(mean - cr[2]))
+            / (eps * (abs(mean) + abs(cr[2]) + cr[1])),
+            abs(cr[0] + cr[4] - ratio) / (eps * (cr[0] + ratio)),
+            abs(ratio - (1 / cr[0] - cr[4])) / (eps * (cr[0] + ratio))]
+    return min(gaps)
+
+
+@pytest.mark.parametrize("L,M", NEAR_GRID)
+def test_region_near_kernel_equals_plain(dev, L, M):
+    """The near-set kernels against the plain chain
+    (region_znorm_near_plain): the count equals the pairs returned, no
+    pair repeats or lies outside its row's window or in a padding row, and
+    the sets are equal but for windows within NEAR_ULPS f32 ulps of a limit
+    of the test, each listed on failure; the self-matches are found."""
+    from kvmatch_tpu_torch.ops import regions as treg
+    args, plain = _near_case(dev, L, M)
+    near_k = 1 << 20
+    before = treg.region_znorm_near_multi.launches
+    cnt, got = _near_pairs(treg.region_znorm_near_multi(*args, near_k))
+    assert treg.region_znorm_near_multi.launches == before + 1
+    want_cnt, want = _near_pairs(treg.region_znorm_near_plain(*args, near_k))
+    assert cnt == len(got) == len(set(got)) > 0
+    assert want_cnt == len(want) > 0
+    vfrom, vto = args[4].cpu().numpy(), args[5].cpu().numpy()
+    assert all(vfrom[r] <= c < vto[r] for r, c in got)
+    qids = args[3].cpu().numpy()
+    diff = sorted(set(got) ^ set(want))
+    far = [(r, c, _near_margin(plain, qids, L, r, c)) for r, c in diff]
+    far = [f for f in far if f[2] > NEAR_ULPS]
+    assert not far, f"{len(diff)} pairs differ, beyond {NEAR_ULPS} ulps: " \
+        f"{far[:20]}"
+    assert len(diff) <= max(2, len(want) // 1000), diff
+    assert plain["own"] and set(plain["own"]) <= set(got)
+
+
+def test_region_near_kernel_overflow_and_edges(dev):
+    """Past near_k the kernel keeps counting: the count is the whole
+    set's, and the near_k pairs it returns are distinct members of it.
+    Windows of sigma = 0 never pass; the launch counter counts calls."""
+    from kvmatch_tpu_torch.ops import regions as treg
+    L, M = 1024, 1024
+    args, plain = _near_case(dev, L, M, seed=3)
+    cnt, full = _near_pairs(treg.region_znorm_near_multi(*args, 1 << 20))
+    assert cnt == len(full) > 30
+    assert all(plain["std"][r, c] > 0 for r, c in full)
+    assert (plain["std"] == 0).any()
+    near_k = cnt // 3
+    before = treg.region_znorm_near_multi.launches
+    cnt2, part = _near_pairs(treg.region_znorm_near_multi(*args, near_k))
+    assert treg.region_znorm_near_multi.launches == before + 1
+    assert cnt2 == cnt and len(part) == near_k == len(set(part))
+    assert set(part) <= set(full)
+
+
+def test_region_near_kernel_rejects_bad_input(dev):
+    from kvmatch_tpu_torch.ops import regions as treg
+    args, _ = _near_case(dev, 25, 512)
+    data, qhat, starts, qids, vfrom, vto, th, cons, L, M = args
+    before = treg.region_znorm_near_multi.launches
+    with pytest.raises(ValueError, match="starts"):
+        treg.region_znorm_near_multi(data, qhat, starts.int(), qids, vfrom,
+                                     vto, th, cons, L, M, 64)
+    with pytest.raises(ValueError, match="queries_hat"):
+        treg.region_znorm_near_multi(data, qhat.t().contiguous().t(), starts,
+                                     qids, vfrom, vto, th, cons, L, M, 64)
+    with pytest.raises(ValueError, match="queries_hat"):
+        treg.region_znorm_near_multi(data, qhat.double(), starts, qids, vfrom,
+                                     vto, th, cons, L, M, 64)
+    with pytest.raises(ValueError, match="cons"):
+        treg.region_znorm_near_multi(data, qhat, starts, qids, vfrom, vto, th,
+                                     cons[:, :4].contiguous(), L, M, 64)
+    with pytest.raises(ValueError, match="rounding"):
+        treg.region_znorm_near_multi(data, qhat[:, :2].contiguous(), starts,
+                                     qids, vfrom, vto, th, cons, 2, M, 64)
+    assert treg.region_znorm_near_multi.launches == before
